@@ -1,23 +1,35 @@
 #!/usr/bin/env python
 """GPU smoke run of the PyTorch/CUDA port (sp_coupler_tpu_torch).
 
-Drives the port's main path — the reference T21/L19 GCM coupled two-way to
+Drives the port's two paths — the reference T21/L19 GCM coupled two-way to
 2 LES instances of 64 x 64 x 160 (RICO), CFL/Peclet-adaptive, the case of
-bench.py — through the hand-written CUDA stage kernel, on one CUDA card.
+bench.py — on one CUDA card: the main path (Deardorff TKE closure) through
+the hand-written CUDA stage kernel, and the Smagorinsky path (the split
+tendency path) through the scalar and momentum kernels.
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
-  2. build the CUDA sources from this checkout (timed);
-  3. each kernel against its plain PyTorch version on the card, at the
+  2. build the CUDA sources from this checkout, all at once (timed, with
+     ptxas's register and spill lines);
+  3. the stage kernel against its plain PyTorch version on the card, at the
      main path's shapes (64x64x160, n = 1 and 2) and a small one
      (16x16x32, n = 2): the outputs, the increments out - base on their
      own, and kmax against a float64 run of the plain version; with
      CUDA-event timings of both;
-  4. a small coupled step (T10/L8 + 2 x 16x16x32) through the kernel
-     against the same step through the plain split path: the substep
-     counts, the slab profiles and their change over the step;
+  3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
+     (advect) kernels against their plain versions at the same shapes,
+     each output array at the JAX tests' tolerance and at ARRAY_FRAC of
+     its own max|ref|; advect also at 12x10x20, n = 3, a grid the
+     lesflat dispatch refuses; with CUDA-event timings of both;
+  4. a small coupled step (T10/L8 + 2 x 16x16x32) through the kernels
+     against the same step through the plain split path, for each closure:
+     the substep counts, the slab profiles and their change over the step;
   5. the main path: 2 coupled steps (first=True, then first=False); the
-     kernel's launch count must equal 3 x the substeps taken.
+     stage kernel's launch count must equal 3 x the substeps taken;
+  6. the Smagorinsky path: the same 2 coupled steps with
+     LESPhysics(subgrid="smagorinsky"); the scalar and momentum kernels'
+     launch counts must each equal 3 x the substeps taken, and the stage
+     kernel must not run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -27,6 +39,7 @@ Run: python3 chip_smoke.py   (needs a CUDA card, nvcc and this checkout)
 import json
 import os
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -35,8 +48,20 @@ import numpy as np
 import torch
 
 OUT_DIR = "chiprun_out"
-KERNEL_SOURCE = "sp_coupler_tpu_torch/csrc/lesstage.cu"
-KERNEL_REPLACES = "sp_coupler_tpu/ops/lesstage_pallas.py:167"
+# kernel name -> (CUDA source, the Pallas kernel it replaces)
+KERNELS = {
+    "lesstage": ("sp_coupler_tpu_torch/csrc/lesstage.cu",
+                 "sp_coupler_tpu/ops/lesstage_pallas.py:167"),
+    "lesflat": ("sp_coupler_tpu_torch/csrc/lesflat.cu",
+                "sp_coupler_tpu/ops/lesflat_pallas.py:82"),
+    "lesmom": ("sp_coupler_tpu_torch/csrc/lesmom.cu",
+               "sp_coupler_tpu/ops/lesmom_pallas.py:38"),
+    "advect": ("sp_coupler_tpu_torch/csrc/lesflat.cu",
+               "sp_coupler_tpu/ops/advect_pallas.py:58"),
+}
+BUILDS = ("lesstage", "lesflat", "lesmom")   # the sources under csrc/
+# the kernels each path runs, by LESPhysics.subgrid
+PATH_KERNELS = {"tke": ("lesstage",), "smagorinsky": ("lesflat", "lesmom")}
 # tolerances of the JAX package's own kernel check (tests/test_ops.py),
 # on the stage's outputs base + f*tend, except kmax: it sits at the
 # weakest-stratified level, where N^2 is a ~0.14 K difference of two
@@ -66,6 +91,19 @@ INC_FRAC, INC_RTOL = 2e-3, 1e-3
 # (the kernel path's THL was 1.3e-3 off, QT 1.3e-4, on an NVIDIA H100
 # 80GB HBM3 at 700 W)
 COUPLED_FRAC = 1e-2
+# kernels #2-#4 (lesflat, lesmom, advect) are held at the tolerance of the
+# JAX package's own check of the Pallas kernels (tests/test_ops.py:42 for
+# the scalar kernels, :125 for momentum) and, because an absolute tolerance
+# cannot see a whole term of a small field (qr, dw), each output array
+# (each scalar of the stack; du, dv, dw) also at ARRAY_FRAC of its own
+# max|ref|. At the inputs of split_inputs the float32 plain version lies
+# within 5e-7 of max|ref| of its float64 run, and the plain version with
+# any one term removed (horizontal or vertical advection or diffusion; for
+# momentum also w's diffusion or the m0 / fm masks) moves some array by
+# 5.9e-3 of its max|ref| or more (tests/test_torch_lesops.py)
+SCALAR_TOL = dict(atol=2e-4, rtol=1e-4)
+MOM_TOL = dict(atol=5e-5, rtol=1e-4)
+ARRAY_FRAC = 1e-4
 
 
 def log(*a):
@@ -90,25 +128,35 @@ def phase_env():
 
 
 def phase_build():
+    """Build every CUDA source, one nvcc each, all started together."""
     from sp_coupler_tpu_torch.ops import _build
+
+    def one(name):
+        t0 = time.time()
+        _build.load(name)
+        return time.time() - t0
+
     t0 = time.time()
-    _build.load("lesstage")
-    dt = time.time() - t0
-    blog = _build.build_log("lesstage")
+    with ThreadPoolExecutor(len(BUILDS)) as ex:
+        secs = dict(zip(BUILDS, ex.map(one, BUILDS)))
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "build_lesstage.log"), "w") as f:
-        f.write(blog)
-    for line in blog.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
-    log("build: lesstage %.1f s" % dt)
+    for name in BUILDS:
+        blog = _build.build_log(name)
+        with open(os.path.join(OUT_DIR, "build_%s.log" % name), "w") as f:
+            f.write(blog)
+        for line in blog.splitlines():
+            if "registers" in line or "spill" in line:
+                log("ptxas %s:" % name, line.strip())
+        log("build: %s %.1f s" % (name, secs[name]))
+    log("build: all %.1f s" % (time.time() - t0))
 
 
-def stage_inputs(grid, n, seed):
+def stage_inputs(grid, n, seed, dev="cuda"):
     """Physical fleet state (port init_state) with perturbed w and qr, as
-    the JAX package's stage-kernel test (tests/test_ops.py:139-154)."""
+    the JAX package's stage-kernel test (tests/test_ops.py:139-154). The
+    CPU tests build the same inputs with dev="cpu"."""
     from sp_coupler_tpu_torch.models.les import state as lstate
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     nz = grid.nz
     gen = torch.Generator(device=dev).manual_seed(seed)
     rep = lambda a: torch.tensor(np.tile(np.asarray(a, np.float32), (n, 1)),
@@ -232,8 +280,100 @@ def phase_kernel(card):
     return worst, times
 
 
-def phase_small_coupled(card):
-    """A small coupled step through the kernel against the split path."""
+def split_inputs(grid, n, seed, dev="cuda"):
+    """Inputs of kernels #2-#4 as the Smagorinsky path makes them from the
+    stage_inputs state: u, v, w, the scalar stack [thl, qt, qr, e12] with
+    Ks = [Kh, Kh, Kh, 2 Km] from the Smagorinsky closure, rhobf, rhobh and
+    Km. The CPU tests build the same inputs with dev="cpu"."""
+    from sp_coupler_tpu_torch.models.les import step as lstep, subgrid
+    cur = stage_inputs(grid, n, seed, dev)[0]
+    Km, Kh = subgrid.eddy_viscosity(grid, cur, lstep.thermodynamics(cur)[3])
+    return dict(u=cur.u, v=cur.v, w=cur.w,
+                Ks=torch.stack([Kh, Kh, Kh, 2.0 * Km], dim=1),
+                scalars=torch.stack([cur.thl, cur.qt, cur.qr, cur.e12], dim=1),
+                rhobf=cur.rhobf, rhobh=cur.rhobh, Km=Km)
+
+
+def scalar_args(a, grid):
+    return (a["u"], a["v"], a["w"], a["Ks"], a["scalars"], a["rhobf"],
+            a["rhobh"], grid.dx, grid.dy, grid.dz)
+
+
+def momentum_args(a, grid):
+    return (a["u"], a["v"], a["w"], a["Km"], a["rhobf"], a["rhobh"],
+            grid.dx, grid.dy, grid.dz)
+
+
+def output_arrays(out):
+    """The arrays a kernel's output is held by: each scalar of a stack
+    [n, S, ...], or each of (du, dv, dw)."""
+    return out.unbind(1) if torch.is_tensor(out) else out
+
+
+def check_arrays(name, got, ref, tol):
+    """Hold each output array of got against ref: at tol, and within
+    ARRAY_FRAC of the array's own max|ref|. Returns each array's max abs
+    error as a fraction of its max|ref|."""
+    fracs = []
+    for j, (a, b) in enumerate(zip(output_arrays(got), output_arrays(ref))):
+        scale = float(b.abs().max())
+        check_close("%s array %d" % (name, j), a, b, **tol)
+        err = check_close("%s array %d vs its max|ref|" % (name, j), a, b,
+                          ARRAY_FRAC * scale, 0.0)
+        fracs.append(err / scale if scale > 0 else err)
+    return fracs
+
+
+def phase_split_kernels(card):
+    """Kernels #2-#4 against their plain versions, on the card."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    from sp_coupler_tpu_torch.ops import lesflat, lesmom, advect
+    kernels = (
+        ("lesflat", lesflat.advect_diffuse_scalars_cuda,
+         lesflat.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL),
+        ("lesmom", lesmom.momentum_tendencies_cuda,
+         lesmom.momentum_tendencies_reference, momentum_args, MOM_TOL),
+        ("advect", advect.advect_diffuse_scalars_cuda,
+         advect.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL))
+    shapes = (((16, 16, 32), 2), ((64, 64, 160), 1), ((64, 64, 160), 2))
+    res = {}
+    for name, kern, plain, args_of, tol in kernels:
+        r = res[name] = dict(max_abs_err=0.0, times={})
+        extra = (((12, 10, 20), 3),) if name == "advect" else ()
+        for (nx, ny, nz), n in shapes + extra:
+            grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+            args = args_of(split_inputs(grid, n, 11 + n), grid)
+            got, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            fracs = check_arrays(name, got, ref, tol)
+            r["max_abs_err"] = max([r["max_abs_err"]] + [
+                float((a - b).abs().max())
+                for a, b in zip(output_arrays(got), output_arrays(ref))])
+            ms = cuda_ms(lambda: kern(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            r["times"][(nx, ny, nz, n)] = (ms, plain_ms)
+            log("kernel %s %dx%dx%d n=%d: ok, err / max|ref| per array: %s; "
+                "%.3f ms (plain PyTorch %.3f ms) on %s"
+                % (name, nx, ny, nz, n, " ".join("%.2g" % f for f in fracs),
+                   ms, plain_ms, card))
+    return res
+
+
+def reset_launches():
+    from sp_coupler_tpu_torch.ops import lesstage, lesflat, lesmom, advect
+    for m in (lesstage, lesflat, lesmom, advect):
+        m.launches = 0
+
+
+def read_launches():
+    from sp_coupler_tpu_torch.ops import lesstage, lesflat, lesmom, advect
+    return dict(lesstage=lesstage.launches, lesflat=lesflat.launches,
+                lesmom=lesmom.launches, advect=advect.launches)
+
+
+def phase_small_coupled(card, subgrid="tke"):
+    """A small coupled step through the kernels against the plain split
+    path, with the given closure."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
@@ -247,10 +387,18 @@ def phase_small_coupled(card):
                                                      dt=300.0), device=dev)
         gs = core.initial_state(seed=0)
         les = seed_les(core, gs, grid, cols)
-        fn = CoupledStepFn(core, grid, lstep.LESPhysics(use_kernel=use_kernel),
-                           cols, dt_les=15.0, n_substeps=0)
+        phys = lstep.LESPhysics(subgrid=subgrid, use_kernel=use_kernel)
+        fn = CoupledStepFn(core, grid, phys, cols, dt_les=15.0, n_substeps=0)
         prof = ldiag.slab_profiles(grid, les)
+        reset_launches()
         out = fn(gs, les, prof, torch.zeros(2, device=dev), 0, first=True)
+        counts = read_launches()
+        ran = [k for k in PATH_KERNELS[subgrid] if counts[k] > 0]
+        if use_kernel and len(ran) != len(PATH_KERNELS[subgrid]):
+            raise AssertionError("kernel path of %s launched %s" % (subgrid,
+                                                                   counts))
+        if not use_kernel and any(counts.values()):
+            raise AssertionError("plain path launched %s" % counts)
         outs.append((prof, out, fn.unpack_diag(out[4])))
     (p0, o_k, d_k), (_, o_p, d_p) = outs
     if not np.array_equal(d_k["n_substeps"], d_p["n_substeps"]):
@@ -263,9 +411,9 @@ def phase_small_coupled(card):
         check_close("coupled " + k, o_k[2][k], ref, 2e-3 * scale, 2e-3)
         gaps[k] = check_increment("coupled " + k, o_k[2][k], ref, p0[k],
                                   COUPLED_FRAC, 0.0)
-    log("small coupled step T10/L8 + 2x16x16x32: kernel path == plain path "
-        "(substeps %s); profile change err / max|change|: %s on %s"
-        % ([int(x) for x in d_k["n_substeps"]],
+    log("small coupled step T10/L8 + 2x16x16x32, %s: kernel path == plain "
+        "path (substeps %s); profile change err / max|change|: %s on %s"
+        % (subgrid, [int(x) for x in d_k["n_substeps"]],
            " ".join("%s %.2g" % kv for kv in gaps.items()), card))
 
 
@@ -281,10 +429,11 @@ def seed_les(core, gs, grid, cols):
                              conv0.ps, gen)
 
 
-def main_path_case():
+def main_path_case(subgrid="tke"):
     """The bench.py case on the port: T21/L19 + 2 x 64x64x160 (RICO),
-    columns 1208/1272, adaptive with dt_les 15 s. Returns the step
-    function and its start (gcm state, LES fleet, profiles, rain)."""
+    columns 1208/1272, adaptive with dt_les 15 s, with the given LES
+    closure. Returns the step function and its start (gcm state, LES
+    fleet, profiles, rain)."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
@@ -296,19 +445,19 @@ def main_path_case():
     cols = [1208, 1272]
     gs = core.initial_state(seed=0)
     les = seed_les(core, gs, grid, cols)
-    fn = CoupledStepFn(core, grid, lstep.LESPhysics(), cols, dt_les=15.0,
-                       n_substeps=0)
+    fn = CoupledStepFn(core, grid, lstep.LESPhysics(subgrid=subgrid), cols,
+                       dt_les=15.0, n_substeps=0)
     prof = ldiag.slab_profiles(grid, les)
     return fn, (gs, les, prof, torch.zeros(len(cols), device=dev))
 
 
-def phase_main(card):
-    """The main path: 2 coupled steps of the bench.py case."""
-    from sp_coupler_tpu_torch.ops import lesstage
-    fn, (gs, les, prof, rain) = main_path_case()
+def phase_main(card, subgrid="tke"):
+    """A path at full width: 2 coupled steps of the bench.py case with the
+    given closure. Returns the kernels' launch counts of the run."""
+    fn, (gs, les, prof, rain) = main_path_case(subgrid)
     grid = fn.grid
     torch.cuda.synchronize()
-    lesstage.launches = 0
+    reset_launches()
     total_sub = 0
     steps = []
     for step, first in ((0, True), (1, False)):
@@ -330,19 +479,24 @@ def phase_main(card):
         rate = grid.nx * grid.ny * grid.nz * sum(nsub) / wall
         steps.append(dict(first=first, wall_s=wall, substeps=nsub,
                           gridpoint_updates_per_s=rate))
-        log("main path step %d (first=%s): %.3f s, substeps %s, %.4g LES "
-            "gridpoint-updates/s on %s" % (step, first, wall, nsub, rate,
-                                           card))
-    launches = lesstage.launches
-    if launches != 3 * total_sub:
-        raise AssertionError("stage kernel launches %d != 3 x %d substeps"
-                             % (launches, total_sub))
-    log("main path: %d stage-kernel launches for %d substeps"
-        % (launches, total_sub))
+        log("%s path step %d (first=%s): %.3f s, substeps %s, %.4g LES "
+            "gridpoint-updates/s on %s" % (subgrid, step, first, wall, nsub,
+                                           rate, card))
+    launches = read_launches()
+    for k, count in launches.items():
+        want = 3 * total_sub if k in PATH_KERNELS[subgrid] else 0
+        if count != want:
+            raise AssertionError("%s path: %s launches %d, want %d (3 x %d "
+                                 "substeps on the path's kernels)"
+                                 % (subgrid, k, count, want, total_sub))
+    log("%s path: launches %s for %d substeps" % (subgrid, launches,
+                                                  total_sub))
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_main.json"), "w") as f:
-        json.dump(dict(card=card, steps=steps, launches=launches), f,
-                  indent=1)
+    out = "chip_smoke_main%s.json" % ("" if subgrid == "tke"
+                                      else "_" + subgrid)
+    with open(os.path.join(OUT_DIR, out), "w") as f:
+        json.dump(dict(card=card, subgrid=subgrid, steps=steps,
+                       launches=launches), f, indent=1)
     return launches
 
 
@@ -350,13 +504,19 @@ def main():
     card = phase_env()
     phase_build()
     worst, times = phase_kernel(card)
+    split = phase_split_kernels(card)
     phase_small_coupled(card)
-    launches = phase_main(card)
-    ms, plain = times[(64, 64, 160, 1)]
-    print(json.dumps({"kernels": [{
-        "name": "lesstage", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain}]}))
+    phase_small_coupled(card, "smagorinsky")
+    runs = [phase_main(card), phase_main(card, "smagorinsky")]
+    stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
+    record = []
+    for name, (source, replaces) in KERNELS.items():
+        ms, plain = stats[name]["times"][(64, 64, 160, 1)]
+        record.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r[name] for r in runs),
+            max_abs_err=stats[name]["max_abs_err"], ms=ms, plain_ms=plain))
+    print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

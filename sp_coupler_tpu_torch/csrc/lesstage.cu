@@ -43,7 +43,13 @@
 
 #include <cuda_runtime.h>
 
+#include "stencil.cuh"
+
 namespace {
+
+using stencil::clampz;
+using stencil::face5;
+using stencil::wrap;
 
 // physical constants, sp_coupler_tpu/constants.py (double, rounded once)
 constexpr double D_PREF0 = 1.0e5, D_RD = 287.04, D_RV = 461.5, D_CP = 1004.0;
@@ -100,14 +106,6 @@ struct StageArgs {
 
 namespace {
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
-__device__ __forceinline__ int clampz(int k, int nz) {
-  return k < 0 ? 0 : (k >= nz ? nz - 1 : k);
-}
-
 __device__ __forceinline__ float qsat_liq(float T, float p) {
   float es = ES0 * expf(AT_LIQ * (T - TMELT) / (T - BT_LIQ));
   es = fminf(es, 0.9f * p);
@@ -151,18 +149,6 @@ __device__ __forceinline__ float sed_flux(const StageArgs& a, float rf,
   const float vt = (1.0f - fi) * a.sed_a * expf(a.sed_b * lrq) +
                    fi * a.sed_ai * expf(a.sed_bi * lrq);
   return rf * vt * fmaxf(qr, 0.f);
-}
-
-// 5th-order upwind face value at face x' from s at x'-3 .. x'+2
-__device__ __forceinline__ float face5(float sm3, float sm2, float sm1,
-                                       float s0, float sp1, float sp2,
-                                       float vel) {
-  const float central =
-      (37.0f * (sm1 + s0) - 8.0f * (sm2 + sp1) + (sm3 + sp2)) / 60.0f;
-  const float upwind =
-      (10.0f * (s0 - sm1) - 5.0f * (sp1 - sm2) + (sp2 - sm3)) / 60.0f;
-  const float sg = vel > 0.f ? 1.f : (vel < 0.f ? -1.f : 0.f);
-  return central - sg * upwind;
 }
 
 template <int NV>

@@ -1,8 +1,9 @@
 """Flux-form advection on the staggered C grid (anelastic, periodic x/y).
 
-Port of ``sp_coupler_tpu/models/les/advect.py`` for the schemes the main
-path runs: 5th-order upwind horizontal / 2nd-order vertical scalar
-advection ("hybrid52") and 2nd-order momentum advection.
+Port of ``sp_coupler_tpu/models/les/advect.py``: scalar advection with a
+2nd-order central ("cd2"), 5th-order upwind ("hybrid52") or 6th-order
+central ("hybrid62") horizontal face value and 2nd-order vertical flux,
+and 2nd-order momentum advection.
 
 Axis convention: [n, z, y, x] = axes (0, 1, 2, 3); profiles are [n, nz].
 """
@@ -27,6 +28,11 @@ def col(p):
     return p[:, :, None, None]
 
 
+def face_cd2(s, ax):
+    """2nd-order face value at face i (between cells i-1 and i)."""
+    return 0.5 * (sm(s, ax) + s)
+
+
 def face_up5(s, vel, ax):
     """5th-order upwind-biased face value at face i, advecting velocity vel."""
     s0, sp1, sp2 = s, sp(s, ax), sp(s, ax, 2)
@@ -36,12 +42,21 @@ def face_up5(s, vel, ax):
     return central - torch.sign(vel) * upwind
 
 
+def face_cd6(s, ax):
+    """6th-order central face value at face i."""
+    s0, sp1, sp2 = s, sp(s, ax), sp(s, ax, 2)
+    sm1, sm2, sm3 = sm(s, ax), sm(s, ax, 2), sm(s, ax, 3)
+    return (37.0 * (sm1 + s0) - 8.0 * (sm2 + sp1) + (sm3 + sp2)) / 60.0
+
+
 def _hface(s, vel, ax, scheme):
+    if scheme == "cd2":
+        return face_cd2(s, ax)
     if scheme == "hybrid52":
         return face_up5(s, vel, ax)
-    raise NotImplementedError(
-        "advection scheme %r is not ported yet (ROADMAP.md, open items: "
-        "cd2/hybrid62 advection)" % (scheme,))
+    if scheme == "hybrid62":
+        return face_cd6(s, ax)
+    raise ValueError("unknown advection scheme %r" % (scheme,))
 
 
 def _zfaces(Fz_int):

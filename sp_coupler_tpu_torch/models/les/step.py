@@ -1,10 +1,15 @@
 """LES time stepping: tendency assembly + Wicker-Skamarock RK3 + projection.
 
 Port of ``sp_coupler_tpu/models/les/step.py``. One substep is 3 RK
-stages; each stage is the fused stage (``ops.lesstage.stage_fused``: the
-CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor)
-followed by the pressure projection. ``LESPhysics(use_kernel=False)``
-selects the split ``tendencies`` path instead, on either device.
+stages, each followed by the pressure projection. With ``use_kernel`` and
+the physics the fused stage implements (``ops.lesstage.supported``: TKE
+closure, hybrid52), a stage is ``ops.lesstage.stage_fused``; otherwise it
+is the split ``tendencies`` path plus the RK axpy, whose scalar and
+momentum advection + diffusion go through ``ops.lesflat`` and
+``ops.lesmom`` under ``use_kernel`` on the grids the JAX package takes
+them on. Every kernel wrapper runs the CUDA kernel on a CUDA tensor and
+its plain PyTorch version on a CPU tensor. ``use_kernel=False`` is the
+plain split path on either device.
 
 The adaptive loop runs on the host: the exit test ``time < t_end - 1e-3``
 is evaluated in float32 on the device and read back once per substep, and
@@ -18,6 +23,7 @@ import torch
 
 from sp_coupler_tpu_torch import constants as c
 from ...utils import thermo
+from ...ops import lesflat, lesmom
 from . import advect, subgrid, poisson, micro
 from .advect import sp, sm, col, X, Y
 from .state import LESState, LESForcing, base_state
@@ -31,26 +37,15 @@ QT_FORCING_STRONG = 3    # proportional with saturation-aware clipping
 class LESPhysics(NamedTuple):
     """Static physics configuration."""
 
-    scheme: str = "hybrid52"
-    subgrid: str = "tke"
+    scheme: str = "hybrid52"         # "cd2" | "hybrid52" | "hybrid62"
+    subgrid: str = "tke"             # "tke" (DALES default) | "smagorinsky"
     f_coriolis: float = 0.0
     sponge_depth: float = 750.0      # m, nudge-to-mean layer below the lid
     sponge_tau: float = 120.0        # s, strongest relaxation rate at the top
     qt_forcing: int = QT_FORCING_GLOBAL
     mphys: micro.MicroParams = micro.MicroParams()
     n_sat_iter: int = 2
-    use_kernel: bool = True          # fused stage (CUDA kernel on the GPU)
-
-
-def _check_phys(phys):
-    if phys.subgrid != "tke":
-        raise NotImplementedError(
-            "subgrid=%r is not ported yet (ROADMAP.md, open items: "
-            "Smagorinsky closure)" % (phys.subgrid,))
-    if phys.scheme != "hybrid52":
-        raise NotImplementedError(
-            "scheme=%r is not ported yet (ROADMAP.md, open items: "
-            "cd2/hybrid62 advection)" % (phys.scheme,))
+    use_kernel: bool = True          # CUDA kernels on the GPU
 
 
 def _bcast(dt):
@@ -84,38 +79,66 @@ def _apply_qt_forcing(state, forcing, mode):
 
 def tendencies(grid, phys, state, forcing, dt):
     """All non-pressure tendencies (dict keyed like the state). ``dt``:
-    the substep length, [n] tensor or python float (microphysics limits)."""
-    _check_phys(phys)
+    the substep length, [n] tensor or python float (microphysics limits).
+
+    Under ``use_kernel``, on the grids ``lesflat.supported`` accepts, the
+    scalar (hybrid52 only) and momentum advection + diffusion go through
+    the kernel wrappers, and the prescribed surface fluxes are added on
+    plane 0 afterwards, as in the JAX package under ``use_pallas``.
+    """
     dt = _bcast(dt)
     T, ql, qs, thv = thermodynamics(state)
     rhobf, rhobh = state.rhobf, state.rhobh
     mean = lambda f: torch.mean(f, dim=(Y, X), keepdim=True)
     thv_m, thl_m, qt_m = mean(thv), mean(state.thl), mean(state.qt)
 
-    Km, Kh, lam, S2, N2 = subgrid.tke_viscosity(grid, state, thv, thv_m)
+    if phys.subgrid == "tke":
+        Km, Kh, lam, S2, N2 = subgrid.tke_viscosity(grid, state, thv, thv_m)
+    else:
+        Km, Kh = subgrid.eddy_viscosity(grid, state, thv)
 
     # thl, qt, qr share Kh; e12 diffuses with 2 Km; the prescribed
     # surface fluxes enter thl and qt through the bottom face
-    out = []
-    for s, K, sf in ((state.thl, Kh, forcing.wthl),
-                     (state.qt, Kh, forcing.wqt),
-                     (state.qr, Kh, None), (state.e12, 2.0 * Km, None)):
-        if sf is None:
-            sf = torch.zeros_like(forcing.wthl)
-        out.append(advect.advect_scalar(grid, rhobf, rhobh, state.u,
-                                        state.v, state.w, s, phys.scheme)
-                   + subgrid.diffuse_scalar(grid, rhobf, rhobh, K, s,
-                                            surf_flux=sf))
-    dthl, dqt, dqr, de12_all = out
+    scalars = (state.thl, state.qt, state.qr, state.e12)
+    Ks = (Kh, Kh, Kh, 2.0 * Km)
+    kernels = phys.use_kernel and lesflat.supported(grid)
+    # a bottom-face flux F adds rhobh[0] F / (rhobf[0] dz) on plane 0
+    corr = (rhobh[:, 0] / (rhobf[:, 0] * grid.dz))[:, None, None]
+    if kernels and phys.scheme == "hybrid52":
+        fused = lesflat.advect_diffuse_scalars(
+            state.u, state.v, state.w, torch.stack(Ks, dim=1),
+            torch.stack(scalars, dim=1), rhobf, rhobh,
+            grid.dx, grid.dy, grid.dz)
+        dthl, dqt, dqr, de12_all = fused.unbind(1)
+        # in place on the wrapper's fresh output
+        dthl[:, 0] += corr * forcing.wthl[:, None, None]
+        dqt[:, 0] += corr * forcing.wqt[:, None, None]
+    else:
+        zero = torch.zeros_like(forcing.wthl)
+        dthl, dqt, dqr, de12_all = (
+            advect.advect_scalar(grid, rhobf, rhobh, state.u, state.v,
+                                 state.w, s, phys.scheme)
+            + subgrid.diffuse_scalar(grid, rhobf, rhobh, K, s, surf_flux=sf)
+            for s, K, sf in zip(scalars, Ks,
+                                (forcing.wthl, forcing.wqt, zero, zero)))
 
-    du = advect.advect_u(grid, rhobf, rhobh, state.u, state.v, state.w)
-    dv = advect.advect_v(grid, rhobf, rhobh, state.u, state.v, state.w)
-    dw = advect.advect_w(grid, rhobf, rhobh, state.u, state.v, state.w)
-    tu, tv, tw, ustar = subgrid.diffuse_momentum(grid, rhobf, rhobh, Km,
-                                                 state, forcing.z0m)
-    du = du + tu
-    dv = dv + tv
-    dw = dw + tw
+    if kernels:
+        ustar, fu, fv = subgrid.surface_momentum_fluxes(grid, state,
+                                                        forcing.z0m)
+        du, dv, dw = lesmom.momentum_tendencies(
+            state.u, state.v, state.w, Km, rhobf, rhobh,
+            grid.dx, grid.dy, grid.dz)
+        du[:, 0] += corr * fu
+        dv[:, 0] += corr * fv
+    else:
+        du = advect.advect_u(grid, rhobf, rhobh, state.u, state.v, state.w)
+        dv = advect.advect_v(grid, rhobf, rhobh, state.u, state.v, state.w)
+        dw = advect.advect_w(grid, rhobf, rhobh, state.u, state.v, state.w)
+        tu, tv, tw, ustar = subgrid.diffuse_momentum(grid, rhobf, rhobh, Km,
+                                                     state, forcing.z0m)
+        du = du + tu
+        dv = dv + tv
+        dw = dw + tw
 
     # buoyancy on interior w faces, relative to the slab mean
     b_cent = c.grav * (thv - thv_m) / torch.clamp_min(thv_m, 1.0)
@@ -123,8 +146,11 @@ def tendencies(grid, phys, state, forcing, dt):
     zero = torch.zeros_like(b_face[:, :1])
     dw = dw + torch.cat([zero, b_face, zero], dim=1)
 
-    de12 = de12_all + subgrid.tke_sources(grid, Km, Kh, lam, S2, N2,
-                                          state.e12)
+    if phys.subgrid == "tke":
+        de12 = de12_all + subgrid.tke_sources(grid, Km, Kh, lam, S2, N2,
+                                              state.e12)
+    else:
+        de12 = torch.zeros_like(state.e12)
 
     if phys.f_coriolis != 0.0:
         vc_at_u = 0.25 * (state.v + sp(state.v, Y) + sm(state.v, X)
@@ -178,8 +204,7 @@ def substep(grid, phys, state: LESState, forcing: LESForcing, dt,
     """
     from ...ops import lesstage
 
-    _check_phys(phys)
-    if phys.use_kernel:
+    if phys.use_kernel and lesstage.supported(phys):
         def stage(s, frac, base):
             (u, v, wn, thl, qt, qr, e12, kmax, ustar2,
              rain) = lesstage.stage_fused(grid, phys, s, base, forcing,

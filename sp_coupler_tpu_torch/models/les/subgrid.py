@@ -1,9 +1,10 @@
-"""Subgrid turbulence closure: Deardorff prognostic-TKE scheme.
+"""Subgrid turbulence closures: Deardorff prognostic TKE and Smagorinsky.
 
-Port of the TKE branch of ``sp_coupler_tpu/models/les/subgrid.py`` (the
-reference case runs it, namoptions &NAMSUBGRID lsmagorinsky=.false.):
-strain and stability, eddy viscosities, TKE sources, down-gradient
-diffusion and the neutral surface drag law. Fields are [n, nz, ny, nx].
+Port of ``sp_coupler_tpu/models/les/subgrid.py``: strain and stability,
+the Deardorff eddy viscosities and TKE sources (the reference case,
+namoptions &NAMSUBGRID lsmagorinsky=.false.), the Smagorinsky-Lilly eddy
+viscosity (lsmagorinsky=.true.), down-gradient diffusion and the neutral
+surface drag law. Fields are [n, nz, ny, nx].
 """
 
 import torch
@@ -12,6 +13,9 @@ from sp_coupler_tpu_torch import constants as c
 from .advect import sp, sm, col, X, Y, Z
 
 KAPPA = 0.4          # von Karman
+CS = 0.15            # Smagorinsky constant
+PRANDTL = 1.0 / 3.0  # turbulent Prandtl number (Kh = Km / Pr)
+RI_C = 0.25          # critical Richardson number
 
 # prognostic-TKE (Deardorff) constants, DALES values
 CM = 0.12
@@ -64,6 +68,20 @@ def strain_and_stability(grid, state, thv, thv_m=None):
     ], dim=Z) / grid.dz
     N2 = c.grav / torch.clamp_min(thv_m, 1.0) * dthv
     return S2, N2.expand(S2.shape)
+
+
+def eddy_viscosity(grid, state, thv):
+    """Smagorinsky-Lilly (Km, Kh) with the Richardson stability factor and
+    the wall-limited mixing length; takes its own slab mean of thv."""
+    S2, N2 = strain_and_stability(grid, state, thv)
+    Ri = N2 / torch.clamp_min(S2, 1e-12)
+    fstab = torch.sqrt(torch.clamp(1.0 - Ri / RI_C, 0.0, 1.0))
+    delta = _delta(grid)
+    zf = (torch.arange(grid.nz, dtype=torch.float32, device=S2.device)
+          + 0.5) * grid.dz
+    lam = 1.0 / torch.sqrt(1.0 / delta ** 2 + 1.0 / (KAPPA * zf) ** 2)
+    Km = (CS * lam[None, :, None, None]) ** 2 * torch.sqrt(S2) * fstab
+    return Km, Km / PRANDTL
 
 
 def tke_viscosity(grid, state, thv, thv_m=None):
@@ -137,14 +155,19 @@ def surface_momentum_fluxes(grid, state, z0m):
     return ustar, fu, fv
 
 
+def diffuse_w(grid, rhobf, rhobh, Km, w):
+    """Diffusion tendency of w [n, nz+1, ...], zero on the outer faces: the
+    interior faces diffused as a scalar with face-interpolated Km."""
+    Kw = 0.5 * (Km[:, 1:] + Km[:, :-1])
+    # on the w grid the "cells" sit at zh[1..nz-1] with faces at zf
+    tw_int = diffuse_scalar(grid, rhobh[:, 1:-1], rhobf, Kw, w[:, 1:-1])
+    zero = torch.zeros_like(w[:, :1])
+    return torch.cat([zero, tw_int, zero], dim=Z)
+
+
 def diffuse_momentum(grid, rhobf, rhobh, Km, state, z0m):
     """Diffusion tendencies for (u, v, w) plus the surface drag stress."""
     ustar, fu, fv = surface_momentum_fluxes(grid, state, z0m)
     tu = diffuse_scalar(grid, rhobf, rhobh, Km, state.u, surf_flux=fu)
     tv = diffuse_scalar(grid, rhobf, rhobh, Km, state.v, surf_flux=fv)
-    wi = state.w[:, 1:-1]
-    Kw = 0.5 * (Km[:, 1:] + Km[:, :-1])
-    # on the w grid the "cells" sit at zh[1..nz-1] with faces at zf
-    tw_int = diffuse_scalar(grid, rhobh[:, 1:-1], rhobf, Kw, wi)
-    zero = torch.zeros_like(state.w[:, :1])
-    return tu, tv, torch.cat([zero, tw_int, zero], dim=Z), ustar
+    return tu, tv, diffuse_w(grid, rhobf, rhobh, Km, state.w), ustar

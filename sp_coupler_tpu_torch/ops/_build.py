@@ -1,19 +1,23 @@
-"""Build the package's CUDA sources at first use.
+"""Build the package's CUDA sources at first use, and bind them.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into
 a shared library with a plain C interface, loaded with ctypes. The result
 lives in ``sp_coupler_tpu_torch/_build/<name>-<hash>.so`` (git-ignored),
-keyed by a hash of the source and the compile command, so a fresh
-checkout builds everything on its first call and later calls reuse it.
-A failed build raises with the compiler's output.
+keyed by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+compile command, so a fresh checkout builds everything on its first call
+and later calls reuse it. A failed build raises with the compiler's
+output. ``function`` and ``check_cuda`` serve the kernel wrappers.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -42,15 +46,22 @@ def nvcc_command(src, out, nvcc="nvcc"):
             "-o", out, src]
 
 
+def source_key(name):
+    """Hash of csrc/<name>.cu, every shared header csrc/*.cuh and the
+    compile command: a change to any of them makes a new build."""
+    h = hashlib.sha256(" ".join(nvcc_command("src", "out")).encode())
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 def build(name):
     """Compile csrc/<name>.cu (if not built yet); return the .so path and
     the compiler's log ('' when the library was already built)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    key = hashlib.sha256(text + " ".join(
-        nvcc_command("src", "out")).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, "%s-%s.so" % (name, key))
+    out = os.path.join(BUILD_DIR, "%s-%s.so" % (name, source_key(name)))
     if os.path.isfile(out):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -79,3 +90,31 @@ def build_log(name):
     """The compiler's output of this process's build of <name> ('' if the
     library was already on disk)."""
     return _loaded.get(name, (None, ""))[1]
+
+
+def function(name, fn, argtypes):
+    """The C function ``fn`` of csrc/<name>.cu, returning an int (its CUDA
+    error code); pass pointers and the stream as ctypes.c_void_p."""
+    f = getattr(load(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check_cuda(x, shape, name):
+    """x's data pointer, after checking that x is a contiguous float32 CUDA
+    tensor of the given shape (ValueError otherwise)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("%s: need a float32 CUDA tensor, got %s %s"
+                         % (name, x.dtype, x.device))
+    if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError("%s: need a contiguous %s tensor, got %s"
+                         % (name, tuple(shape), tuple(x.shape)))
+    return x.data_ptr()
+
+
+def raise_on_error(err, what):
+    """Raise if a C entry returned a CUDA error code other than 0."""
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (what, err))

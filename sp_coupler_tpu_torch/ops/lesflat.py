@@ -1,0 +1,94 @@
+"""Scalar advection + diffusion of a scalar stack: CUDA kernel wrapper and
+its plain PyTorch version.
+
+``advect_diffuse_scalars`` replaces ``sp_coupler_tpu/ops/lesflat_pallas.py::
+advect_diffuse_scalars`` (the Pallas TPU kernel ``_kernel``), which the
+split ``tendencies`` path runs for thl, qt, qr and e12 when the scheme is
+hybrid52 and ``supported(grid)`` holds. On CUDA tensors it launches the
+hand-written Hopper kernel ``csrc/lesflat.cu`` (built at first use,
+ops/_build.py) and raises if the launch fails; on CPU tensors it runs
+``advect_diffuse_scalars_reference``. The kernel is bounded by memory
+traffic; the note at the top of the CUDA source says what its simple
+design does about that.
+"""
+
+import ctypes
+from types import SimpleNamespace
+
+import torch
+
+from . import _build
+from ..models.les import advect, subgrid
+
+launches = 0   # kernel launches made by advect_diffuse_scalars
+
+LANE = 128     # the TPU kernel's lane width, for supported()
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+             + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+
+def supported(grid):
+    """The JAX package's rule for this kernel (ny*nx a multiple of 128, nz
+    of 16), so that the port takes the JAX package's path on each grid."""
+    return (grid.ny * grid.nx) % LANE == 0 and grid.nz % 16 == 0
+
+
+def advect_diffuse_scalars_reference(u, v, w, Ks, scalars, rhobf, rhobh,
+                                     dx, dy, dz):
+    """Plain PyTorch version: hybrid52 ``advect_scalar`` plus
+    ``diffuse_scalar`` without a surface flux, for each scalar of the
+    stack. Same signature and output as ``advect_diffuse_scalars``."""
+    g = SimpleNamespace(dx=dx, dy=dy, dz=dz)
+    return torch.stack([
+        advect.advect_scalar(g, rhobf, rhobh, u, v, w, scalars[:, i],
+                             "hybrid52")
+        + subgrid.diffuse_scalar(g, rhobf, rhobh, Ks[:, i], scalars[:, i])
+        for i in range(scalars.shape[1])], dim=1)
+
+
+def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz):
+    """Launch csrc/lesflat.cu through its C entry ``entry`` on CUDA
+    tensors (counted by the caller); returns the [n, S, nz, ny, nx]
+    tendency."""
+    n, S, nz, ny, nx = scalars.shape
+    if nx < 4 or ny < 4:
+        raise ValueError("the scalar kernel needs nx, ny >= 4, got %d, %d"
+                         % (nx, ny))
+    chk = _build.check_cuda
+    fld, face = (n, nz, ny, nx), (n, nz + 1, ny, nx)
+    ptrs = (chk(u, fld, "u"), chk(v, fld, "v"), chk(w, face, "w"),
+            chk(Ks, scalars.shape, "Ks"),
+            chk(scalars, (n, S, nz, ny, nx), "scalars"),
+            chk(rhobf, (n, nz), "rhobf"), chk(rhobh, (n, nz + 1), "rhobh"))
+    out = torch.empty_like(scalars)
+    fn = _build.function("lesflat", entry, _ARGTYPES)
+    _build.raise_on_error(
+        fn(*ptrs, out.data_ptr(), n, S, nz, ny, nx, dx, dy, dz,
+           torch.cuda.current_stream(u.device).cuda_stream), entry)
+    return out
+
+
+def advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
+                                dx, dy, dz):
+    """Launch the Hopper kernel on CUDA tensors."""
+    global launches
+    out = launch_scalars("lesflat_tend", u, v, w, Ks, scalars, rhobf, rhobh,
+                         dx, dy, dz)
+    launches += 1
+    return out
+
+
+def advect_diffuse_scalars(u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz):
+    """Advection + diffusion tendencies of a scalar stack, whole fleet.
+
+    u, v: [n, nz, ny, nx]; w: [n, nz+1, ny, nx]; Ks, scalars: [n, S, nz,
+    ny, nx]; rhobf: [n, nz]; rhobh: [n, nz+1]. Returns [n, S, nz, ny, nx]
+    (surface flux excluded: the caller adds it on plane 0). CUDA tensors
+    go to the kernel, CPU tensors to the plain version.
+    """
+    if scalars.device.type != "cuda":
+        return advect_diffuse_scalars_reference(u, v, w, Ks, scalars, rhobf,
+                                                rhobh, dx, dy, dz)
+    return advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
+                                       dx, dy, dz)

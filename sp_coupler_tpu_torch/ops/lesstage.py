@@ -4,8 +4,11 @@
 stage_fused`` (the Pallas TPU kernel ``_kernel``). On CUDA tensors it
 launches the hand-written Hopper kernel ``csrc/lesstage.cu`` (built at
 first use, ops/_build.py) and raises if the launch fails; on CPU tensors
-it runs ``stage_fused_reference``, the split ``tendencies`` path plus the
-RK axpy — the same reference the JAX package holds its kernel against.
+it runs ``stage_fused_reference``, the plain split ``tendencies`` path
+plus the RK axpy — the same reference the JAX package holds its kernel
+against. Both implement only the physics ``supported`` accepts (the
+Deardorff TKE closure and hybrid52 advection); ``stage_fused`` raises for
+any other.
 
 The kernel is bounded by memory traffic (7 fields in, 7 base fields, 7
 out, plus 3 scratch fields per stage); see the note at the top of the
@@ -16,6 +19,7 @@ import ctypes
 
 import torch
 
+from . import _build
 from ..models.les import step as lstep, subgrid
 
 launches = 0   # kernel launches made by stage_fused on CUDA tensors
@@ -42,21 +46,26 @@ class _StageArgs(ctypes.Structure):
             "means", "Km", "Kh", "src")])
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("lesstage")
-    if not getattr(lib, "_argtypes_set", False):
-        lib.lesstage_stage.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.lesstage_stage.restype = ctypes.c_int
-        lib._argtypes_set = True
-    return lib
+def supported(phys):
+    """Whether the stage kernel implements this physics: the physics half
+    of ``sp_coupler_tpu/ops/lesstage_pallas.py::supported``."""
+    return phys.subgrid == "tke" and phys.scheme == "hybrid52"
+
+
+def _check_supported(phys):
+    if not supported(phys):
+        raise ValueError("the fused stage implements subgrid='tke' with "
+                         "scheme='hybrid52', not subgrid=%r, scheme=%r"
+                         % (phys.subgrid, phys.scheme))
 
 
 def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt):
     """Plain PyTorch version: split tendencies(cur) -> base + frac*dt*tend,
     with the clips of the kernel. Same signature and outputs as
-    ``stage_fused``."""
-    t = lstep.tendencies(grid, phys, cur, forcing, dt)
+    ``stage_fused``. The tendencies take their own plain path
+    (use_kernel=False), so no other kernel runs inside it."""
+    t = lstep.tendencies(grid, phys._replace(use_kernel=False), cur,
+                         forcing, dt)
     f = (frac_dt * dt)[:, None, None, None]
     return (base.u + f * t["u"], base.v + f * t["v"],
             (base.w + f * t["w"])[:, :-1],
@@ -67,19 +76,10 @@ def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt):
             t["kmax"], t["ustar"] ** 2, t["surf_rain"])
 
 
-def _check(x, shape, name):
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError("%s: need a float32 CUDA tensor, got %s %s"
-                         % (name, x.dtype, x.device))
-    if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
-        raise ValueError("%s: need a contiguous %s tensor, got %s"
-                         % (name, tuple(shape), tuple(x.shape)))
-    return x.data_ptr()
-
-
 def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
     """Launch the Hopper kernel for one fused stage on CUDA tensors."""
     global launches
+    _check_supported(phys)
     mp = phys.mphys
     if not (mp.sed_b > 0.0 and mp.sed_bi > 0.0):
         raise ValueError("the fused stage needs fall-speed exponents > 0 "
@@ -107,6 +107,7 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
         accr_k=mp.accr_k, evap_tau=mp.evap_tau, sed_a=mp.sed_a,
         sed_b=mp.sed_b, ice_tau=mp.ice_tau, ice_qi0=mp.ice_qi0,
         sed_ai=mp.sed_ai, sed_bi=mp.sed_bi)
+    _check = _build.check_cuda
     for k in ("u", "v", "thl", "qt", "qr", "e12"):
         setattr(a, k, _check(getattr(cur, k), fld, "cur." + k))
         setattr(a, k + "b", _check(getattr(base, k), fld, "base." + k))
@@ -125,11 +126,11 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
     a.aux, a.means = aux.data_ptr(), means.data_ptr()
     a.Km, a.Kh, a.src = (s.data_ptr() for s in scratch)
 
-    err = _lib().lesstage_stage(ctypes.byref(a),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("lesstage kernel launch failed: CUDA error %d"
-                           % err)
+    fn = _build.function("lesstage", "lesstage_stage",
+                         [ctypes.c_void_p, ctypes.c_void_p])
+    _build.raise_on_error(
+        fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream),
+        "lesstage")
     launches += 1
     un, vn, wn, thl, qt, qr, e12 = outs
     return un, vn, wn, thl, qt, qr, e12, aux[:, 0], aux[:, 1], aux[:, 2]
@@ -143,8 +144,10 @@ def stage_fused(grid, phys, cur, base, forcing, frac_dt, dt):
     w[faces 0..nz-1], thl, qt, qr, e12, kmax [n], <u*^2> [n], surface rain
     flux [n]) — velocities before the projection; the caller projects and
     appends w face nz (= 0). CUDA tensors go to the kernel, CPU tensors to
-    the plain version.
+    the plain version; physics outside ``supported`` raises ValueError on
+    either.
     """
+    _check_supported(phys)
     if cur.thl.device.type == "cuda":
         return stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt)
     return stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt)

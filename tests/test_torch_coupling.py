@@ -188,16 +188,20 @@ def test_gcm_tendencies(case, conservative):
 LOOSE = {("forcing", "f_thl"): 5e-2, ("les", "qt_std"): 2e-2}
 
 
-@pytest.fixture(scope="module")
-def coupled(case):
+@pytest.fixture(scope="module", params=["tke", "smagorinsky"])
+def coupled(case, request):
     """Two coupled steps (first=True, then first=False), adaptive, through
-    the JAX CoupledStepFn (use_pallas=False) and the port's (use_kernel:
-    the fused stage's plain version on the CPU), from the same states."""
+    the JAX CoupledStepFn (use_pallas=False) and the port's, from the same
+    states, for each LES closure. The port runs with use_kernel: on the
+    CPU, the fused stage's plain version (TKE) or the split path through
+    the scalar and momentum kernel modules' plain versions (Smagorinsky)."""
+    subgrid = request.param
     core_t = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT))
-    fn_j = JStepFn(case["core"], JG, jstep.LESPhysics(use_pallas=False),
+    fn_j = JStepFn(case["core"], JG,
+                   jstep.LESPhysics(subgrid=subgrid, use_pallas=False),
                    COLS, dt_les=15.0, n_substeps=0)
-    fn_t = TStepFn(core_t, TG, tstep.LESPhysics(), COLS, dt_les=15.0,
-                   n_substeps=0)
+    fn_t = TStepFn(core_t, TG, tstep.LESPhysics(subgrid=subgrid), COLS,
+                   dt_les=15.0, n_substeps=0)
     gs_j, les_j = case["gs"], case["les"]
     prof_j = jax.vmap(lambda s: jdiag.slab_profiles(JG, s))(les_j)
     gs_t = interop.gcm_state(_np(gs_j))

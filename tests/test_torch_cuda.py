@@ -1,4 +1,4 @@
-"""The CUDA stage kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA card. The file
 imports no JAX, so it also runs where JAX is not installed; there,
@@ -105,3 +105,67 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         lesstage.stage_fused(grid, lstep.LESPhysics(),
                              cur._replace(qt=cur.qt.double()), base, frc,
                              0.5, dt)
+
+
+def _split_inputs(grid, n, dev, seed=13):
+    """The stage state's scalar stack, its Smagorinsky K and Km, as the
+    split path hands them to the scalar and momentum kernels."""
+    from sp_coupler_tpu_torch.models.les import subgrid
+    cur = _inputs(grid, n, dev, seed)[0]
+    Km, Kh = subgrid.eddy_viscosity(grid, cur, lstep.thermodynamics(cur)[3])
+    return dict(u=cur.u, v=cur.v, w=cur.w,
+                Ks=torch.stack([Kh, Kh, Kh, 2.0 * Km], dim=1),
+                scalars=torch.stack([cur.thl, cur.qt, cur.qr, cur.e12], dim=1),
+                rhobf=cur.rhobf, rhobh=cur.rhobh, Km=Km)
+
+
+def _split_call(kernel, a, grid, cuda):
+    """(outputs of the kernel or its plain version as a list of arrays,
+    tolerance of tests/test_ops.py, the wrapper's module)."""
+    from sp_coupler_tpu_torch.ops import lesflat, lesmom, advect
+    sp = (grid.dx, grid.dy, grid.dz)
+    if kernel == "lesmom":
+        fn = (lesmom.momentum_tendencies if cuda
+              else lesmom.momentum_tendencies_reference)
+        out = fn(a["u"], a["v"], a["w"], a["Km"], a["rhobf"], a["rhobh"], *sp)
+        return list(out), dict(atol=5e-5, rtol=1e-4), lesmom
+    mod = lesflat if kernel == "lesflat" else advect
+    fn = (mod.advect_diffuse_scalars if cuda
+          else mod.advect_diffuse_scalars_reference)
+    out = fn(a["u"], a["v"], a["w"], a["Ks"], a["scalars"], a["rhobf"],
+             a["rhobh"], *sp)
+    return list(out.unbind(1)), dict(atol=2e-4, rtol=1e-4), mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])
+def test_split_kernel_matches_plain_on_card(dev, kernel, n):
+    """16x16x32: each output array (each scalar of the stack; du, dv, dw) at
+    the tolerance of tests/test_ops.py and within 1e-4 of its own max|ref|
+    (chip_smoke.py, ARRAY_FRAC)."""
+    grid = lgrid.LESGrid(nx=16, ny=16, nz=32)
+    a = _split_inputs(grid, n, dev)
+    mod = _split_call(kernel, a, grid, cuda=False)[2]
+    n0 = mod.launches
+    got, tol, _ = _split_call(kernel, a, grid, cuda=True)
+    assert mod.launches == n0 + 1
+    ref = _split_call(kernel, a, grid, cuda=False)[0]
+    torch.cuda.synchronize()
+    for j, (x, y) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(x, y, msg="array %d" % j, **tol)
+        torch.testing.assert_close(x, y, atol=1e-4 * float(y.abs().max()),
+                                   rtol=0.0, msg="array %d, max|ref|" % j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])
+def test_split_kernel_rejects_what_it_does_not_take(dev, kernel):
+    grid = lgrid.LESGrid(nx=16, ny=16, nz=32)
+    a = _split_inputs(grid, 1, dev)
+    bad = dict(a, u=a["u"].transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        _split_call(kernel, bad, grid, cuda=True)
+    bad = dict(a, w=a["w"].double())
+    with pytest.raises(ValueError, match="float32"):
+        _split_call(kernel, bad, grid, cuda=True)

@@ -21,6 +21,9 @@ MODULES = (
     "sp_coupler_tpu_torch.models.les.step",
     "sp_coupler_tpu_torch.models.les.diag",
     "sp_coupler_tpu_torch.ops.lesstage",
+    "sp_coupler_tpu_torch.ops.lesflat",
+    "sp_coupler_tpu_torch.ops.lesmom",
+    "sp_coupler_tpu_torch.ops.advect",
     "sp_coupler_tpu_torch.ops._build",
     "sp_coupler_tpu_torch.coupling.convert",
     "sp_coupler_tpu_torch.coupling.coupler",

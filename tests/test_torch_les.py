@@ -98,14 +98,22 @@ def test_base_state():
         close(a, b, msg=name)
 
 
-def test_advect_scalar_hybrid52(case):
+@pytest.mark.parametrize("scheme", ["hybrid52", "cd2", "hybrid62"])
+def test_advect_scalar(case, scheme):
     st, _, ts, _ = case
     for name in ("thl", "qt", "qr", "e12"):
         ref = jadv.advect_scalar(JG, st.rhobf, st.rhobh, st.u, st.v, st.w,
-                                 getattr(st, name), "hybrid52")
+                                 getattr(st, name), scheme)
         got = tadv.advect_scalar(TG, ts.rhobf, ts.rhobh, ts.u, ts.v, ts.w,
-                                 getattr(ts, name), "hybrid52")
+                                 getattr(ts, name), scheme)
         close(got, ref, msg=name)
+
+
+def test_unknown_scheme_raises(case):
+    _, _, ts, _ = case
+    with pytest.raises(ValueError, match="unknown advection scheme"):
+        tadv.advect_scalar(TG, ts.rhobf, ts.rhobh, ts.u, ts.v, ts.w, ts.thl,
+                           "weno5")
 
 
 @pytest.mark.parametrize("fn", ["advect_u", "advect_v", "advect_w",
@@ -129,6 +137,28 @@ def test_tke_viscosity(case):
     got = tsg.tke_viscosity(TG, ts, t(thv), t(thv_m))
     for name, a, b in zip(("Km", "Kh", "lam", "S2", "N2"), got, ref):
         close(a, b, msg=name)
+
+
+def test_eddy_viscosity(case):
+    """Smagorinsky-Lilly (Km, Kh); each side takes its own slab mean of
+    thv. N^2 is a difference of two such ~300 K means, summed in another
+    order on each side, and Ri = N^2 / S^2 carries that difference over
+    S^2, which is small in places; the stability factor sqrt(1 - Ri/Ri_c)
+    then moves by it, steeply near its clip. Measured against JAX: 2 of
+    8192 points beyond 1e-4 max|Km|, the largest 2.6e-3 max|Km| (at
+    1 - Ri/Ri_c = 0.011). Bound: every point within 5e-3 max|Km|, and at
+    most 0.1 % of them beyond 1e-4 max|Km|."""
+    st, _, ts, _ = case
+    thv, _ = _thv(st)
+    ref = jsg.eddy_viscosity(JG, st, thv)
+    got = tsg.eddy_viscosity(TG, ts, t(thv))
+    for name, a, b in zip(("Km", "Kh"), got, ref):
+        b = np.asarray(b)
+        scale = float(b.max())
+        assert scale > 0.0
+        close(a, b, atol_frac=5e-3, msg=name)
+        far = np.abs(a[0].numpy() - b) > 1e-4 * scale + 1e-5 * np.abs(b)
+        assert far.mean() <= 1e-3, (name, int(far.sum()))
 
 
 def test_tke_sources(case):
@@ -184,6 +214,55 @@ def test_tendencies(case):
         close(got[k], ref[k], rtol=1e-3, atol_frac=1e-3, msg=k)
 
 
+def _ops_case():
+    """tests/test_ops.py:103-119 inputs for tendencies()."""
+    rng = np.random.default_rng(3)
+    st = jstate.init_state(
+        JG, jnp.asarray(np.linspace(-5, 5, NZ), jnp.float32),
+        jnp.zeros(NZ, jnp.float32),
+        jnp.asarray(np.linspace(298, 312, NZ), jnp.float32),
+        jnp.asarray(np.linspace(0.016, 0.002, NZ), jnp.float32),
+        101300.0, jax.random.PRNGKey(0))
+    st = st._replace(w=st.w.at[1:-1].set(jnp.asarray(
+        rng.normal(0, 0.1, (NZ - 1, JG.ny, JG.nx)), jnp.float32)))
+    frc = jstate.LESForcing.zeros(NZ)._replace(
+        wthl=jnp.asarray(0.01), wqt=jnp.asarray(1e-5))
+    np_ = lambda x: jax.tree.map(np.asarray, x)
+    return st, frc, interop.les_state(np_(st)), interop.les_forcing(np_(frc))
+
+
+@pytest.fixture(scope="module")
+def ops_case():
+    return _ops_case()
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+@pytest.mark.parametrize("subgrid, scheme", [("smagorinsky", "hybrid52"),
+                                             ("tke", "cd2"),
+                                             ("tke", "hybrid62")])
+def test_split_tendencies_match_jax(ops_case, subgrid, scheme, kernel):
+    """The split path: the port's tendencies (use_kernel: the scalar and
+    momentum kernel modules' plain versions on the CPU, where the grid and
+    scheme take them; or the plain path) == JAX tendencies with
+    use_pallas (Pallas kernels in interpret mode) or without, at the setup
+    and tolerance of tests/test_ops.py:103-126; kmax, ustar and the
+    surface rain at test_tendencies' rtol 1e-3."""
+    st, frc, ts, tf = ops_case
+    ref = jstep.tendencies(JG, jstep.LESPhysics(subgrid=subgrid,
+                                                scheme=scheme,
+                                                use_pallas=kernel),
+                           st, frc, 1.0)
+    got = tstep.tendencies(TG, tstep.LESPhysics(subgrid=subgrid,
+                                                scheme=scheme,
+                                                use_kernel=kernel),
+                           ts, tf, torch.tensor([1.0]))
+    for k in ("thl", "qt", "qr", "e12", "u", "v", "w"):
+        np.testing.assert_allclose(got[k][0].numpy(), np.asarray(ref[k]),
+                                   atol=5e-5, rtol=1e-4, err_msg=k)
+    for k in ("kmax", "ustar", "surf_rain"):
+        close(got[k], ref[k], rtol=1e-3, atol_frac=1e-6, msg=k)
+
+
 def test_project(case):
     """Projected velocities agree; the port's residual divergence is at
     most twice JAX's (the eigenvector signs of eigh may differ, so V
@@ -229,21 +308,26 @@ def fleet():
 
 
 @pytest.mark.parametrize("serial", [False, True])
-def test_evolve_adaptive_substep_counts(fleet, serial):
+@pytest.mark.parametrize("subgrid", ["tke", "smagorinsky"])
+def test_evolve_adaptive_substep_counts(fleet, subgrid, serial):
     """Adaptive evolve: n_substeps and n_dtmin_clamped equal JAX's, in
-    batched (masked lock-step) and serial fleet modes; dt_min is set so
-    the windy instance gets clamped."""
+    batched (masked lock-step) and serial fleet modes, for each closure
+    (Smagorinsky: the port's split path through the kernel modules'
+    plain versions against JAX's plain split path); dt_min is set so the
+    windy instance gets clamped."""
     st, frc = fleet
     span, kw = 60.0, dict(dt_max=15.0, dt_min=8.0)
     run_j = jax.jit(lambda s, f: jstep.map_fleet(
         lambda si, fi: jstep.evolve_adaptive(
-            JG, jstep.LESPhysics(), si, fi, si.time + span, **kw),
+            JG, jstep.LESPhysics(subgrid=subgrid), si, fi, si.time + span,
+            **kw),
         s, f, serial))
     s_j, n_j, c_j = run_j(st, frc)
     np_ = lambda x: jax.tree.map(np.asarray, x)
     s_t, n_t, c_t = tstep.map_fleet(
         lambda si, fi: tstep.evolve_adaptive(
-            TG, tstep.LESPhysics(), si, fi, si.time + span, **kw),
+            TG, tstep.LESPhysics(subgrid=subgrid), si, fi, si.time + span,
+            **kw),
         interop.les_state(np_(st)), interop.les_forcing(np_(frc)), serial)
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
@@ -258,10 +342,6 @@ def test_evolve_adaptive_substep_counts(fleet, serial):
 
 def test_unported_settings_raise(case):
     _, _, ts, tf = case
-    for phys in (tstep.LESPhysics(subgrid="smagorinsky"),
-                 tstep.LESPhysics(scheme="cd2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.tendencies(TG, phys, ts, tf, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpois.project(TG, ts.rhobf, ts.rhobh, ts.u, ts.v, ts.w, 1.0,
                       method="thomas")

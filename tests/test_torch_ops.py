@@ -179,3 +179,46 @@ def test_cuda_wrapper_rejects_cpu_tensors():
             TG, tstep.LESPhysics(), interop.les_state(_np(cur)),
             interop.les_state(_np(base)), interop.les_forcing(_np(frc)),
             1.0, torch.tensor([1.0]))
+
+
+def _raise(*a, **k):
+    raise AssertionError("a split-path kernel wrapper was called")
+
+
+def test_stage_reference_stays_plain(monkeypatch):
+    """The stage kernel's plain version runs the plain split path even
+    under use_kernel=True: the scalar and momentum kernel wrappers, which
+    tendencies() takes on this grid under use_kernel, are never called."""
+    from sp_coupler_tpu_torch.ops import lesflat, lesmom
+    cur, base, frc = _stage_setup()
+    args = (TG, tstep.LESPhysics(use_kernel=True),
+            interop.les_state(_np(cur)), interop.les_state(_np(base)),
+            interop.les_forcing(_np(frc)), 0.5, torch.tensor([2.0]))
+    monkeypatch.setattr(lesflat, "advect_diffuse_scalars", _raise)
+    monkeypatch.setattr(lesmom, "momentum_tendencies", _raise)
+    with pytest.raises(AssertionError, match="split-path kernel"):
+        tstep.tendencies(TG, args[1], args[2], args[4], args[6])
+    lesstage.stage_fused_reference(*args)
+
+
+@pytest.mark.parametrize("subgrid, scheme", [("smagorinsky", "hybrid52"),
+                                             ("tke", "cd2"),
+                                             ("tke", "hybrid62")])
+def test_stage_refuses_physics_it_does_not_implement(monkeypatch, subgrid,
+                                                     scheme):
+    """stage_fused raises for physics outside lesstage.supported (on the
+    CPU too, and before any CUDA work); substep then takes the split
+    path and never calls it."""
+    phys = tstep.LESPhysics(subgrid=subgrid, scheme=scheme)
+    assert not lesstage.supported(phys)
+    assert lesstage.supported(tstep.LESPhysics())
+    cur, base, frc = _stage_setup()
+    args = (TG, phys, interop.les_state(_np(cur)),
+            interop.les_state(_np(base)), interop.les_forcing(_np(frc)),
+            0.5, torch.tensor([2.0]))
+    for fn in (lesstage.stage_fused, lesstage.stage_fused_cuda):
+        with pytest.raises(ValueError, match="implements subgrid='tke'"):
+            fn(*args)
+    monkeypatch.setattr(lesstage, "stage_fused", _raise)
+    s, kmax = tstep.substep(TG, phys, args[2], args[4], args[6])
+    assert bool(torch.isfinite(s.thl).all()) and float(kmax[0]) >= 0.0
