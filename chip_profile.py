@@ -11,11 +11,18 @@ adaptive, through the CUDA stage kernel):
      the median wall per substep of the unprofiled steady steps gives the
      device's idle share; per-kernel device totals are listed;
   3. CUDA-event times (median of 20) per call of the stage kernel, the
-     pressure projection and one whole substep at 64x64x160, n = 1.
+     pressure projection and one whole substep at 64x64x160, n = 1;
+  4. the stage kernel alone at 64x64x160, n = 1 and 2: device time per
+     call split by launch (torch.profiler, mean of 20 calls), CUDA-event
+     time per call, and its share of the bound (chip_smoke.stage_bound);
+     then the device time per call of k_stage at several levels per
+     z-chunk (TZ_SWEEP; the default geometry's marked).
 Prints a summary with the card's name and power limit and writes
 chiprun_out/profile.json.
 
 Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
+     python3 chip_profile.py stage   (phase 4 only)
+     python3 chip_profile.py path    (phases 1-3 only)
 """
 
 import json
@@ -30,6 +37,7 @@ import chip_smoke as cs
 
 STEADY = 5
 TOP = 15
+TZ_SWEEP = (4, 5, 8, 10, 14, 18, 20, 27, 40, 80, 160)
 
 
 def timed_step(fn, gs, les, prof, rain, first):
@@ -130,12 +138,69 @@ def phase_calls(card):
     return ms
 
 
+def launch_of(name):
+    """Which launch of the stage a device kernel is: k_means, k_stage, or
+    other (the wrapper's zeroing of aux)."""
+    return next((k for k in ("k_means", "k_stage") if k in name), "other")
+
+
+def phase_stage(card):
+    """The stage kernel alone at 64x64x160: device time by launch, CUDA
+    events, bound share; then levels per chunk."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
+    from sp_coupler_tpu_torch.ops import lesstage
+    grid, phys = lgrid.LESGrid(), lstep.LESPhysics()
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    res = dict(calls={}, sweep=[])
+    for n in (1, 2):
+        cur, base, frc, dt = cs.stage_inputs(grid, n, 7 + n)
+        call = lambda **kw: lesstage.stage_fused_cuda(
+            grid, phys, cur, base, frc, 0.5, dt, **kw)
+        by = {}
+        for name, us in cs.device_us(call).items():
+            by[launch_of(name)] = by.get(launch_of(name), 0.0) + us
+        stage_us = by.get("k_means", 0.0) + by.get("k_stage", 0.0)
+        b_ms, bound_by = cs.bound_ms(*cs.stage_bound(n, nz, ny, nx))
+        ev = cs.cuda_ms(call)
+        geom = lesstage.stage_geometry(n, nz, ny, nx)
+        res["calls"][n] = dict(device_us_by_launch=by, device_us=stage_us,
+                               cuda_event_ms=ev, bound_us=1e3 * b_ms,
+                               bound_by=bound_by, geometry=geom._asdict())
+        cs.log("stage 64x64x160 n=%d (tile %dx%d, tz %d, %d blocks, %d B "
+               "shared): device %.1f us per call (k_means %.1f, k_stage "
+               "%.1f, other %.1f); CUDA events %.3f ms; bound %.1f us (%s), "
+               "%.1f %% of it, on %s"
+               % (n, geom.tx, geom.ty, geom.tz, geom.blocks, geom.smem,
+                  stage_us, by.get("k_means", 0.0), by.get("k_stage", 0.0),
+                  by.get("other", 0.0), ev, 1e3 * b_ms, bound_by,
+                  100 * 1e3 * b_ms / stage_us, card))
+        for tz in TZ_SWEEP:
+            g = lesstage.stage_geometry(n, nz, ny, nx, tz)
+            us = sum(v for k, v in cs.device_us(
+                lambda: call(tz=tz), reps=10).items()
+                if launch_of(k) == "k_stage")
+            res["sweep"].append(dict(n=n, tz=tz, blocks=g.blocks,
+                                     k_stage_us=us))
+            cs.log("  sweep n=%d tz %3d: %4d blocks, k_stage %.1f us%s"
+                   % (n, tz, g.blocks, us,
+                      " (default)" if tz == geom.tz else ""))
+    return res
+
+
 def main():
+    mode = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if mode not in ("all", "stage", "path"):
+        raise SystemExit("usage: chip_profile.py [stage | path]")
     card = cs.phase_env()
     cs.phase_build()
-    out = dict(card=card, **phase_steps(card), per_call_ms=phase_calls(card))
+    out = dict(card=card)
+    if mode != "stage":
+        out.update(phase_steps(card), per_call_ms=phase_calls(card))
+    if mode != "path":
+        out.update(stage=phase_stage(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
-    with open(os.path.join(cs.OUT_DIR, "profile.json"), "w") as f:
+    name = "profile.json" if mode == "all" else "profile_%s.json" % mode
+    with open(os.path.join(cs.OUT_DIR, name), "w") as f:
         json.dump(out, f, indent=1)
     return 0
 

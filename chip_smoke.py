@@ -11,11 +11,15 @@ Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
   2. build the CUDA sources from this checkout, all at once (timed, with
      ptxas's register and spill lines);
-  3. the stage kernel against its plain PyTorch version on the card, at the
-     main path's shapes (64x64x160, n = 1 and 2) and a small one
-     (16x16x32, n = 2): the outputs, the increments out - base on their
-     own, and kmax against a float64 run of the plain version; with
-     CUDA-event timings of both;
+  3. the stage kernel against its plain PyTorch version on the card, at
+     STAGE_SHAPES: the main path's shapes (64x64x160, n = 1 and 2), a
+     small one (16x16x32, n = 2), a ragged grid (12x10x20, n = 3), the
+     smallest plane (4x4) and z-chunks that do not divide nz: the
+     outputs, the increments out - base on their own, and kmax against a
+     float64 run of the plain version, for the stage_inputs state and a
+     rough one (rough_inputs); then each option of STAGE_OPTIONS
+     (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
+     CUDA-event timings of both and the kernel's bound;
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
      (advect) kernels against their plain versions at the same shapes,
      each output array at the JAX tests' tolerance and at ARRAY_FRAC of
@@ -86,9 +90,24 @@ USTAR2_RTOL = 1e-3
 # increments)
 INC_BASE = dict(u=0.0, v=0.0, w=0.0, thl=0.0, qt=1e-3, qr=1e-4, e12=0.1)
 INC_FRAC, INC_RTOL = 2e-3, 1e-3
+# the stage kernel's grids, (nx, ny, nz), n, tz (None: the levels per
+# z-chunk of ops/lesstage.py::stage_geometry). Beside the main path's:
+# a grid whose last tile is ragged in y and wider than the plane in x, the
+# smallest plane the kernel takes, and z-chunks that do not divide nz
+# (at 64x64x157, n = 2 the default 20 levels leave a last chunk of 17)
+STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
+                ((64, 64, 160), 2, None), ((12, 10, 20), 3, 6),
+                ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
+                ((64, 64, 157), 2, None))
+# physics options the main path does not take (LESPhysics fields), each
+# held by its own effect: the change of the outputs from the default run,
+# against the plain version's change, at INC_FRAC of its max (f_coriolis
+# 1e-4 s^-1 is a mid-latitude value)
+STAGE_OPTIONS = (dict(f_coriolis=1e-4), dict(qt_forcing=1),
+                 dict(qt_forcing=2), dict(qt_forcing=3))
 # change of the slab profiles over the small coupled step, kernel path
 # against split path, as a fraction of the split path's max |change|
-# (the kernel path's THL was 1.3e-3 off, QT 1.3e-4, on an NVIDIA H100
+# (the kernel path's THL is 2.6e-3 off, QT 1.4e-4, on an NVIDIA H100
 # 80GB HBM3 at 700 W)
 COUPLED_FRAC = 1e-2
 # kernels #2-#4 (lesflat, lesmom, advect) are held at the tolerance of the
@@ -104,6 +123,20 @@ COUPLED_FRAC = 1e-2
 SCALAR_TOL = dict(atol=2e-4, rtol=1e-4)
 MOM_TOL = dict(atol=5e-5, rtol=1e-4)
 ARRAY_FRAC = 1e-4
+# a kernel's bound: the bytes it must move (each input read once, each
+# output written once) over the H100's 3.35 TB/s, against its float
+# operations over their issue rate. Operations per grid point, counted by
+# hand from the CUDA sources (an add, multiply, divide, min/max, compare,
+# sqrt, exp, log or pow is one; the saturation adjustment at its default
+# 2 iterations): lesstage ~86 closure + ~100 thermodynamics + ~890
+# tendencies and axpy + ~80 plane means; lesflat/advect 4 scalars x ~140;
+# lesmom ~230. Each is one float32 instruction, issued at 128 a clock per
+# SM: 33.5 T/s on 132 SMs at 1.98 GHz, half the data sheet's 67 TFLOP/s
+# of float32 outside the tensor cores (SXM, 700 W), which counts a fused
+# multiply-add as two operations
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+KERNEL_OPS = dict(lesstage=1160, lesflat=560, advect=560, lesmom=230)
 
 
 def log(*a):
@@ -141,11 +174,13 @@ def phase_build():
         secs = dict(zip(BUILDS, ex.map(one, BUILDS)))
     os.makedirs(OUT_DIR, exist_ok=True)
     for name in BUILDS:
-        blog = _build.build_log(name)
-        with open(os.path.join(OUT_DIR, "build_%s.log" % name), "w") as f:
-            f.write(blog)
+        blog = _build.build_log(name)   # '' if this process built nothing
+        if blog:
+            with open(os.path.join(OUT_DIR, "build_%s.log" % name), "w") as f:
+                f.write(blog)
         for line in blog.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
                 log("ptxas %s:" % name, line.strip())
         log("build: %s %.1f s" % (name, secs[name]))
     log("build: all %.1f s" % (time.time() - t0))
@@ -181,6 +216,23 @@ def stage_inputs(grid, n, seed, dev="cuda"):
     return cur, base, frc, dt
 
 
+def rough_inputs(grid, n, seed, dev="cuda"):
+    """The stage_inputs state made rough where a tiled kernel could misplace
+    a term unseen: e12 per point in [0.02, 0.42] (Km, Kh and the TKE
+    source vary in x, y and z), qt per point scaled by [0.6, 1.4] (the
+    proportional qt forcing modes differ from the uniform one), v + 2 m/s
+    (Coriolis acts on u), and f_qt of +-1e-5 alternating by level (qt mode
+    3 takes both of its branches)."""
+    cur, base, frc, dt = stage_inputs(grid, n, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    r = lambda: torch.rand(cur.thl.shape, generator=gen, device=dev)
+    cur = cur._replace(e12=0.02 + 0.4 * r(), qt=cur.qt * (0.6 + 0.8 * r()),
+                       v=cur.v + 2.0)
+    sign = torch.tensor([(-1.0) ** k for k in range(grid.nz)], device=dev)
+    frc = frc._replace(f_qt=(1e-5 * sign).expand(n, grid.nz).contiguous())
+    return cur, base, frc, dt
+
+
 def cuda_ms(fn, reps=20, warm=3):
     """Median time of fn() over reps calls, each timed with CUDA events."""
     for _ in range(warm):
@@ -195,6 +247,30 @@ def cuda_ms(fn, reps=20, warm=3):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_us(fn, reps=20):
+    """Device time per call of fn, by kernel name (torch.profiler, mean
+    over reps calls after one warm-up call), in us."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by:
+        raise RuntimeError("the profiler saw no device kernels")
+    return {k: v / reps for k, v in by.items()}
+
+
+def device_ms(fn):
+    """Device time per call of fn, every kernel it launches (ms)."""
+    return 1e-3 * sum(device_us(fn).values())
 
 
 def check_close(name, got, ref, atol, rtol):
@@ -223,60 +299,149 @@ def as_f64(t):
                          if torch.is_tensor(v) and v.is_floating_point()})
 
 
+def increment_base(cur):
+    """The INC_BASE state of the shape of cur."""
+    return cur._replace(**{k: torch.full_like(getattr(cur, k), v)
+                           for k, v in INC_BASE.items()})
+
+
 def increment_cases(cur):
-    """(name, cur, base) of the increment checks, from a stirred state."""
+    """(name, cur, base) of the increment checks, from a stirred state.
+    The calm state has qr = 0, so its qr increment is autoconversion
+    alone, >= 0 and as small as ~4e-9 at 64x64x160, where float32 holds
+    it from a base of 1e-4 only to ~2e-3; its base has qr = 0, which
+    holds it exactly and lets no clip act."""
     z = torch.zeros_like
     calm = cur._replace(u=z(cur.u), v=z(cur.v), w=z(cur.w), qr=z(cur.qr))
-    return [(name, c, c._replace(**{k: torch.full_like(getattr(c, k), v)
-                                    for k, v in INC_BASE.items()}))
-            for name, c in (("stirred", cur), ("calm", calm))]
+    return [("stirred", cur, increment_base(cur)),
+            ("calm", calm, increment_base(calm)._replace(qr=z(calm.qr)))]
+
+
+STAGE_NAMES = ("u", "v", "w", "thl", "qt", "qr", "e12")
+
+
+def check_stage(kern, grid, phys, cur, base, frc, dt):
+    """kern (the stage kernel or a stand-in with its signature) against
+    the plain version from one input: the outputs at FIELD_TOL, kmax
+    against the plain version and its float64 run at KMAX_RTOL, u*^2 and
+    the rain flux; then the increments out - base of the stirred and the
+    calm case at INC_FRAC. Returns (max abs err of the outputs, kmax rel
+    err vs float64 of the kernel and of the float32 plain version, worst
+    increment err / max|increment| per field)."""
+    from sp_coupler_tpu_torch.ops import lesstage
+    args = (grid, phys, cur, base, frc, 0.5, dt)
+    got = kern(*args)
+    ref = lesstage.stage_fused_reference(*args)
+    ref64 = lesstage.stage_fused_reference(
+        grid, phys, as_f64(cur), as_f64(base), as_f64(frc), 0.5, dt.double())
+    worst = max(check_close(k, a, b, **FIELD_TOL)
+                for k, a, b in zip(STAGE_NAMES, got[:7], ref[:7]))
+    check_close("kmax", got[7], ref[7], 0.0, KMAX_RTOL)
+    check_close("kmax vs float64", got[7].double(), ref64[7], 0.0, KMAX_RTOL)
+    check_close("ustar2", got[8], ref[8], 0.0, USTAR2_RTOL)
+    check_close("rain", got[9], ref[9], **RAIN_TOL)
+    rel64 = lambda x: float((x.double() / ref64[7] - 1).abs().max())
+    inc = dict.fromkeys(STAGE_NAMES, 0.0)
+    for case, c, b in increment_cases(cur):
+        a_ = (grid, phys, c, b, frc, 0.5, dt)
+        g_, r_ = kern(*a_), lesstage.stage_fused_reference(*a_)
+        for k, x, y in zip(STAGE_NAMES, g_[:7], r_[:7]):
+            b_k = b.w[:, :-1] if k == "w" else getattr(b, k)
+            inc[k] = max(inc[k], check_increment(
+                "%s %s" % (case, k), x, y, b_k, INC_FRAC, INC_RTOL))
+    return worst, rel64(got[7]), rel64(ref[7]), inc
+
+
+def check_options(kern, grid, cur, frc, dt):
+    """Each option of STAGE_OPTIONS through kern against the plain
+    version, from cur and the increment base: the outputs at FIELD_TOL,
+    and their change from the default physics against the plain version's
+    change, at INC_FRAC of its max (a change that is 0 must be 0). Returns
+    {option: worst change err / max|change|}."""
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.ops import lesstage
+    base = increment_base(cur)
+    run = lambda fn, phys: fn(grid, phys, cur, base, frc, 0.5, dt)
+    k0 = run(kern, lstep.LESPhysics())
+    p0 = run(lesstage.stage_fused_reference, lstep.LESPhysics())
+    res = {}
+    for opt in STAGE_OPTIONS:
+        name = " ".join("%s=%g" % kv for kv in opt.items())
+        phys = lstep.LESPhysics(**opt)
+        k1, p1 = run(kern, phys), run(lesstage.stage_fused_reference, phys)
+        res[name] = 0.0
+        for k, a, b, a0, b0 in zip(STAGE_NAMES, k1[:7], p1[:7], k0[:7],
+                                   p0[:7]):
+            check_close("%s %s" % (name, k), a, b, **FIELD_TOL)
+            res[name] = max(res[name], check_change(
+                "%s %s" % (name, k), a - a0, b - b0))
+    return res
+
+
+def check_change(name, got, ref):
+    """Hold a change got (kernel) against ref (plain version) at INC_FRAC
+    of max|ref| plus INC_RTOL; returns the error / max|ref| (0 if both
+    are 0)."""
+    scale = float(ref.abs().max())
+    err = check_close(name + " change", got, ref, INC_FRAC * scale, INC_RTOL)
+    return err / scale if scale > 0 else err
+
+
+def stage_bound(n, nz, ny, nx):
+    """(bytes, float operations) the stage needs at this shape: 7 current
+    fields, 7 base fields and the profiles read once, 7 fields and aux
+    written once; KERNEL_OPS per point."""
+    pts = n * nz * ny * nx
+    return (4 * (21 * pts + n * (7 * nz + 1 + 4) + 3 * n),
+            KERNEL_OPS["lesstage"] * pts)
+
+
+def bound_ms(nbytes, ops):
+    """The least time for the work on an H100 (SXM): bytes over 3.35 TB/s
+    and float32 operations over 33.5 T/s (F32_OPS_PER_S), the larger; and
+    which binds."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def phase_kernel(card):
     """The stage kernel against its plain version, on the card."""
     from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
     from sp_coupler_tpu_torch.ops import lesstage
-    dev = torch.device("cuda")
     phys = lstep.LESPhysics()
-    names = ("u", "v", "w", "thl", "qt", "qr", "e12")
     worst = 0.0
     times = {}
-    for (nx, ny, nz), n in (((16, 16, 32), 2), ((64, 64, 160), 1),
-                            ((64, 64, 160), 2)):
+    for (nx, ny, nz), n, tz in STAGE_SHAPES:
         grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
-        cur, base, frc, dt = stage_inputs(grid, n, 7 + n)
-        args = (grid, phys, cur, base, frc, 0.5, dt)
-        got = lesstage.stage_fused_cuda(*args)
-        ref = lesstage.stage_fused_reference(*args)
-        ref64 = lesstage.stage_fused_reference(
-            grid, phys, as_f64(cur), as_f64(base), as_f64(frc), 0.5,
-            dt.double())
-        for k, a, b in zip(names, got[:7], ref[:7]):
-            worst = max(worst, check_close(k, a, b, **FIELD_TOL))
-        check_close("kmax", got[7], ref[7], 0.0, KMAX_RTOL)
-        check_close("kmax vs float64", got[7].double(), ref64[7], 0.0,
-                    KMAX_RTOL)
-        check_close("ustar2", got[8], ref[8], 0.0, USTAR2_RTOL)
-        check_close("rain", got[9], ref[9], **RAIN_TOL)
-        rel64 = lambda x: float((x.double() / ref64[7] - 1).abs().max())
-        log("kernel lesstage %dx%dx%d n=%d: outputs ok, max abs err %.3g; "
-            "kmax rel err vs float64 plain: kernel %.3g, float32 plain %.3g"
-            % (nx, ny, nz, n, worst, rel64(got[7]), rel64(ref[7])))
-        for case, c, b in increment_cases(cur):
-            a_ = (grid, phys, c, b, frc, 0.5, dt)
-            got, ref = (lesstage.stage_fused_cuda(*a_),
-                        lesstage.stage_fused_reference(*a_))
-            inc = {k: check_increment(
-                "%s %s" % (case, k), x, y,
-                b.w[:, :-1] if k == "w" else getattr(b, k),
-                INC_FRAC, INC_RTOL)
-                for k, x, y in zip(names, got[:7], ref[:7])}
-            log("  %s increments ok, err / max|increment|: %s" % (
-                case, " ".join("%s %.2g" % kv for kv in inc.items())))
-        ms = cuda_ms(lambda: lesstage.stage_fused_cuda(*args))
-        plain = cuda_ms(lambda: lesstage.stage_fused_reference(*args))
-        times[(nx, ny, nz, n)] = (ms, plain)
-        log("  %.3f ms (plain PyTorch %.3f ms) on %s" % (ms, plain, card))
+        geom = lesstage.stage_geometry(n, nz, ny, nx, tz=tz)
+        kern = lambda *a: lesstage.stage_fused_cuda(*a, tz=tz)
+        label = "%dx%dx%d n=%d (tile %dx%d, tz %d, %d blocks)" % (
+            nx, ny, nz, n, geom.tx, geom.ty, geom.tz, geom.blocks)
+        for inputs in (stage_inputs, rough_inputs):
+            cur, base, frc, dt = inputs(grid, n, 7 + n)
+            err, k64, p64, inc = check_stage(kern, grid, phys, cur, base,
+                                             frc, dt)
+            worst = max(worst, err)
+            log("kernel lesstage %s, %s: outputs ok, max abs err %.3g; kmax "
+                "rel err vs float64 plain: kernel %.3g, float32 plain %.3g; "
+                "increments ok, err / max|increment|: %s"
+                % (label, inputs.__name__, err, k64, p64,
+                   " ".join("%s %.2g" % kv for kv in inc.items())))
+        opts = check_options(kern, grid, cur, frc, dt)
+        log("  options ok, change err / max|change|: %s" % (
+            " ".join("%s %.2g" % kv for kv in opts.items())))
+        if tz is None:
+            cur, base, frc, dt = stage_inputs(grid, n, 7 + n)
+            args = (grid, phys, cur, base, frc, 0.5, dt)
+            ms = cuda_ms(lambda: kern(*args))
+            dev_ms = device_ms(lambda: kern(*args))
+            plain = cuda_ms(lambda: lesstage.stage_fused_reference(*args))
+            b_ms, by = bound_ms(*stage_bound(n, nz, ny, nx))
+            times[(nx, ny, nz, n)] = (ms, plain, b_ms, by, dev_ms)
+            log("  %.3f ms by CUDA events, %.4f ms of device time (plain "
+                "PyTorch %.3f ms); bound %.4f ms (%s), %.1f %% of the device "
+                "time, on %s" % (ms, dev_ms, plain, b_ms, by,
+                                 100 * b_ms / dev_ms, card))
     return worst, times
 
 
@@ -350,13 +515,26 @@ def phase_split_kernels(card):
                 float((a - b).abs().max())
                 for a, b in zip(output_arrays(got), output_arrays(ref))])
             ms = cuda_ms(lambda: kern(*args))
+            dev_ms = device_ms(lambda: kern(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
-            r["times"][(nx, ny, nz, n)] = (ms, plain_ms)
+            b_ms, by = bound_ms(tensor_bytes(args, got),
+                                KERNEL_OPS[name] * n * nz * ny * nx)
+            r["times"][(nx, ny, nz, n)] = (ms, plain_ms, b_ms, by, dev_ms)
             log("kernel %s %dx%dx%d n=%d: ok, err / max|ref| per array: %s; "
-                "%.3f ms (plain PyTorch %.3f ms) on %s"
+                "%.3f ms by CUDA events, %.4f ms of device time (plain "
+                "PyTorch %.3f ms); bound %.4f ms (%s), %.1f %% of the device "
+                "time, on %s"
                 % (name, nx, ny, nz, n, " ".join("%.2g" % f for f in fracs),
-                   ms, plain_ms, card))
+                   ms, dev_ms, plain_ms, b_ms, by, 100 * b_ms / dev_ms,
+                   card))
     return res
+
+
+def tensor_bytes(args, out):
+    """Bytes of the tensors among args and of the outputs out: each input
+    read once, each output written once."""
+    ts = [a for a in args if torch.is_tensor(a)] + list(output_arrays(out))
+    return sum(4 * t.numel() for t in ts)
 
 
 def reset_launches():
@@ -378,20 +556,20 @@ def phase_small_coupled(card, subgrid="tke"):
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
-    dev = torch.device("cuda")
     grid = lgrid.LESGrid(nx=16, ny=16, nz=32)
     cols = [100, 200]
     outs = []
     for use_kernel in (True, False):
         core = gcm_model.GCMCore(gcm_model.GCMConfig(trunc=10, nlev=8,
-                                                     dt=300.0), device=dev)
+                                                     dt=300.0))
         gs = core.initial_state(seed=0)
         les = seed_les(core, gs, grid, cols)
         phys = lstep.LESPhysics(subgrid=subgrid, use_kernel=use_kernel)
         fn = CoupledStepFn(core, grid, phys, cols, dt_les=15.0, n_substeps=0)
         prof = ldiag.slab_profiles(grid, les)
         reset_launches()
-        out = fn(gs, les, prof, torch.zeros(2, device=dev), 0, first=True)
+        out = fn(gs, les, prof, torch.zeros(2, device=core.device), 0,
+                 first=True)
         counts = read_launches()
         ran = [k for k in PATH_KERNELS[subgrid] if counts[k] > 0]
         if use_kernel and len(ran) != len(PATH_KERNELS[subgrid]):
@@ -438,9 +616,10 @@ def main_path_case(subgrid="tke"):
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
-    dev = torch.device("cuda")
     core = gcm_model.GCMCore(gcm_model.GCMConfig(trunc=21, nlev=19,
-                                                 dt=900.0), device=dev)
+                                                 dt=900.0))
+    if core.device.type != "cuda":
+        raise AssertionError("GCMCore took %s, not the card" % core.device)
     grid = lgrid.LESGrid()
     cols = [1208, 1272]
     gs = core.initial_state(seed=0)
@@ -448,7 +627,7 @@ def main_path_case(subgrid="tke"):
     fn = CoupledStepFn(core, grid, lstep.LESPhysics(subgrid=subgrid), cols,
                        dt_les=15.0, n_substeps=0)
     prof = ldiag.slab_profiles(grid, les)
-    return fn, (gs, les, prof, torch.zeros(len(cols), device=dev))
+    return fn, (gs, les, prof, torch.zeros(len(cols), device=core.device))
 
 
 def phase_main(card, subgrid="tke"):
@@ -511,11 +690,13 @@ def main():
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain = stats[name]["times"][(64, 64, 160, 1)]
+        ms, plain, b_ms, by, dev_ms = stats[name]["times"][(64, 64, 160, 1)]
         record.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r[name] for r in runs),
-            max_abs_err=stats[name]["max_abs_err"], ms=ms, plain_ms=plain))
+            max_abs_err=stats[name]["max_abs_err"], ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=by,
+            library_ms=None, device_ms=dev_ms))
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ CUDA kernel for Hopper (``csrc/lesstage.cu``, bound in ``ops/lesstage``).
 The package imports neither ``jax`` nor the JAX package; its physical
 constants are a copy of ``sp_coupler_tpu.constants``. Float32 products stay exact float32 (the
 JAX package asks for HIGHEST precision on the spectral transforms and
-the pressure projection), so TF32 is switched off on import.
+the pressure projection), so TF32 is switched off on import. Its entry
+points run on the CUDA card unless the caller asks for another device
+(``default_device``).
 """
 
 import torch
@@ -19,3 +21,15 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+
+def default_device(device=None):
+    """``torch.device(device)``, or the CUDA card when device is None.
+    Raises RuntimeError for None where there is no card: pass
+    device="cpu" to run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sp_coupler_tpu_torch import constants as c
+from sp_coupler_tpu_torch import constants as c, default_device
 from ...utils import thermo
 from . import spharm, vertical, dycore, physics
 
@@ -70,7 +70,7 @@ class GCMCore:
                 "split_phases is not ported yet (ROADMAP.md, open items: "
                 "semi-Lagrangian GCM)")
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.sht = spharm.SpectralTransform(cfg.trunc, device=self.device)
         self.vc = vertical.VerticalCoords(cfg.nlev, tref=cfg.tref,
                                           device=self.device,

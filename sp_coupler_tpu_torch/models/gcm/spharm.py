@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from sp_coupler_tpu_torch import default_device
+
 GRID_FOR_TRUNC = {
     10: (32, 16),
     21: (64, 32),
@@ -92,7 +94,7 @@ class SpectralTransform:
             nlon, nlat = GRID_FOR_TRUNC[trunc]
         self.trunc, self.nlat, self.nlon = trunc, nlat, nlon
         self.radius = radius
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.M = trunc + 1
         self.N = trunc + 2
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,

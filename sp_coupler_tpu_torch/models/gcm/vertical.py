@@ -9,7 +9,7 @@ semi-implicit couplings W and b, and the per-wavenumber implicit inverses
 import numpy as np
 import torch
 
-from sp_coupler_tpu_torch import constants as c
+from sp_coupler_tpu_torch import constants as c, default_device
 
 
 def sigma_levels(nlev, stretch=1.7):
@@ -30,7 +30,7 @@ class VerticalCoords:
                 "(ROADMAP.md, open items: hybrid vertical coordinates)")
         self.nlev = nlev
         self.tref = tref
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                         device=self.device)
         sh = sigma_levels(nlev)

@@ -10,21 +10,96 @@ against. Both implement only the physics ``supported`` accepts (the
 Deardorff TKE closure and hybrid52 advection); ``stage_fused`` raises for
 any other.
 
-The kernel is bounded by memory traffic (7 fields in, 7 base fields, 7
-out, plus 3 scratch fields per stage); see the note at the top of the
-CUDA source for what its three-pass design does about that.
+The note at the top of the CUDA source gives the kernel's bound and what
+its two-launch design does about it. ``stage_geometry`` is its launch
+geometry: tile, levels per z-chunk and shared-memory bytes of a block.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from ..models.les import step as lstep, subgrid
 
-launches = 0   # kernel launches made by stage_fused on CUDA tensors
+launches = 0   # stage calls that launched the kernel (CUDA tensors)
 
-_N_SCRATCH = 3   # Km, Kh, TKE source
+# csrc/lesstage.cu: its tile of TX x TY columns (measured fastest at
+# 64x64x160, PERF.md Findings; a tile wider than the plane wraps), and its
+# shared-memory ring (HALO-point x/y halo, NSLOT planes of NF fields,
+# NCSLOT closure planes of Km, Kh and the TKE source)
+TX, TY = 32, 8
+HALO, NF, NSLOT, NCSLOT = 3, 7, 5, 4
+SMEM_LIMIT = 232448   # bytes of shared memory one sm_90 block can use
+SMS = 132             # streaming multiprocessors of an H100 SXM
+# k_stage blocks an SM holds at once: registers bind (at most 128 a
+# thread, __launch_bounds__ in the source), then shared memory
+RESIDENT = 2
+# a chunk's start (its z-halo copied before any overlap, closure at three
+# levels, thermodynamics at two) costs about as much as this many levels
+CHUNK_START_LEVELS = 3
+
+
+class StageGeometry(NamedTuple):
+    """Launch geometry of the stage kernel: a block per (tile of tx x ty
+    columns, chunk of tz levels, instance); smem is a block's dynamic
+    shared memory in bytes."""
+    tx: int
+    ty: int
+    tz: int
+    tiles_x: int
+    tiles_y: int
+    chunks: int
+    n: int
+    smem: int
+
+    @property
+    def blocks(self):
+        return self.tiles_x * self.tiles_y * self.chunks * self.n
+
+
+def shared_bytes():
+    """Dynamic shared memory of a k_stage block (csrc/lesstage.cu, Tile):
+    the field ring, the closure ring and the row/column index tables."""
+    w, h = TX + 2 * HALO, TY + 2 * HALO
+    return 4 * (NSLOT * NF * w * h + NCSLOT * 3 * (TX + 2) * (TY + 2)) \
+        + 4 * (w + h)
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_levels(columns, nz):
+    """Levels per z-chunk for `columns` tiles x instances: the tz that
+    minimises waves x (tz + CHUNK_START_LEVELS), since blocks run in
+    waves of SMS x RESIDENT and a block's time grows with its levels plus
+    its start; the largest such tz on a tie."""
+    waves = lambda t: -(-columns * -(-nz // t) // (SMS * RESIDENT))
+    return min(range(1, nz + 1),
+               key=lambda t: (waves(t) * (t + CHUNK_START_LEVELS), -t))
+
+
+def stage_geometry(n, nz, ny, nx, tz=None):
+    """The stage kernel's launch geometry for an [n, nz, ny, nx] fleet.
+
+    tz: levels per z-chunk, by default ``chunk_levels`` (at 64x64x160: 10
+    for n = 1, 20 for n = 2, each one wave of 256 blocks). Only the tests
+    and chip_profile.py's sweep pass tz: on a small grid the default is
+    one level a chunk, so a block marches several levels over a ragged
+    tile only when tz is given. Raises ValueError for tz < 1 or shared
+    memory above SMEM_LIMIT.
+    """
+    tiles_x, tiles_y = -(-nx // TX), -(-ny // TY)
+    if tz is None:
+        tz = chunk_levels(tiles_x * tiles_y * n, nz)
+    if tz < 1:
+        raise ValueError("tz must be >= 1, got %r" % (tz,))
+    smem = shared_bytes()
+    if smem > SMEM_LIMIT:
+        raise ValueError("the stage kernel needs %d bytes of shared memory "
+                         "a block, above the %d it can use"
+                         % (smem, SMEM_LIMIT))
+    return StageGeometry(TX, TY, tz, tiles_x, tiles_y, -(-nz // tz), n, smem)
 
 
 class _StageArgs(ctypes.Structure):
@@ -32,7 +107,8 @@ class _StageArgs(ctypes.Structure):
 
     _fields_ = (
         [(k, ctypes.c_int) for k in
-         ("n", "nz", "ny", "nx", "qt_mode", "n_sat_iter")]
+         ("n", "nz", "ny", "nx", "qt_mode", "n_sat_iter",
+          "tx", "ty", "tz", "smem")]
         + [(k, ctypes.c_float) for k in
            ("dx", "dy", "dz", "fdt", "f_cor", "sponge_depth", "sponge_tau",
             "zs", "delta", "nc_fac", "auto_k", "accr_k", "evap_tau",
@@ -43,7 +119,7 @@ class _StageArgs(ctypes.Structure):
             "pbf", "rhobf", "rhobh", "f_u", "f_v", "f_thl", "f_qt",
             "dt", "wthl", "wqt", "z0m",
             "un", "vn", "wn", "thln", "qtn", "qrn", "e12n", "aux",
-            "means", "Km", "Kh", "src")])
+            "means")])
 
 
 def supported(phys):
@@ -76,8 +152,9 @@ def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt):
             t["kmax"], t["ustar"] ** 2, t["surf_rain"])
 
 
-def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
-    """Launch the Hopper kernel for one fused stage on CUDA tensors."""
+def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
+    """Launch the Hopper kernel for one fused stage on CUDA tensors, at the
+    launch geometry ``stage_geometry(n, nz, ny, nx, tz)``."""
     global launches
     _check_supported(phys)
     mp = phys.mphys
@@ -92,13 +169,14 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
     emp = lambda shp: torch.empty(shp, dtype=torch.float32, device=dev)
     outs = [emp(fld) for _ in range(7)]
     aux = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    means = emp((n, 5, nz))
-    scratch = [emp(fld) for _ in range(_N_SCRATCH)]
+    means = emp((n, 7, nz))
     dt = dt.to(torch.float32).reshape(n).contiguous()
+    geom = stage_geometry(n, nz, ny, nx, tz)
 
     a = _StageArgs(
         n=n, nz=nz, ny=ny, nx=nx, qt_mode=int(phys.qt_forcing),
-        n_sat_iter=int(phys.n_sat_iter), dx=grid.dx, dy=grid.dy, dz=grid.dz,
+        n_sat_iter=int(phys.n_sat_iter), tx=geom.tx, ty=geom.ty,
+        tz=geom.tz, smem=geom.smem, dx=grid.dx, dy=grid.dy, dz=grid.dz,
         fdt=float(frac_dt), f_cor=float(phys.f_coriolis),
         sponge_depth=phys.sponge_depth, sponge_tau=phys.sponge_tau,
         zs=grid.zsize - phys.sponge_depth,
@@ -124,7 +202,6 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt):
     for k, o in zip(("un", "vn", "wn", "thln", "qtn", "qrn", "e12n"), outs):
         setattr(a, k, o.data_ptr())
     a.aux, a.means = aux.data_ptr(), means.data_ptr()
-    a.Km, a.Kh, a.src = (s.data_ptr() for s in scratch)
 
     fn = _build.function("lesstage", "lesstage_stage",
                          [ctypes.c_void_p, ctypes.c_void_p])

@@ -196,7 +196,8 @@ def coupled(case, request):
     CPU, the fused stage's plain version (TKE) or the split path through
     the scalar and momentum kernel modules' plain versions (Smagorinsky)."""
     subgrid = request.param
-    core_t = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT))
+    core_t = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
+                            device="cpu")
     fn_j = JStepFn(case["core"], JG,
                    jstep.LESPhysics(subgrid=subgrid, use_pallas=False),
                    COLS, dt_les=15.0, n_substeps=0)
@@ -258,7 +259,8 @@ def test_coupled_diag_matches(coupled, step):
 
 
 def test_unported_coupler_settings_raise():
-    core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT))
+    core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
+                          device="cpu")
     for kw in (dict(cplsurf=True), dict(qt_variance=True),
                dict(evolve_chunks=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from sp_coupler_tpu_torch.models.les import (grid as lgrid, state as lstate,
                                              step as lstep)
 from sp_coupler_tpu_torch.ops import lesstage
@@ -91,6 +92,43 @@ def test_kernel_matches_plain_on_card(dev, n):
             torch.testing.assert_close(
                 x - b0, d_ref, atol=2e-3 * float(d_ref.abs().max()),
                 rtol=1e-3, msg="%s %s increment" % (case, k))
+
+
+# grids a tiled kernel can get wrong (chip_smoke.py, STAGE_SHAPES): a
+# ragged last tile wider than the plane, nx = ny = 4, z-chunks that do not
+# divide nz, one-level chunks, and the default geometry
+TILED_SHAPES = [((12, 10, 20), 3, 6), ((12, 10, 20), 3, None),
+                ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
+                ((16, 16, 32), 2, None), ((16, 16, 33), 1, 10),
+                ((20, 12, 23), 2, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["stage_inputs", "rough_inputs"])
+@pytest.mark.parametrize("shape, n, tz", TILED_SHAPES)
+def test_tiled_kernel_matches_plain_on_card(dev, shape, n, tz, inputs):
+    """chip_smoke.py's check of the stage kernel (check_stage): outputs,
+    kmax against the plain version and its float64 run, u*^2, rain, and
+    the increments of a stirred and a calm input."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    cur, base, frc, dt = getattr(cs, inputs)(grid, n, 7 + n)
+    kern = lambda *a: lesstage.stage_fused_cuda(*a, tz=tz)
+    cs.check_stage(kern, grid, lstep.LESPhysics(), cur, base, frc, dt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, n, tz", [((16, 16, 32), 2, None),
+                                          ((12, 10, 20), 3, 6)])
+def test_kernel_options_match_plain_on_card(dev, shape, n, tz):
+    """f_coriolis != 0 and each qt forcing mode (chip_smoke.py,
+    STAGE_OPTIONS), each held by its own effect on the outputs."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    cur, _, frc, dt = cs.rough_inputs(grid, n, 7 + n)
+    kern = lambda *a: lesstage.stage_fused_cuda(*a, tz=tz)
+    cs.check_options(kern, grid, cur, frc, dt)
 
 
 @pytest.mark.cuda

@@ -33,7 +33,8 @@ def close(got, ref, rtol, atol_frac, msg=""):
 
 @pytest.fixture(scope="module")
 def sht_pair():
-    return jsph.SpectralTransform(TRUNC), tsph.SpectralTransform(TRUNC)
+    return (jsph.SpectralTransform(TRUNC),
+            tsph.SpectralTransform(TRUNC, device="cpu"))
 
 
 def test_legendre_and_dft_tables_identical(sht_pair):
@@ -48,7 +49,8 @@ def test_legendre_and_dft_tables_identical(sht_pair):
 
 
 def test_vertical_operators_identical():
-    jv, tv = jvert.VerticalCoords(NLEV), tvert.VerticalCoords(NLEV)
+    jv = jvert.VerticalCoords(NLEV)
+    tv = tvert.VerticalCoords(NLEV, device="cpu")
     for k in ("sh", "sf", "ds", "lnr", "alpha", "G", "Pmat", "W", "b"):
         np.testing.assert_array_equal(getattr(tv, k).numpy(),
                                       np.asarray(getattr(jv, k)), err_msg=k)
@@ -82,7 +84,7 @@ def test_analyze_synthesize(sht_pair):
 def cores():
     cfg_j = jmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT)
     cfg_t = tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT)
-    return jmodel.GCMCore(cfg_j), tmodel.GCMCore(cfg_t)
+    return jmodel.GCMCore(cfg_j), tmodel.GCMCore(cfg_t, device="cpu")
 
 
 def test_initial_state(cores):
@@ -154,4 +156,19 @@ def test_eulerian_step_first_and_leapfrog(cores):
                                 dict(hybrid=True)])
 def test_unported_gcm_settings_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, **kw))
+        tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, **kw),
+                       device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """GCMCore, SpectralTransform and VerticalCoords with no device ask
+    for the CUDA card: with none (as here) they raise and do not fall back
+    to the CPU; device="cpu" runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT)
+    for make in (lambda: tmodel.GCMCore(cfg),
+                 lambda: tsph.SpectralTransform(TRUNC),
+                 lambda: tvert.VerticalCoords(NLEV)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+    assert tvert.VerticalCoords(NLEV, device="cpu").device.type == "cpu"

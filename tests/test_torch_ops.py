@@ -11,6 +11,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
+
+import chip_smoke as cs
 
 from sp_coupler_tpu.models.les import (grid as jgrid, state as jstate,
                                        step as jstep, subgrid as jsg)
@@ -222,3 +225,110 @@ def test_stage_refuses_physics_it_does_not_implement(monkeypatch, subgrid,
     monkeypatch.setattr(lesstage, "stage_fused", _raise)
     s, kmax = tstep.substep(TG, phys, args[2], args[4], args[6])
     assert bool(torch.isfinite(s.thl).all()) and float(kmax[0]) >= 0.0
+
+
+# ---- launch geometry of the stage kernel ---------------------------------
+
+def _block_region(geom, nz, ny, nx, bx, by, bz):
+    """The points block (bx, by, bz) updates, as csrc/lesstage.cu's k_stage
+    maps its block index: (instance, level range, y range, x range), each
+    range [lo, hi) clipped to the grid."""
+    x0, y0 = (bx % geom.tiles_x) * geom.tx, (bx // geom.tiles_x) * geom.ty
+    k0 = by * geom.tz
+    return (bz, (k0, min(nz, k0 + geom.tz)), (y0, min(ny, y0 + geom.ty)),
+            (x0, min(nx, x0 + geom.tx)))
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(n=st.integers(1, 3), nz=st.integers(2, 48), ny=st.integers(4, 40),
+       nx=st.integers(4, 40), tz=st.one_of(st.none(), st.integers(1, 50)))
+def test_stage_geometry_covers_every_point_once(n, nz, ny, nx, tz):
+    """The blocks of the launch, as the kernel maps them to points
+    (_block_region), update every (instance, level, column) exactly once,
+    and a block's shared memory stays within what sm_90 allows."""
+    g = lesstage.stage_geometry(n, nz, ny, nx, tz)
+    assert g.smem <= lesstage.SMEM_LIMIT == 227 * 1024
+    assert (g.tiles_x, g.tiles_y) == (-(-nx // g.tx), -(-ny // g.ty))
+    assert g.chunks == -(-nz // g.tz) and (tz is None or g.tz == tz)
+    hits = np.zeros((n, nz, ny, nx), np.int32)
+    for bz in range(n):
+        for by in range(g.chunks):
+            for bx in range(g.tiles_x * g.tiles_y):
+                b, (k0, k1), (y0, y1), (x0, x1) = _block_region(
+                    g, nz, ny, nx, bx, by, bz)
+                assert k0 < k1   # no chunk is empty
+                hits[b, k0:k1, y0:y1, x0:x1] += 1
+    assert (hits == 1).all()
+
+
+def test_stage_geometry_of_the_main_path():
+    """64x64x160: 32x8 tiles, one wave of 256 blocks (2 on each of 132
+    SMs hold 264) for n = 1 and 2; at nz = 157 the last chunk is short."""
+    g1 = lesstage.stage_geometry(1, 160, 64, 64)
+    g2 = lesstage.stage_geometry(2, 160, 64, 64)
+    assert (g1.tx, g1.ty, g1.tz, g1.blocks) == (32, 8, 10, 256)
+    assert (g2.tz, g2.blocks) == (20, 256)
+    g3 = lesstage.stage_geometry(2, 157, 64, 64)
+    assert (g3.tz, g3.chunks, 157 % g3.tz) == (20, 8, 17)
+    assert g1.smem == lesstage.shared_bytes() == 91008
+
+
+def test_stage_geometry_default_chunks():
+    """On a small grid every block fits in one wave at any tz, so the
+    default chunk is one level (a block marches several levels there only
+    with tz given); the chunk search runs once per shape."""
+    assert lesstage.stage_geometry(3, 20, 10, 12).tz == 1
+    assert lesstage.stage_geometry(2, 32, 16, 16).tz == 1
+    lesstage.stage_geometry(1, 160, 64, 64)
+    before = lesstage.chunk_levels.cache_info()
+    g = lesstage.stage_geometry(1, 160, 64, 64)
+    after = lesstage.chunk_levels.cache_info()
+    assert g.tz == 10
+    assert (after.hits, after.misses) == (before.hits + 1, before.misses)
+
+
+def test_stage_geometry_refuses(monkeypatch):
+    with pytest.raises(ValueError, match="tz must be"):
+        lesstage.stage_geometry(1, 32, 16, 16, tz=0)
+    monkeypatch.setattr(lesstage, "SMEM_LIMIT", 48 * 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        lesstage.stage_geometry(1, 32, 64, 64)
+
+
+# ---- the on-card option check of the stage must be able to fail ----------
+
+def _mutant(change):
+    """The plain stage with its physics options changed by change(phys):
+    a stand-in for a kernel that gets an option wrong."""
+    def kern(grid, phys, *rest):
+        return lesstage.stage_fused_reference(grid, change(phys), *rest)
+    return kern
+
+
+OPTION_MUTANTS = {
+    "coriolis sign": lambda p: p._replace(f_coriolis=-p.f_coriolis),
+    "coriolis dropped": lambda p: p._replace(f_coriolis=0.0),
+    "qt mode 3 as 2": lambda p: p._replace(
+        qt_forcing=2 if p.qt_forcing == 3 else p.qt_forcing),
+    "qt mode 2 as 0": lambda p: p._replace(
+        qt_forcing=0 if p.qt_forcing == 2 else p.qt_forcing),
+}
+
+
+@pytest.fixture(scope="module")
+def rough():
+    grid = tgrid.LESGrid(nx=16, ny=16, nz=32)
+    cur, _, frc, dt = cs.rough_inputs(grid, 2, 9, "cpu")
+    return grid, cur, frc, dt
+
+
+@pytest.mark.parametrize("mutant", sorted(OPTION_MUTANTS))
+def test_option_check_rejects_a_wrong_option(rough, mutant):
+    with pytest.raises(AssertionError, match="out of tolerance"):
+        cs.check_options(_mutant(OPTION_MUTANTS[mutant]), *rough)
+
+
+def test_option_check_accepts_the_plain_version(rough):
+    res = cs.check_options(lesstage.stage_fused_reference, *rough)
+    assert set(res) == {"f_coriolis=0.0001", "qt_forcing=1", "qt_forcing=2",
+                        "qt_forcing=3"}
