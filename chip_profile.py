@@ -1,28 +1,38 @@
 #!/usr/bin/env python
-"""Where the time of the port's main path goes, on one CUDA card.
+"""Where the time of the port's two paths goes, on one CUDA card.
 
 Runs the bench.py case of chip_smoke.py (T21/L19 + 2 x 64x64x160,
-adaptive, through the CUDA stage kernel):
-  1. 1 + STEADY coupled steps, each split into the GCM first half and
-     coupling (``_pre``), the LES evolve and the GCM second half
+adaptive) with each LES closure: the main path (Deardorff TKE, through
+the CUDA stage kernel) and the Smagorinsky path (the split stage, through
+the scalar and momentum kernels):
+  1. per closure, 1 + STEADY coupled steps, each split into the GCM first
+     half and coupling (``_pre``), the LES evolve and the GCM second half
      (``_post``), timed by the host clock around torch.cuda.synchronize();
-  2. one more steady step under torch.profiler: the union of its device
-     kernel intervals is the device busy time; busy per substep against
-     the median wall per substep of the unprofiled steady steps gives the
-     device's idle share; per-kernel device totals are listed;
+  2. per closure, one more steady step under torch.profiler: the union of
+     its device kernel intervals is the device busy time; busy per
+     substep against the median wall per substep of the unprofiled steady
+     steps gives the device's idle share; per-kernel device totals are
+     listed, the port's own kernels (PORT_KERNELS) always;
   3. CUDA-event times (median of 20) per call of the stage kernel, the
-     pressure projection and one whole substep at 64x64x160, n = 1;
+     pressure projection and one whole substep of each closure at
+     64x64x160, n = 1;
   4. the stage kernel alone at 64x64x160, n = 1 and 2: device time per
      call split by launch (torch.profiler, mean of 20 calls), CUDA-event
      time per call, and its share of the bound (chip_smoke.stage_bound);
      then the device time per call of k_stage at several levels per
-     z-chunk (TZ_SWEEP; the default geometry's marked).
+     z-chunk (TZ_SWEEP; the default geometry's marked);
+  5. the scalar (lesflat) and momentum (lesmom) kernels alone at
+     64x64x160, n = 1 and 2: device time per call (torch.profiler, mean of
+     20 calls), CUDA-event time per call, and their share of the bound
+     (chip_smoke.tensor_bytes); then their device time at several levels
+     per z-chunk (SPLIT_TZ_SWEEP; the default geometry's marked).
 Prints a summary with the card's name and power limit and writes
-chiprun_out/profile.json.
+chiprun_out/profile.json (profile_<mode>.json for one mode).
 
 Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
-     python3 chip_profile.py stage   (phase 4 only)
      python3 chip_profile.py path    (phases 1-3 only)
+     python3 chip_profile.py stage   (phase 4 only)
+     python3 chip_profile.py split   (phase 5 only)
 """
 
 import json
@@ -38,6 +48,10 @@ import chip_smoke as cs
 STEADY = 5
 TOP = 15
 TZ_SWEEP = (4, 5, 8, 10, 14, 18, 20, 27, 40, 80, 160)
+SPLIT_TZ_SWEEP = (2, 3, 4, 5, 6, 7, 8, 10, 14, 20, 40, 160)
+# the device kernels of csrc/ (their names in torch.profiler), listed after
+# each profiled step whatever their rank
+PORT_KERNELS = ("k_stage", "k_means", "k_scalar", "k_momentum")
 
 
 def timed_step(fn, gs, les, prof, rain, first):
@@ -71,15 +85,15 @@ def busy_us(events):
     return total
 
 
-def phase_steps(card):
-    fn, carry = cs.main_path_case()
+def phase_steps(card, subgrid="tke"):
+    fn, carry = cs.main_path_case(subgrid)
     steps = []
     for i in range(1 + STEADY):
         carry, rec = timed_step(fn, *carry, first=(i == 0))
         steps.append(rec)
-        cs.log("step %d (first=%s): wall %.3f s = pre %.3f + evolve %.3f + "
-               "post %.3f; substeps %s; %.3f ms per substep on %s"
-               % (i, rec["first"], rec["wall_s"], rec["pre_s"],
+        cs.log("%s step %d (first=%s): wall %.3f s = pre %.3f + evolve %.3f "
+               "+ post %.3f; substeps %s; %.3f ms per substep on %s"
+               % (subgrid, i, rec["first"], rec["wall_s"], rec["pre_s"],
                   rec["evolve_s"], rec["post_s"], rec["substeps"],
                   1e3 * rec["wall_s"] / sum(rec["substeps"]), card))
 
@@ -100,19 +114,26 @@ def phase_steps(card):
     for e in kern:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us() * 1e-3, cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
-    cs.log("profiled step: substeps %s, device busy %.3f s (%.3f ms per "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    port = [kv for kv in top if any(k in kv[0] for k in PORT_KERNELS)]
+    top = top[:TOP]
+    cs.log("%s profiled step: substeps %s, device busy %.3f s (%.3f ms per "
            "substep); unprofiled steady steps: median %.3f ms per substep, "
            "so the device is idle %.1f %% of a step on %s"
-           % (rec["substeps"], busy, 1e3 * busy / nsub, 1e3 * wall_per_sub,
-              100 * idle, card))
+           % (subgrid, rec["substeps"], busy, 1e3 * busy / nsub,
+              1e3 * wall_per_sub, 100 * idle, card))
     for name, (ms, cnt) in top:
         cs.log("  %10.1f ms %7d  %.3f ms/call  %s"
                % (ms, cnt, ms / cnt, name[:100]))
+    for name, (ms, cnt) in port:
+        cs.log("  port kernel %s: %.1f ms in %d calls, %.4f ms/call (%.1f %% "
+               "of busy)" % (name[:60], ms, cnt, ms / cnt,
+                             100 * ms / (1e3 * busy)))
     return dict(steps=steps, profiled=dict(
         substeps=rec["substeps"], busy_s=busy, idle_share=idle,
         wall_per_substep_s=wall_per_sub,
-        kernels=[dict(name=n, ms=ms, calls=c) for n, (ms, c) in top]))
+        kernels=[dict(name=n, ms=ms, calls=c) for n, (ms, c) in top],
+        port_kernels=[dict(name=n, ms=ms, calls=c) for n, (ms, c) in port]))
 
 
 def phase_calls(card):
@@ -122,6 +143,7 @@ def phase_calls(card):
     from sp_coupler_tpu_torch.ops import lesstage
     grid = lgrid.LESGrid()
     phys = lstep.LESPhysics()
+    smag = lstep.LESPhysics(subgrid="smagorinsky")
     cur, base, frc, dt = cs.stage_inputs(grid, 1, 8)
     solver = poisson.build_solver(grid, cur.rhobf, cur.rhobh)
     fdt = (0.5 * dt)[:, None, None, None]
@@ -132,7 +154,11 @@ def phase_calls(card):
             grid, cur.rhobf, cur.rhobh, cur.u, cur.v, cur.w, fdt,
             solver=solver)),
         substep=cs.cuda_ms(lambda: lstep.substep(
-            grid, phys, cur, frc, dt, solver=solver)))
+            grid, phys, cur, frc, dt, solver=solver)),
+        smagorinsky_tendencies=cs.cuda_ms(lambda: lstep.tendencies(
+            grid, smag, cur, frc, dt)),
+        smagorinsky_substep=cs.cuda_ms(lambda: lstep.substep(
+            grid, smag, cur, frc, dt, solver=solver)))
     cs.log("per call at 64x64x160, n=1 (CUDA events, median of 20): %s on %s"
            % (", ".join("%s %.3f ms" % kv for kv in ms.items()), card))
     return ms
@@ -157,7 +183,8 @@ def phase_stage(card):
         call = lambda **kw: lesstage.stage_fused_cuda(
             grid, phys, cur, base, frc, 0.5, dt, **kw)
         by = {}
-        for name, us in cs.device_us(call).items():
+        for name, us in cs.device_us(
+                call, expect=cs.DEVICE_KERNELS["lesstage"]).items():
             by[launch_of(name)] = by.get(launch_of(name), 0.0) + us
         stage_us = by.get("k_means", 0.0) + by.get("k_stage", 0.0)
         b_ms, bound_by = cs.bound_ms(*cs.stage_bound(n, nz, ny, nx))
@@ -177,7 +204,8 @@ def phase_stage(card):
         for tz in TZ_SWEEP:
             g = lesstage.stage_geometry(n, nz, ny, nx, tz)
             us = sum(v for k, v in cs.device_us(
-                lambda: call(tz=tz), reps=10).items()
+                lambda: call(tz=tz), reps=10,
+                expect=cs.DEVICE_KERNELS["lesstage"]).items()
                 if launch_of(k) == "k_stage")
             res["sweep"].append(dict(n=n, tz=tz, blocks=g.blocks,
                                      k_stage_us=us))
@@ -187,17 +215,60 @@ def phase_stage(card):
     return res
 
 
+def phase_split(card):
+    """The scalar and momentum kernels alone at 64x64x160: device time,
+    CUDA events, bound share; then levels per chunk."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    grid = lgrid.LESGrid()
+    nz, ny, nx = grid.nz, grid.ny, grid.nx
+    res = dict(calls={}, sweep=[])
+    for name, launch, _, args_of, _, geom_of in cs.split_kernels()[:2]:
+        for n in (1, 2):
+            args = args_of(cs.split_inputs(grid, n, 11 + n), grid)
+            call = lambda **kw: launch(*args, **kw)
+            us = sum(cs.device_us(
+                call, expect=cs.DEVICE_KERNELS[name]).values())
+            ev = cs.cuda_ms(call)
+            b_ms, bound_by = cs.bound_ms(
+                cs.tensor_bytes(args, call()),
+                cs.KERNEL_OPS[name] * n * nz * ny * nx)
+            geom = geom_of(args, None)
+            res["calls"]["%s n=%d" % (name, n)] = dict(
+                device_us=us, cuda_event_ms=ev, bound_us=1e3 * b_ms,
+                bound_by=bound_by, geometry=geom._asdict())
+            cs.log("%s 64x64x160 n=%d (tile %dx%d, tz %d, %d blocks, %d B "
+                   "shared): device %.1f us per call; CUDA events %.3f ms; "
+                   "bound %.1f us (%s), %.1f %% of it, on %s"
+                   % (name, n, geom.tx, geom.ty, geom.tz, geom.blocks,
+                      geom.smem, us, ev, 1e3 * b_ms, bound_by,
+                      100 * 1e3 * b_ms / us, card))
+            for tz in SPLIT_TZ_SWEEP:
+                g = geom_of(args, tz)
+                t = sum(cs.device_us(lambda: call(tz=tz), reps=10,
+                                     expect=cs.DEVICE_KERNELS[name]).values())
+                res["sweep"].append(dict(kernel=name, n=n, tz=tz,
+                                         blocks=g.blocks, device_us=t))
+                cs.log("  sweep %s n=%d tz %3d: %4d blocks, %.1f us%s"
+                       % (name, n, tz, g.blocks, t,
+                          " (default)" if tz == geom.tz else ""))
+    return res
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if mode not in ("all", "stage", "path"):
-        raise SystemExit("usage: chip_profile.py [stage | path]")
+    if mode not in ("all", "path", "stage", "split"):
+        raise SystemExit("usage: chip_profile.py [path | stage | split]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
-    if mode != "stage":
-        out.update(phase_steps(card), per_call_ms=phase_calls(card))
-    if mode != "path":
+    if mode in ("all", "path"):
+        out.update(paths={g: phase_steps(card, g)
+                          for g in ("tke", "smagorinsky")},
+                   per_call_ms=phase_calls(card))
+    if mode in ("all", "stage"):
         out.update(stage=phase_stage(card))
+    if mode in ("all", "split"):
+        out.update(split=phase_split(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

@@ -21,10 +21,11 @@ Phases (any failure raises and exits non-zero):
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
      CUDA-event timings of both and the kernel's bound;
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
-     (advect) kernels against their plain versions at the same shapes,
-     each output array at the JAX tests' tolerance and at ARRAY_FRAC of
-     its own max|ref|; advect also at 12x10x20, n = 3, a grid the
-     lesflat dispatch refuses; with CUDA-event timings of both;
+     (advect) kernels against their plain versions at STAGE_SHAPES (the
+     same tiles, ragged grids and z-chunks), for the split_inputs state
+     and a rough one (rough_split_inputs), each output array at the JAX
+     tests' tolerance and at ARRAY_FRAC of its own max|ref|; with
+     CUDA-event and device timings of both;
   4. a small coupled step (T10/L8 + 2 x 16x16x32) through the kernels
      against the same step through the plain split path, for each closure:
      the substep counts, the slab profiles and their change over the step;
@@ -90,11 +91,13 @@ USTAR2_RTOL = 1e-3
 # increments)
 INC_BASE = dict(u=0.0, v=0.0, w=0.0, thl=0.0, qt=1e-3, qr=1e-4, e12=0.1)
 INC_FRAC, INC_RTOL = 2e-3, 1e-3
-# the stage kernel's grids, (nx, ny, nz), n, tz (None: the levels per
-# z-chunk of ops/lesstage.py::stage_geometry). Beside the main path's:
-# a grid whose last tile is ragged in y and wider than the plane in x, the
-# smallest plane the kernel takes, and z-chunks that do not divide nz
-# (at 64x64x157, n = 2 the default 20 levels leave a last chunk of 17)
+# the grids of the tiled kernels (the stage kernel, and #2-#4 in phase
+# 3b), (nx, ny, nz), n, tz (None: the levels per z-chunk of each kernel's
+# launch geometry, ops/tiling.py). Beside the main path's: a grid whose
+# last tile is ragged in y and wider than the plane in x, the smallest
+# plane the kernels take, and z-chunks that do not divide nz (at
+# 64x64x157, n = 2 the default chunks leave a last one of 17 levels for
+# the stage, 3 for lesflat, 7 for lesmom)
 STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
                 ((64, 64, 160), 2, None), ((12, 10, 20), 3, 6),
                 ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
@@ -118,8 +121,10 @@ COUPLED_FRAC = 1e-2
 # max|ref|. At the inputs of split_inputs the float32 plain version lies
 # within 5e-7 of max|ref| of its float64 run, and the plain version with
 # any one term removed (horizontal or vertical advection or diffusion; for
-# momentum also w's diffusion or the m0 / fm masks) moves some array by
-# 5.9e-3 of its max|ref| or more (tests/test_torch_lesops.py)
+# momentum also w's diffusion or the m0 / fm masks) or with a fault of a
+# tiled kernel (K read one level off; x and y swapped in the stencil)
+# moves some array by 4.2e-3 of its max|ref| or more, at split_inputs and
+# at rough_split_inputs (tests/test_torch_lesops.py)
 SCALAR_TOL = dict(atol=2e-4, rtol=1e-4)
 MOM_TOL = dict(atol=5e-5, rtol=1e-4)
 ARRAY_FRAC = 1e-4
@@ -249,28 +254,45 @@ def cuda_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def device_us(fn, reps=20):
-    """Device time per call of fn, by kernel name (torch.profiler, mean
-    over reps calls after one warm-up call), in us."""
+# the device kernels of each wrapper (part of their torch.profiler names),
+# each launched once a call
+DEVICE_KERNELS = dict(lesstage=("k_means", "k_stage"), lesflat=("k_scalars",),
+                      advect=("k_scalars",), lesmom=("k_momentum",))
+
+
+def device_us(fn, reps=20, expect=(), tries=3):
+    """Device time per call of fn, by kernel name, in us: the mean time of
+    a launch (torch.profiler, over reps calls after one warm-up call)
+    times the launches a call makes. The profiler can lose records: one
+    launch of a capture now and then, once every launch of one kernel (a
+    capture of the stage kernel held k_means and not k_stage). So a
+    kernel is timed by the launches it shows, and a capture in which a
+    kernel named in `expect` does not show is taken again, up to `tries`
+    times; then this raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in p.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
-    if not by:
-        raise RuntimeError("the profiler saw no device kernels")
-    return {k: v / reps for k, v in by.items()}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by, count = {}, {}
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
+        if by and all(any(x in k for k in by) for x in expect):
+            return {k: v / count[k] * max(1, round(count[k] / reps))
+                    for k, v in by.items()}
+    raise RuntimeError("the profiler saw %s in %d calls, not each of %s"
+                       % (count, reps, expect))
 
 
-def device_ms(fn):
-    """Device time per call of fn, every kernel it launches (ms)."""
-    return 1e-3 * sum(device_us(fn).values())
+def device_ms(fn, expect=()):
+    """Device time per call of fn, every kernel it launches (ms); expect
+    as for device_us."""
+    return 1e-3 * sum(device_us(fn, expect=expect).values())
 
 
 def check_close(name, got, ref, atol, rtol):
@@ -434,7 +456,8 @@ def phase_kernel(card):
             cur, base, frc, dt = stage_inputs(grid, n, 7 + n)
             args = (grid, phys, cur, base, frc, 0.5, dt)
             ms = cuda_ms(lambda: kern(*args))
-            dev_ms = device_ms(lambda: kern(*args))
+            dev_ms = device_ms(lambda: kern(*args),
+                               DEVICE_KERNELS["lesstage"])
             plain = cuda_ms(lambda: lesstage.stage_fused_reference(*args))
             b_ms, by = bound_ms(*stage_bound(n, nz, ny, nx))
             times[(nx, ny, nz, n)] = (ms, plain, b_ms, by, dev_ms)
@@ -457,6 +480,22 @@ def split_inputs(grid, n, seed, dev="cuda"):
                 Ks=torch.stack([Kh, Kh, Kh, 2.0 * Km], dim=1),
                 scalars=torch.stack([cur.thl, cur.qt, cur.qr, cur.e12], dim=1),
                 rhobf=cur.rhobf, rhobh=cur.rhobh, Km=Km)
+
+
+def rough_split_inputs(grid, n, seed, dev="cuda"):
+    """The split_inputs state made rough where a tiled kernel could misplace
+    a term unseen: each scalar and each K (Ks and Km) scaled per point (by
+    [0.99, 1.01] and [0.5, 1.5]), and u, v uniform in [-3, 3] m/s with a
+    tenth of the faces exactly 0 (the upwind face value's sign(0) == 0)."""
+    a = split_inputs(grid, n, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    r = lambda t: torch.rand(t.shape, generator=gen, device=dev)
+    a.update(scalars=a["scalars"] * (0.99 + 0.02 * r(a["scalars"])),
+             Ks=a["Ks"] * (0.5 + r(a["Ks"])), Km=a["Km"] * (0.5 + r(a["Km"])))
+    for k in ("u", "v"):
+        vel = 3.0 * (2.0 * r(a[k]) - 1.0)
+        a[k] = torch.where(r(a[k]) < 0.1, torch.zeros_like(vel), vel)
+    return a
 
 
 def scalar_args(a, grid):
@@ -489,44 +528,62 @@ def check_arrays(name, got, ref, tol):
     return fracs
 
 
-def phase_split_kernels(card):
-    """Kernels #2-#4 against their plain versions, on the card."""
-    from sp_coupler_tpu_torch.models.les import grid as lgrid
+def split_kernels():
+    """(name, kernel launcher, plain version, args_of, tolerance, launch
+    geometry of (args, tz)) of kernels #2-#4."""
     from sp_coupler_tpu_torch.ops import lesflat, lesmom, advect
-    kernels = (
+    scal_geom = lambda a, tz: lesflat.scalar_geometry(
+        a[0].shape[0], a[4].shape[1], *a[0].shape[1:], tz=tz)
+    mom_geom = lambda a, tz: lesmom.momentum_geometry(*a[0].shape, tz=tz)
+    return (
         ("lesflat", lesflat.advect_diffuse_scalars_cuda,
-         lesflat.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL),
+         lesflat.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL,
+         scal_geom),
         ("lesmom", lesmom.momentum_tendencies_cuda,
-         lesmom.momentum_tendencies_reference, momentum_args, MOM_TOL),
+         lesmom.momentum_tendencies_reference, momentum_args, MOM_TOL,
+         mom_geom),
         ("advect", advect.advect_diffuse_scalars_cuda,
-         advect.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL))
-    shapes = (((16, 16, 32), 2), ((64, 64, 160), 1), ((64, 64, 160), 2))
+         advect.advect_diffuse_scalars_reference, scalar_args, SCALAR_TOL,
+         scal_geom))
+
+
+def phase_split_kernels(card):
+    """Kernels #2-#4 against their plain versions, on the card, at
+    STAGE_SHAPES for both inputs; timed at the shapes of the default
+    geometry."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
     res = {}
-    for name, kern, plain, args_of, tol in kernels:
+    for name, launch, plain, args_of, tol, geom_of in split_kernels():
         r = res[name] = dict(max_abs_err=0.0, times={})
-        extra = (((12, 10, 20), 3),) if name == "advect" else ()
-        for (nx, ny, nz), n in shapes + extra:
+        for (nx, ny, nz), n, tz in STAGE_SHAPES:
             grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+            kern = lambda *a: launch(*a, tz=tz)
+            for inputs in (split_inputs, rough_split_inputs):
+                args = args_of(inputs(grid, n, 11 + n), grid)
+                got, ref = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                fracs = check_arrays(name, got, ref, tol)
+                r["max_abs_err"] = max([r["max_abs_err"]] + [
+                    float((a - b).abs().max())
+                    for a, b in zip(output_arrays(got), output_arrays(ref))])
+                g = geom_of(args, tz)
+                log("kernel %s %dx%dx%d n=%d (tile %dx%d, tz %d, %d blocks), "
+                    "%s: ok, err / max|ref| per array: %s"
+                    % (name, nx, ny, nz, n, g.tx, g.ty, g.tz, g.blocks,
+                       inputs.__name__, " ".join("%.2g" % f for f in fracs)))
+            if tz is not None:
+                continue
             args = args_of(split_inputs(grid, n, 11 + n), grid)
-            got, ref = kern(*args), plain(*args)
-            torch.cuda.synchronize()
-            fracs = check_arrays(name, got, ref, tol)
-            r["max_abs_err"] = max([r["max_abs_err"]] + [
-                float((a - b).abs().max())
-                for a, b in zip(output_arrays(got), output_arrays(ref))])
             ms = cuda_ms(lambda: kern(*args))
-            dev_ms = device_ms(lambda: kern(*args))
+            dev_ms = device_ms(lambda: kern(*args), DEVICE_KERNELS[name])
             plain_ms = cuda_ms(lambda: plain(*args))
             b_ms, by = bound_ms(tensor_bytes(args, got),
                                 KERNEL_OPS[name] * n * nz * ny * nx)
             r["times"][(nx, ny, nz, n)] = (ms, plain_ms, b_ms, by, dev_ms)
-            log("kernel %s %dx%dx%d n=%d: ok, err / max|ref| per array: %s; "
-                "%.3f ms by CUDA events, %.4f ms of device time (plain "
+            log("  %.3f ms by CUDA events, %.4f ms of device time (plain "
                 "PyTorch %.3f ms); bound %.4f ms (%s), %.1f %% of the device "
-                "time, on %s"
-                % (name, nx, ny, nz, n, " ".join("%.2g" % f for f in fracs),
-                   ms, dev_ms, plain_ms, b_ms, by, 100 * b_ms / dev_ms,
-                   card))
+                "time, on %s" % (ms, dev_ms, plain_ms, b_ms, by,
+                                 100 * b_ms / dev_ms, card))
     return res
 
 

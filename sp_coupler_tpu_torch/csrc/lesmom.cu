@@ -11,19 +11,48 @@
 // the cell grid and w on the face grid (faces 0..nz as given, so the outer
 // advective fluxes vanish only by the state invariant w[0] = w[nz] = 0);
 // Km two levels down edge-clamped; rhobf[k-1] taken as 0 at k = 0; w
-// diffused with the face-interpolated viscosity (Km[k-1] + Km[k]) / 2 and
-// the densities swapped (rhobf at its faces, rhobh at its cells), its
+// diffused with the face-interpolated viscosity Kf = (Km[k-1] + Km[k]) / 2
+// and the densities swapped (rhobf at its faces, rhobh at its cells), its
 // vertical diffusive flux zeroed at cells 0 and nz-1 (masks fm, fm_m1);
 // dw at face 0 zeroed (mask m0) and dw at face nz written as 0.
 //
-// What bounds it: memory traffic. At 64x64x160 and n = 1 a field is 2.62 MB;
-// the kernel reads 4 fields (u, v, w, Km) and writes 3, about 18 MB, which is
-// 5.5 us at 3.35 TB/s; the ~250 flops a point are far below the card's rate.
-// This first version is one thread per point computing all three
-// tendencies, reading its stencil (+-1 in x and y, -2..+1 in z) straight
-// from global memory: neighbouring threads share it, so L1/L2 do the reuse
-// and device-memory traffic stays near one read of each field. Tiling x/y in
-// shared memory is later work.
+// The bound: bytes. At 64x64x160 and n = 1 a field is 2.62 MB; the kernel
+// reads 4 fields (u, v, w, Km) and writes 3, 18.4 MB, 5.5 us at 3.35 TB/s;
+// ~230 float operations a point (chip_smoke.py, KERNEL_OPS) take 4.5 us
+// at the card's issue rate. Read straight from global memory for each
+// point, the stencil (+-1 in x and y, -2..+1 in z) costs far more
+// instructions and L1/L2 traffic than either: ~60 reads a point through
+// clamped and wrapped 64-bit index arithmetic, the corner fluxes and the
+// face viscosity computed two to four times, ~30 divisions a point. So
+// the design cuts the instructions a point.
+//
+// The design: one block per (TX x TY tile of columns, chunk of tz levels,
+// instance), one thread per column, marching upward in z.
+//   - u, v, w and Km go through a ring of NSLOT z-planes in shared memory,
+//     each over the tile plus a 1-point periodic x/y halo (corners
+//     included), filled by cp.async: the next level's planes are in flight
+//     while the current one is computed. A tile wider than the plane wraps
+//     through the row/column tables.
+//   - Each horizontal face flux of the level is computed once, by one
+//     thread, into shared memory: the centred fluxes u_c^2 and v_c^2, the
+//     corner flux v_bar(x) u_bar(y) (du's y-flux and dv's x-flux are the
+//     same product), u_bar(z) w_bar(x) and v_bar(z) w_bar(y) for w, and the
+//     diffusive fluxes of u, v (with Km at the faces) and w (with Kf at the
+//     faces). Kf itself is computed once per point of the plane + halo, a
+//     level ahead, into a 2-plane ring. Each thread then differences the
+//     fluxes of its cell's faces; the tile's far faces take one extra row
+//     and column of fluxes.
+//   - The vertical fluxes are carried up: the flux through a cell's upper
+//     face is the next level's lower-face flux, the same expression, kept
+//     in a register. The column's u, v, w and Km at the levels around it
+//     stay in registers too.
+//   - 1/dx, 1/dy, 1/dz once per launch, 1/(rhobf dz) and 1/(rhobh dz) once
+//     per level, multiplied where the plain version divides (the
+//     diffusive fluxes' /dx, /dy, /dz and every difference's /dx, /dy), so
+//     last bits differ from it.
+// A chunk starts by copying the planes of its first level and the one
+// below, and reads Km two levels down from memory. The launch geometry
+// (tz, shared-memory bytes) comes from ops/lesmom.py::momentum_geometry.
 //
 // Plain C interface for ctypes: lesmom_tend returns cudaGetLastError().
 
@@ -34,161 +63,258 @@
 namespace {
 
 using stencil::clampz;
-using stencil::wrap;
+using stencil::cp_async_commit;
+using stencil::cp_async_f32;
+using stencil::cp_async_wait_all;
+using stencil::ring;
+using stencil::wrapmod;
 
-constexpr int NT = 256;  // threads per block
+constexpr int TX = 32, TY = 8;  // the tile of columns, ops/lesmom.py TX, TY
+constexpr int NT = TX * TY;     // one thread per column of the tile
+constexpr int NF = 4;           // fields in the ring
+constexpr int NSLOT = 4;        // planes k-1..k+1 live, k+2 in flight
+constexpr int RESIDENT = 4;     // blocks an SM, ops/lesmom.py RESIDENT
+enum { F_U, F_V, F_W, F_K };
+// the flux planes, one value per face (or corner) of the tile: x-faces
+// (between columns x-1 and x), y-faces, and the corner of the two
+enum {
+  X_UU, X_KU, X_KV, X_UW, X_KW,  // x-faces
+  Y_VV, Y_KU, Y_KV, Y_VW, Y_KW,  // y-faces
+  C_UV,                          // corners
+  NFLUX
+};
+
+// shared-memory layout of a block; ops/lesmom.py::shared_bytes computes the
+// same byte count
+struct Tile {
+  static constexpr int W = TX + 2, H = TY + 2, PL = W * H;  // 1-point halo
+  static constexpr int FW = TX + 1, FL = FW * (TY + 1);     // flux plane
+  static constexpr int FLD = NSLOT * NF * PL;  // field ring (floats)
+  static constexpr int KF = 2 * PL;            // Kf ring (floats)
+  static constexpr int FLX = NFLUX * FL;       // flux planes (floats)
+  static constexpr int BYTES = 4 * (FLD + KF + FLX) + 4 * (W + H);
+};
+static_assert(Tile::BYTES <= 48 * 1024, "beyond the default allowance");
 
 struct Mom {
   // u, v, Km [n, nz, P]; w [n, nz+1, P]; rhobf [n, nz]; rhobh [n, nz+1];
   // du, dv [n, nz, P]; dw [n, nz+1, P]; P = ny * nx
   const float *u, *v, *w, *Km, *rhobf, *rhobh;
   float *du, *dv, *dw;
-  int nz, ny, nx;
+  int nz, ny, nx, tz;
   float dx, dy, dz;
 };
 
-__global__ void __launch_bounds__(NT) k_momentum(Mom a) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  const int g = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
+  using L = Tile;
+  constexpr int W = L::W, PL = L::PL, FW = L::FW, FL = L::FL;
+  extern __shared__ float smem[];
+  float* const fld = smem;            // [NSLOT][NF][PL]
+  float* const kfr = fld + L::FLD;    // [2][PL]
+  float* const flx = kfr + L::KF;     // [NFLUX][FL]
+  int* const rowoff = reinterpret_cast<int*>(flx + L::FLX);  // [H] y*nx
+  int* const colx = rowoff + L::H;                           // [W] x
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int nz = a.nz, ny = a.ny, nx = a.nx, P = ny * nx;
-  if (i >= P) return;
-  const int y = i / nx, x = i - y * nx;
+  const int tiles_x = (nx + TX - 1) / TX;
+  const int x0 = (blockIdx.x % tiles_x) * TX, y0 = (blockIdx.x / tiles_x) * TY;
+  const int k0 = blockIdx.y * a.tz, k1 = min(nz, k0 + a.tz);
+  const int b = blockIdx.z;
+  const int gx = x0 + tx, gy = y0 + ty;
+  const bool own = gx < nx && gy < ny;  // the column is on the grid
+  const int ci = (ty + 1) * W + tx + 1;  // the column in a plane
+
+  for (int i = tid; i < L::H; i += NT) rowoff[i] = wrapmod(y0 + i - 1, ny) * nx;
+  for (int i = tid; i < W; i += NT) colx[i] = wrapmod(x0 + i - 1, nx);
+  __syncthreads();
+
   const size_t off = (size_t)b * nz * P;
-  const float *u = a.u + off, *v = a.v + off, *Km = a.Km + off;
-  const float* w = a.w + (size_t)b * (nz + 1) * P;
-  const float dx = a.dx, dy = a.dy, dz = a.dz;
+  const size_t offw = (size_t)b * (nz + 1) * P;
+  const float* const rhobf = a.rhobf + b * nz;
+  const float* const rhobh = a.rhobh + b * (nz + 1);
+  const float dz = a.dz;
+  const float rdx = 1.0f / a.dx, rdy = 1.0f / a.dy, rdz = 1.0f / dz;
 
-  auto C = [&](const float* f, int dk, int dy_, int dx_) {
-    return f[((size_t)clampz(g + dk, nz) * ny + wrap(y + dy_, ny)) * nx +
-             wrap(x + dx_, nx)];
+  auto plane = [&](int j) { return fld + ring(j, NSLOT) * NF * PL; };
+
+  // start the copies of level j: cells clamp to [0, nz-1], w faces to
+  // [0, nz]
+  auto load = [&](int j) {
+    float* const dst = plane(j);
+    const size_t c = off + (size_t)clampz(j, nz) * P;
+    const size_t cw = offw + (size_t)clampz(j, nz + 1) * P;
+    for (int i = tid; i < PL; i += NT) {
+      const int r = i / W, q = i - r * W;
+      const int o = rowoff[r] + colx[q];
+      cp_async_f32(dst + F_U * PL + i, a.u + c + o);
+      cp_async_f32(dst + F_V * PL + i, a.v + c + o);
+      cp_async_f32(dst + F_W * PL + i, a.w + cw + o);
+      cp_async_f32(dst + F_K * PL + i, a.Km + c + o);
+    }
+    cp_async_commit();
   };
-  // w on the face grid, edge-replicated outside faces 0..nz
-  auto Wf = [&](int dk, int dy_, int dx_) {
-    return w[((size_t)clampz(g + dk, nz + 1) * ny + wrap(y + dy_, ny)) * nx +
-             wrap(x + dx_, nx)];
+
+  // Kf of level j over the plane + halo, from the Km planes of j-1 and j
+  auto face_visc = [&](int j) {
+    const float* const km = plane(j - 1) + F_K * PL;
+    const float* const kc = plane(j) + F_K * PL;
+    float* const out = kfr + (j & 1) * PL;
+    for (int i = tid; i < PL; i += NT) out[i] = 0.5f * (km[i] + kc[i]);
   };
 
-  const float rf = a.rhobf[b * nz + g];
-  const float m0 = g == 0 ? 0.f : 1.f;
-  const float rf_m1 = g == 0 ? 0.f : a.rhobf[b * nz + g - 1];
-  const float rh_lo = a.rhobh[b * (nz + 1) + g];
-  const float rh_hi = a.rhobh[b * (nz + 1) + g + 1];
-  const float irf = 1.0f / (rf * dz);
-  const float irh = 1.0f / (rh_lo * dz);
-  const float fm = (g == 0 || g == nz - 1) ? 0.f : 1.f;
-  const float fm_m1 = (g - 1 <= 0 || g - 1 == nz - 1) ? 0.f : 1.f;
-
-  const float u0 = C(u, 0, 0, 0), um = C(u, -1, 0, 0), up = C(u, 1, 0, 0);
-  const float v0 = C(v, 0, 0, 0), vm = C(v, -1, 0, 0), vp = C(v, 1, 0, 0);
-  const float w_k = Wf(0, 0, 0), w_km1 = Wf(-1, 0, 0), w_k1 = Wf(1, 0, 0);
-  const float K0 = C(Km, 0, 0, 0), Kl = C(Km, -1, 0, 0);
-  const float Ku = C(Km, 1, 0, 0), Kll = C(Km, -2, 0, 0);
-
-  // Km interpolated to the x- and y-faces of the cell
-  const float Kx0 = 0.5f * (C(Km, 0, 0, -1) + K0);
-  const float Kx1 = 0.5f * (K0 + C(Km, 0, 0, 1));
-  const float Ky0 = 0.5f * (C(Km, 0, -1, 0) + K0);
-  const float Ky1 = 0.5f * (K0 + C(Km, 0, 1, 0));
-
-  // ---- du (x-face points) ----
-  auto ucen = [&](int dx_) {
-    return 0.5f * (C(u, 0, 0, dx_) + C(u, 0, 0, dx_ + 1));
+  // the fluxes of level g at tile position (ly, lx), ly in [0, TY], lx in
+  // [0, TX]: x-face lx of row ly (ly < TY), y-face ly of column lx
+  // (lx < TX), and their corner
+  auto fluxes = [&](int g, int ly, int lx) {
+    const float* const p = plane(g) + (ly + 1) * W + lx + 1;
+    const float* const pm = plane(g - 1) + (ly + 1) * W + lx + 1;
+    const float* const kf = kfr + (g & 1) * PL + (ly + 1) * W + lx + 1;
+    float* const f = flx + ly * FW + lx;
+    const float u_c = p[F_U * PL], v_c = p[F_V * PL], w_c = p[F_W * PL];
+    const float k_c = p[F_K * PL];
+    if (ly < TY) {
+      const float u_l = p[F_U * PL - 1], w_l = p[F_W * PL - 1];
+      const float uc = 0.5f * (u_l + u_c);  // u at the cell centre x-1
+      f[X_UU * FL] = uc * uc;
+      const float Kx = 0.5f * (p[F_K * PL - 1] + k_c);
+      f[X_KU * FL] = -Kx * (u_c - u_l) * rdx;
+      f[X_KV * FL] = -Kx * (v_c - p[F_V * PL - 1]) * rdx;
+      f[X_UW * FL] = 0.5f * (pm[F_U * PL] + u_c) * (0.5f * (w_l + w_c));
+      const float Kfx = 0.5f * (kf[-1] + kf[0]);
+      f[X_KW * FL] = -Kfx * (w_c - w_l) * rdx;
+    }
+    if (lx < TX) {
+      const float v_b = p[F_V * PL - W], w_b = p[F_W * PL - W];
+      const float vc = 0.5f * (v_b + v_c);  // v at the cell centre y-1
+      f[Y_VV * FL] = vc * vc;
+      const float Ky = 0.5f * (p[F_K * PL - W] + k_c);
+      f[Y_KU * FL] = -Ky * (u_c - p[F_U * PL - W]) * rdy;
+      f[Y_KV * FL] = -Ky * (v_c - v_b) * rdy;
+      f[Y_VW * FL] = 0.5f * (pm[F_V * PL] + v_c) * (0.5f * (w_b + w_c));
+      const float Kfy = 0.5f * (kf[-W] + kf[0]);
+      f[Y_KW * FL] = -Kfy * (w_c - w_b) * rdy;
+    }
+    f[C_UV * FL] =
+        0.5f * (p[F_V * PL - 1] + v_c) * (0.5f * (p[F_U * PL - W] + u_c));
   };
-  const float Fxu0 = ucen(0) * ucen(0), Fxu_m = ucen(-1) * ucen(-1);
-  float du = -(Fxu0 - Fxu_m) / dx;
-  // corner fluxes v_bar(x) * u_bar(y) at y-faces y and y+1
-  auto Fyu = [&](int dy_) {
-    return 0.5f * (C(v, 0, dy_, -1) + C(v, 0, dy_, 0)) *
-           (0.5f * (C(u, 0, dy_ - 1, 0) + C(u, 0, dy_, 0)));
-  };
-  du = du - (Fyu(1) - Fyu(0)) / dy;
-  const float wbx_k = 0.5f * (Wf(0, 0, -1) + w_k);
-  const float wbx_k1 = 0.5f * (Wf(1, 0, -1) + w_k1);
-  du = du - (rh_hi * wbx_k1 * 0.5f * (u0 + up) -
-             rh_lo * wbx_k * 0.5f * (um + u0)) * irf;
+
+  // prologue: levels k0-1..k0+1, Kf(k0), the column's values and the
+  // fluxes through the lower faces of level k0
+  load(k0 - 1);
+  load(k0);
+  load(k0 + 1);
+  const float K_mm = a.Km[off + (size_t)clampz(k0 - 2, nz) * P + rowoff[ty + 1] +
+                          colx[tx + 1]];
+  cp_async_wait_all();
+  __syncthreads();
+  face_visc(k0);
+
+  float u_0, v_0, w_0, K_m, K_0;
+  float Fu_a, Fu_d, Fv_a, Fv_d, Fw_a, Fw_d;  // lower-face vertical fluxes
   {
-    const float Fdx0 = -Kx0 * (u0 - C(u, 0, 0, -1)) / dx;
-    const float Fdx1 = -Kx1 * (C(u, 0, 0, 1) - u0) / dx;
-    du = du - (Fdx1 - Fdx0) / dx;
-    const float Fdy0 = -Ky0 * (u0 - C(u, 0, -1, 0)) / dy;
-    const float Fdy1 = -Ky1 * (C(u, 0, 1, 0) - u0) / dy;
-    du = du - (Fdy1 - Fdy0) / dy;
-    const float Fz_lo = -rh_lo * 0.5f * (Kl + K0) * (u0 - um) / dz;
-    const float Fz_hi = -rh_hi * 0.5f * (K0 + Ku) * (up - u0) / dz;
-    du = du - (Fz_hi - Fz_lo) * irf;
+    const float* const pm = plane(k0 - 1) + ci;
+    const float* const p0 = plane(k0) + ci;
+    const float u_m = pm[F_U * PL], v_m = pm[F_V * PL], w_m = pm[F_W * PL];
+    u_0 = p0[F_U * PL];
+    v_0 = p0[F_V * PL];
+    w_0 = p0[F_W * PL];
+    K_m = pm[F_K * PL];
+    K_0 = p0[F_K * PL];
+    const float rh_lo = rhobh[k0];
+    const float rf_m1 = k0 == 0 ? 0.f : rhobf[k0 - 1];
+    const float fm_m1 = (k0 - 1 <= 0 || k0 - 1 == nz - 1) ? 0.f : 1.f;
+    const float wbx = 0.5f * (p0[F_W * PL - 1] + w_0);
+    const float wby = 0.5f * (p0[F_W * PL - W] + w_0);
+    Fu_a = rh_lo * wbx * 0.5f * (u_m + u_0);
+    Fv_a = rh_lo * wby * 0.5f * (v_m + v_0);
+    Fu_d = -rh_lo * 0.5f * (K_m + K_0) * (u_0 - u_m) * rdz;
+    Fv_d = -rh_lo * 0.5f * (K_m + K_0) * (v_0 - v_m) * rdz;
+    const float wc = 0.5f * (w_m + w_0);
+    Fw_a = rf_m1 * wc * wc;
+    Fw_d = -fm_m1 * rf_m1 * (0.25f * K_mm + 0.5f * K_m + 0.25f * K_0) *
+           (w_0 - w_m) * rdz;
   }
 
-  // ---- dv (y-face points) ----
-  auto vcen = [&](int dy_) {
-    return 0.5f * (C(v, 0, dy_, 0) + C(v, 0, dy_ + 1, 0));
-  };
-  const float Fyv0 = vcen(0) * vcen(0), Fyv_m = vcen(-1) * vcen(-1);
-  float dv = -(Fyv0 - Fyv_m) / dy;
-  // corner fluxes u_bar(y) * v_bar(x) at x-faces x and x+1
-  auto Fxv = [&](int dx_) {
-    return 0.5f * (C(u, 0, -1, dx_) + C(u, 0, 0, dx_)) *
-           (0.5f * (C(v, 0, 0, dx_ - 1) + C(v, 0, 0, dx_)));
-  };
-  dv = dv - (Fxv(1) - Fxv(0)) / dx;
-  const float wby_k = 0.5f * (Wf(0, -1, 0) + w_k);
-  const float wby_k1 = 0.5f * (Wf(1, -1, 0) + w_k1);
-  dv = dv - (rh_hi * wby_k1 * 0.5f * (v0 + vp) -
-             rh_lo * wby_k * 0.5f * (vm + v0)) * irf;
-  {
-    const float Fdx0 = -Kx0 * (v0 - C(v, 0, 0, -1)) / dx;
-    const float Fdx1 = -Kx1 * (C(v, 0, 0, 1) - v0) / dx;
-    dv = dv - (Fdx1 - Fdx0) / dx;
-    const float Fdy0 = -Ky0 * (v0 - C(v, 0, -1, 0)) / dy;
-    const float Fdy1 = -Ky1 * (C(v, 0, 1, 0) - v0) / dy;
-    dv = dv - (Fdy1 - Fdy0) / dy;
-    const float Fz_lo = -rh_lo * 0.5f * (Kl + K0) * (v0 - vm) / dz;
-    const float Fz_hi = -rh_hi * 0.5f * (K0 + Ku) * (vp - v0) / dz;
-    dv = dv - (Fz_hi - Fz_lo) * irf;
-  }
+  for (int g = k0; g < k1; ++g) {
+    cp_async_wait_all();
+    __syncthreads();  // level g+1 is in; every read of step g-1 is done
+    if (g + 2 <= k1) load(g + 2);
+    fluxes(g, ty, tx);
+    if (tid < TY)
+      fluxes(g, tid, TX);  // x-faces of the column beyond the tile
+    else if (tid < TY + TX + 1)
+      fluxes(g, TY, tid - TY);  // y-faces of the row beyond the tile
+    if (g + 1 < k1) face_visc(g + 1);
+    __syncthreads();
 
-  // ---- dw (z-face g) ----
-  auto Fxw = [&](int dx_) {
-    return 0.5f * (C(u, -1, 0, dx_) + C(u, 0, 0, dx_)) *
-           (0.5f * (Wf(0, 0, dx_ - 1) + Wf(0, 0, dx_)));
-  };
-  float dw = -(Fxw(1) - Fxw(0)) / dx;
-  auto Fyw = [&](int dy_) {
-    return 0.5f * (C(v, -1, dy_, 0) + C(v, 0, dy_, 0)) *
-           (0.5f * (Wf(0, dy_ - 1, 0) + Wf(0, dy_, 0)));
-  };
-  dw = dw - (Fyw(1) - Fyw(0)) / dy;
-  const float wc_k = 0.5f * (w_k + w_k1), wc_km1 = 0.5f * (w_km1 + w_k);
-  dw = dw - (rf * wc_k * wc_k - rf_m1 * wc_km1 * wc_km1) * irh;
-  // face-interpolated viscosity Kf = (Km[k-1] + Km[k]) / 2
-  auto Kf = [&](int dy_, int dx_) {
-    return 0.5f * (C(Km, -1, dy_, dx_) + C(Km, 0, dy_, dx_));
-  };
-  {
-    const float Kf0 = Kf(0, 0);
-    const float Kfx0 = 0.5f * (Kf(0, -1) + Kf0), Kfx1 = 0.5f * (Kf0 + Kf(0, 1));
-    const float Kfy0 = 0.5f * (Kf(-1, 0) + Kf0), Kfy1 = 0.5f * (Kf0 + Kf(1, 0));
-    const float Fdx0 = -Kfx0 * (w_k - Wf(0, 0, -1)) / dx;
-    const float Fdx1 = -Kfx1 * (Wf(0, 0, 1) - w_k) / dx;
-    dw = dw - (Fdx1 - Fdx0) / dx;
-    const float Fdy0 = -Kfy0 * (w_k - Wf(0, -1, 0)) / dy;
-    const float Fdy1 = -Kfy1 * (Wf(0, 1, 0) - w_k) / dy;
-    dw = dw - (Fdy1 - Fdy0) / dy;
-    // vertical: flux at cell g (faces g, g+1) and cell g-1, zeroed at the
-    // outermost cells
-    const float Fd_k = -fm * rf * (0.25f * Kl + 0.5f * K0 + 0.25f * Ku) *
-                       (w_k1 - w_k) / dz;
-    const float Fd_km1 = -fm_m1 * rf_m1 * (0.25f * Kll + 0.5f * Kl + 0.25f * K0) *
-                         (w_k - w_km1) / dz;
-    dw = dw - (Fd_k - Fd_km1) * irh;
-  }
-  dw = m0 * dw;
+    auto F = [&](int fi, int dy_, int dx_) {
+      return flx[fi * FL + (ty + dy_) * FW + tx + dx_];
+    };
+    const float* const pp = plane(g + 1) + ci;
+    const float u_p = pp[F_U * PL], v_p = pp[F_V * PL], w_p = pp[F_W * PL];
+    const float K_p = pp[F_K * PL];
+    const float rf = rhobf[g];
+    const float rh_lo = rhobh[g], rh_hi = rhobh[g + 1];
+    const float irf = 1.0f / (rf * dz), irh = 1.0f / (rh_lo * dz);
+    const float m0 = g == 0 ? 0.f : 1.f;
+    const float fm = (g == 0 || g == nz - 1) ? 0.f : 1.f;
 
-  const size_t o = off + (size_t)g * P + i;
-  const size_t ow = (size_t)b * (nz + 1) * P + (size_t)g * P + i;
-  a.du[o] = du;
-  a.dv[o] = dv;
-  a.dw[ow] = dw;
-  if (g == nz - 1) a.dw[ow + P] = 0.f;
+    // du (x-face point)
+    const float Fu_a_hi =
+        rh_hi * (0.5f * (pp[F_W * PL - 1] + w_p)) * 0.5f * (u_0 + u_p);
+    const float Fu_d_hi = -rh_hi * 0.5f * (K_0 + K_p) * (u_p - u_0) * rdz;
+    float du = -(F(X_UU, 0, 1) - F(X_UU, 0, 0)) * rdx;
+    du = du - (F(C_UV, 1, 0) - F(C_UV, 0, 0)) * rdy;
+    du = du - (Fu_a_hi - Fu_a) * irf;
+    du = du - (F(X_KU, 0, 1) - F(X_KU, 0, 0)) * rdx;
+    du = du - (F(Y_KU, 1, 0) - F(Y_KU, 0, 0)) * rdy;
+    du = du - (Fu_d_hi - Fu_d) * irf;
+
+    // dv (y-face point)
+    const float Fv_a_hi =
+        rh_hi * (0.5f * (pp[F_W * PL - W] + w_p)) * 0.5f * (v_0 + v_p);
+    const float Fv_d_hi = -rh_hi * 0.5f * (K_0 + K_p) * (v_p - v_0) * rdz;
+    float dv = -(F(Y_VV, 1, 0) - F(Y_VV, 0, 0)) * rdy;
+    dv = dv - (F(C_UV, 0, 1) - F(C_UV, 0, 0)) * rdx;
+    dv = dv - (Fv_a_hi - Fv_a) * irf;
+    dv = dv - (F(X_KV, 0, 1) - F(X_KV, 0, 0)) * rdx;
+    dv = dv - (F(Y_KV, 1, 0) - F(Y_KV, 0, 0)) * rdy;
+    dv = dv - (Fv_d_hi - Fv_d) * irf;
+
+    // dw (z-face g): the vertical fluxes at cells g (upper) and g-1
+    const float wc = 0.5f * (w_0 + w_p);
+    const float Fw_a_hi = rf * wc * wc;
+    const float Fw_d_hi = -fm * rf * (0.25f * K_m + 0.5f * K_0 + 0.25f * K_p) *
+                          (w_p - w_0) * rdz;
+    float dw = -(F(X_UW, 0, 1) - F(X_UW, 0, 0)) * rdx;
+    dw = dw - (F(Y_VW, 1, 0) - F(Y_VW, 0, 0)) * rdy;
+    dw = dw - (Fw_a_hi - Fw_a) * irh;
+    dw = dw - (F(X_KW, 0, 1) - F(X_KW, 0, 0)) * rdx;
+    dw = dw - (F(Y_KW, 1, 0) - F(Y_KW, 0, 0)) * rdy;
+    dw = dw - (Fw_d_hi - Fw_d) * irh;
+    dw = m0 * dw;
+
+    if (own) {
+      const size_t o = off + (size_t)g * P + (size_t)gy * nx + gx;
+      const size_t ow = offw + (size_t)g * P + (size_t)gy * nx + gx;
+      a.du[o] = du;
+      a.dv[o] = dv;
+      a.dw[ow] = dw;
+      if (g == nz - 1) a.dw[ow + P] = 0.f;
+    }
+    u_0 = u_p;
+    v_0 = v_p;
+    w_0 = w_p;
+    K_m = K_0;
+    K_0 = K_p;
+    Fu_a = Fu_a_hi;
+    Fu_d = Fu_d_hi;
+    Fv_a = Fv_a_hi;
+    Fv_d = Fv_d_hi;
+    Fw_a = Fw_a_hi;
+    Fw_d = Fw_d_hi;
+  }
 }
 
 }  // namespace
@@ -196,10 +322,14 @@ __global__ void __launch_bounds__(NT) k_momentum(Mom a) {
 extern "C" int lesmom_tend(const float* u, const float* v, const float* w,
                            const float* Km, const float* rhobf,
                            const float* rhobh, float* du, float* dv, float* dw,
-                           int n, int nz, int ny, int nx, float dx, float dy,
-                           float dz, cudaStream_t stream) {
-  const Mom a{u, v, w, Km, rhobf, rhobh, du, dv, dw, nz, ny, nx, dx, dy, dz};
-  const int P = ny * nx;
-  k_momentum<<<dim3((P + NT - 1) / NT, nz, n), NT, 0, stream>>>(a);
+                           int n, int nz, int ny, int nx, int tz, int smem,
+                           float dx, float dy, float dz, cudaStream_t stream) {
+  if (tz < 1 || smem < Tile::BYTES || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const Mom a{u, v, w, Km, rhobf, rhobh, du, dv, dw, nz, ny, nx, tz,
+              dx, dy, dz};
+  const dim3 grid(((nx + TX - 1) / TX) * ((ny + TY - 1) / TY),
+                  (nz + tz - 1) / tz, n);
+  k_momentum<<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -69,8 +69,13 @@
 namespace {
 
 using stencil::clampz;
+using stencil::cp_async_commit;
+using stencil::cp_async_f32;
+using stencil::cp_async_wait_all;
 using stencil::face5;
+using stencil::ring;
 using stencil::wrap;
+using stencil::wrapmod;
 
 // physical constants, sp_coupler_tpu/constants.py (double, rounded once)
 constexpr double D_PREF0 = 1.0e5, D_RD = 287.04, D_RV = 461.5, D_CP = 1004.0;
@@ -270,30 +275,6 @@ struct Tile {
   static constexpr int CLO = NCSLOT * 3 * CPL;  // Km, Kh, src ring (floats)
   static constexpr int BYTES = 4 * (FLD + CLO) + 4 * (W + H);
 };
-
-__device__ __forceinline__ int wrapmod(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-__device__ __forceinline__ int ring(int j, int m) {  // slot of level j >= -m
-  return (j + m) % m;
-}
-
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // thermodynamics of one point: saturation adjustment, thv, fall flux
 struct Thermo {
@@ -727,25 +708,12 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
     atomicMax(reinterpret_cast<unsigned*>(a.aux + b * 3), bits);
 }
 
-constexpr int MAX_DEVICES = 64;
-
 cudaError_t launch_stage(const StageArgs& a, cudaStream_t stream) {
   if (a.tx != TX || a.ty != TY || a.smem < Tile::BYTES || a.tz < 1)
     return cudaErrorInvalidValue;
-  // above 48 KB a block's dynamic shared memory must be allowed first:
-  // once per device, and again only for a larger size
-  static int allowed[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int allowed[stencil::MAX_DEVICES] = {};
+  const cudaError_t e = stencil::allow_shared(k_stage, a.smem, allowed);
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (a.smem > allowed[dev]) {
-    e = cudaFuncSetAttribute(k_stage,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             a.smem);
-    if (e != cudaSuccess) return e;
-    allowed[dev] = a.smem;
-  }
   const dim3 grid(((a.nx + TX - 1) / TX) * ((a.ny + TY - 1) / TY),
                   (a.nz + a.tz - 1) / a.tz, a.n);
   k_stage<<<grid, TX * TY, a.smem, stream>>>(a);

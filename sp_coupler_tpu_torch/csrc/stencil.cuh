@@ -1,7 +1,10 @@
-// Device helpers shared by the LES stencil kernels (lesstage.cu, lesflat.cu,
-// lesmom.cu): periodic and edge-clamped indices on the [nz, ny, nx] grid
-// and the 5th-order upwind face value.
+// Helpers shared by the LES stencil kernels (lesstage.cu, lesflat.cu,
+// lesmom.cu): periodic and edge-clamped indices on the [nz, ny, nx] grid,
+// the 5th-order upwind face value, the ring of z-planes in shared memory
+// and its asynchronous copies, and the dynamic shared-memory allowance.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace stencil {
 
@@ -10,10 +13,19 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
+// periodic index for any offset (tiles wider than the plane)
+__device__ __forceinline__ int wrapmod(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
 // edge-replicated index in [0, n - 1]
 __device__ __forceinline__ int clampz(int k, int n) {
   return k < 0 ? 0 : (k >= n ? n - 1 : k);
 }
+
+// slot of level j >= -m in a ring of m z-planes
+__device__ __forceinline__ int ring(int j, int m) { return (j + m) % m; }
 
 // 5th-order upwind face value at face x' (between cells x'-1 and x') from s
 // at x'-3 .. x'+2; sign(0) == 0, as jnp.sign. The 1/60 is one multiply,
@@ -28,6 +40,46 @@ __device__ __forceinline__ float face5(float sm3, float sm2, float sm1,
       (10.0f * (s0 - sm1) - 5.0f * (sp1 - sm2) + (sp2 - sm3)) * (1.0f / 60.0f);
   const float sg = vel > 0.f ? 1.f : (vel < 0.f ? -1.f : 0.f);
   return central - sg * upwind;
+}
+
+// asynchronous 4-byte copy from global to shared memory (sm_80+); a group
+// of them is committed, then waited for
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Let `kernel` use `bytes` of dynamic shared memory on the current device:
+// above 48 KB this must be allowed first. allowed[] holds, per device, the
+// size allowed so far, so the attribute is set once per device and again
+// only for a larger size.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, int bytes,
+                         int (&allowed)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes > allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = bytes;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace stencil

@@ -2,7 +2,8 @@
 
 The JAX package's pytrees come in as ``jax.tree.map(np.asarray, x)``
 NamedTuples or their ``_asdict()`` dicts of numpy arrays (no jax import is
-needed here); they become the port's tensors on a given device.
+needed here); they become the port's tensors on the card, or on the device
+a caller names (``default_device``: without a card, pass device="cpu").
 ``to_numpy`` turns the port's objects back into nested dicts of numpy
 arrays. A single LES instance (fields [nz, ny, nx]) becomes a fleet of 1.
 """
@@ -10,6 +11,7 @@ arrays. A single LES instance (fields [nz, ny, nx]) becomes a fleet of 1.
 import numpy as np
 import torch
 
+from . import default_device
 from .models.gcm.dycore import SpectralState, GridFields
 from .models.gcm.model import GCMState
 from .models.les.state import LESState, LESForcing
@@ -21,10 +23,11 @@ def _as_dict(x):
 
 def tensor(a, device=None):
     """numpy (or array-like) -> tensor on device, dtype kept."""
-    return torch.as_tensor(np.array(a), device=device)
+    return torch.as_tensor(np.array(a), device=default_device(device))
 
 
 def _tensors(d, device):
+    device = default_device(device)
     return {k: (None if v is None else tensor(v, device))
             for k, v in _as_dict(d).items()}
 
@@ -40,6 +43,7 @@ def grid_fields(d, device=None) -> GridFields:
 def gcm_state(d, device=None) -> GCMState:
     """GCMState (nested SpectralState / GridFields / dicts) -> port."""
     d = _as_dict(d)
+    device = default_device(device)
     return GCMState(
         now=spectral_state(d["now"], device),
         prev=spectral_state(d["prev"], device),

@@ -10,7 +10,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sp_coupler_tpu_torch import constants as c
+from sp_coupler_tpu_torch import constants as c, default_device
 
 
 class SpectralState(NamedTuple):
@@ -27,6 +27,9 @@ class SpectralState(NamedTuple):
 
     @classmethod
     def zeros(cls, nlev, M, N, device=None):
+        """Zero coefficients, on the card unless device says otherwise
+        (``default_device``)."""
+        device = default_device(device)
         z3 = torch.zeros((nlev, M, N, 2), dtype=torch.float32, device=device)
         z2 = torch.zeros((M, N, 2), dtype=torch.float32, device=device)
         return cls(vort=z3, div=z3, T=z3, lnps=z2, q=z3, ql=z3, qi=z3, a=z3)

@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from sp_coupler_tpu_torch import default_device
+
 
 @dataclasses.dataclass(frozen=True)
 class LESGrid:
@@ -25,11 +27,13 @@ class LESGrid:
         return self.nz * self.dz
 
     def zf(self, device=None):
-        """Cell-center heights, ascending, [nz] float32."""
-        return (torch.arange(self.nz, dtype=torch.float32, device=device)
-                + 0.5) * self.dz
+        """Cell-center heights, ascending, [nz] float32, on the card unless
+        device says otherwise (``default_device``)."""
+        return (torch.arange(self.nz, dtype=torch.float32,
+                             device=default_device(device)) + 0.5) * self.dz
 
     def zh(self, device=None):
-        """Face heights, ascending from 0, [nz+1] float32."""
+        """Face heights, ascending from 0, [nz+1] float32, on the card
+        unless device says otherwise (``default_device``)."""
         return torch.arange(self.nz + 1, dtype=torch.float32,
-                            device=device) * self.dz
+                            device=default_device(device)) * self.dz

@@ -10,7 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from sp_coupler_tpu_torch import constants as c
+from sp_coupler_tpu_torch import constants as c, default_device
 from ...utils import thermo
 
 
@@ -56,6 +56,9 @@ class LESForcing(NamedTuple):
 
     @classmethod
     def zeros(cls, n, nz, device=None, dtype=torch.float32):
+        """Zero forcings (z0m 0.1 m, z0h 0.02 m), on the card unless device
+        says otherwise (``default_device``)."""
+        device = default_device(device)
         z = torch.zeros((n, nz), dtype=dtype, device=device)
         s = torch.zeros((n,), dtype=dtype, device=device)
         return cls(f_u=z, f_v=z, f_thl=z, f_qt=z, f_ql=z, f_ps=s,

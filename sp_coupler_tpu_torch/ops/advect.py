@@ -21,11 +21,12 @@ advect_diffuse_scalars_reference = lesflat.advect_diffuse_scalars_reference
 
 
 def advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
-                                dx, dy, dz):
-    """Launch the Hopper kernel (entry advect_tend) on CUDA tensors."""
+                                dx, dy, dz, tz=None):
+    """Launch the Hopper kernel (entry advect_tend) on CUDA tensors (tz:
+    levels per z-chunk, ``lesflat.scalar_geometry``)."""
     global launches
     out = lesflat.launch_scalars("advect_tend", u, v, w, Ks, scalars, rhobf,
-                                 rhobh, dx, dy, dz)
+                                 rhobh, dx, dy, dz, tz)
     launches += 1
     return out
 

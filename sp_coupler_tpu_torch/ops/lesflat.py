@@ -8,8 +8,10 @@ hybrid52 and ``supported(grid)`` holds. On CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/lesflat.cu`` (built at first use,
 ops/_build.py) and raises if the launch fails; on CPU tensors it runs
 ``advect_diffuse_scalars_reference``. The kernel is bounded by memory
-traffic; the note at the top of the CUDA source says what its simple
-design does about that.
+traffic; the note at the top of the CUDA source says what its design (a
+block per tile of columns and the whole stack, marching up a z-chunk,
+each face flux computed once) does about that. ``scalar_geometry`` is its
+launch geometry.
 """
 
 import ctypes
@@ -17,15 +19,52 @@ from types import SimpleNamespace
 
 import torch
 
-from . import _build
+from . import _build, tiling
 from ..models.les import advect, subgrid
 
 launches = 0   # kernel launches made by advect_diffuse_scalars
 
 LANE = 128     # the TPU kernel's lane width, for supported()
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+# csrc/lesflat.cu: its tile of TX x TY columns; a block takes up to SMAX
+# scalars of the stack (all 4 on the LES path). Its shared-memory ring has
+# NSLOT levels, each SMAX scalar planes (tile + HALO-point halo) and SMAX K
+# planes with u, v and w (tile + 1-point halo); NFLUX flux planes a scalar
+# over the tile's (TX + 1) x (TY + 1) faces
+TX, TY = 32, 8
+SMAX, HALO, NSLOT, NFLUX = 4, 3, 3, 4
+# blocks an SM holds at once: registers (at most 80 a thread,
+# __launch_bounds__ in the source) and shared memory both bind
+RESIDENT = 3
+# a chunk's start (two levels copied before any overlap, the lower-face
+# fluxes of its first level) costs about this many levels
+CHUNK_START_LEVELS = 2
+
+
+def shared_bytes():
+    """Dynamic shared memory of a k_scalars block (csrc/lesflat.cu, Tile):
+    the ring, the flux planes and the row/column index tables."""
+    w, h = TX + 2 * HALO, TY + 2 * HALO
+    k = (TX + 2) * (TY + 2)
+    return 4 * (NSLOT * (SMAX * w * h + (SMAX + 3) * k)
+                + SMAX * NFLUX * (TX + 1) * (TY + 1)) + 4 * (w + h)
+
+
+def scalar_geometry(n, S, nz, ny, nx, tz=None):
+    """The scalar kernel's launch geometry for a stack of S scalars on an
+    [n, nz, ny, nx] fleet (ops/tiling.py): ceil(S / SMAX) groups of the
+    stack, tz levels per z-chunk, by default ``tiling.chunk_levels`` (at
+    64x64x160 and S = 4: 7 for n = 1, 14 for n = 2, one wave of 368 and 384
+    blocks); the tests and chip_profile.py's sweep pass their own. Raises
+    ValueError for tz < 1 or S < 1."""
+    if S < 1:
+        raise ValueError("the scalar kernel needs a stack, got S = %d" % S)
+    return tiling.tile_geometry("scalar", n, nz, ny, nx, TX, TY,
+                                shared_bytes(), RESIDENT, CHUNK_START_LEVELS,
+                                tz, groups=-(-S // SMAX))
 
 
 def supported(grid):
@@ -47,10 +86,12 @@ def advect_diffuse_scalars_reference(u, v, w, Ks, scalars, rhobf, rhobh,
         for i in range(scalars.shape[1])], dim=1)
 
 
-def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz):
+def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz,
+                   tz=None):
     """Launch csrc/lesflat.cu through its C entry ``entry`` on CUDA
-    tensors (counted by the caller); returns the [n, S, nz, ny, nx]
-    tendency."""
+    tensors (counted by the caller), at the launch geometry
+    ``scalar_geometry(n, S, nz, ny, nx, tz)``; returns the [n, S, nz, ny,
+    nx] tendency."""
     n, S, nz, ny, nx = scalars.shape
     if nx < 4 or ny < 4:
         raise ValueError("the scalar kernel needs nx, ny >= 4, got %d, %d"
@@ -61,20 +102,23 @@ def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz):
             chk(Ks, scalars.shape, "Ks"),
             chk(scalars, (n, S, nz, ny, nx), "scalars"),
             chk(rhobf, (n, nz), "rhobf"), chk(rhobh, (n, nz + 1), "rhobh"))
+    geom = scalar_geometry(n, S, nz, ny, nx, tz)
     out = torch.empty_like(scalars)
     fn = _build.function("lesflat", entry, _ARGTYPES)
     _build.raise_on_error(
-        fn(*ptrs, out.data_ptr(), n, S, nz, ny, nx, dx, dy, dz,
-           torch.cuda.current_stream(u.device).cuda_stream), entry)
+        fn(*ptrs, out.data_ptr(), n, S, nz, ny, nx, geom.tz, geom.smem,
+           dx, dy, dz, torch.cuda.current_stream(u.device).cuda_stream),
+        entry)
     return out
 
 
 def advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
-                                dx, dy, dz):
-    """Launch the Hopper kernel on CUDA tensors."""
+                                dx, dy, dz, tz=None):
+    """Launch the Hopper kernel on CUDA tensors (tz: levels per z-chunk,
+    ``scalar_geometry``)."""
     global launches
     out = launch_scalars("lesflat_tend", u, v, w, Ks, scalars, rhobf, rhobh,
-                         dx, dy, dz)
+                         dx, dy, dz, tz)
     launches += 1
     return out
 

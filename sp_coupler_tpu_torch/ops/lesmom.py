@@ -8,8 +8,9 @@ holds, whatever the scheme. On CUDA tensors it launches the hand-written
 Hopper kernel ``csrc/lesmom.cu`` (built at first use, ops/_build.py) and
 raises if the launch fails; on CPU tensors it runs
 ``momentum_tendencies_reference``. The kernel is bounded by memory
-traffic; the note at the top of the CUDA source says what its simple
-design does about that.
+traffic; the note at the top of the CUDA source says what its design (a
+block per tile of columns marching up a z-chunk, each face flux computed
+once) does about that. ``momentum_geometry`` is its launch geometry.
 """
 
 import ctypes
@@ -17,13 +18,46 @@ from types import SimpleNamespace
 
 import torch
 
-from . import _build
+from . import _build, tiling
 from ..models.les import advect, subgrid
 
 launches = 0   # kernel launches made by momentum_tendencies
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+# csrc/lesmom.cu: its tile of TX x TY columns, its shared-memory ring of
+# NSLOT planes of NF fields (u, v, w, Km; tile + 1-point halo), a 2-plane
+# ring of the face viscosity Kf, and NFLUX flux planes over the tile's
+# (TX + 1) x (TY + 1) faces
+TX, TY = 32, 8
+NF, NSLOT, NFLUX = 4, 4, 11
+# blocks an SM holds at once: registers bind (at most 64 a thread,
+# __launch_bounds__ in the source)
+RESIDENT = 4
+# a chunk's start (four planes copied before any overlap, Kf and the
+# lower-face fluxes of its first level) costs about this many levels
+CHUNK_START_LEVELS = 3
+
+
+def shared_bytes():
+    """Dynamic shared memory of a k_momentum block (csrc/lesmom.cu, Tile):
+    the field ring, the Kf ring, the flux planes and the row/column index
+    tables."""
+    w, h = TX + 2, TY + 2
+    return 4 * (NSLOT * NF * w * h + 2 * w * h
+                + NFLUX * (TX + 1) * (TY + 1)) + 4 * (w + h)
+
+
+def momentum_geometry(n, nz, ny, nx, tz=None):
+    """The momentum kernel's launch geometry for an [n, nz, ny, nx] fleet
+    (ops/tiling.py): tz levels per z-chunk, by default
+    ``tiling.chunk_levels`` (at 64x64x160: 5 for n = 1, 10 for n = 2, one
+    wave of 512 blocks); the tests and chip_profile.py's sweep pass their
+    own. Raises ValueError for tz < 1."""
+    return tiling.tile_geometry("momentum", n, nz, ny, nx, TX, TY,
+                                shared_bytes(), RESIDENT, CHUNK_START_LEVELS,
+                                tz)
 
 
 def momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
@@ -40,8 +74,10 @@ def momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
     return du, dv, dw
 
 
-def momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
-    """Launch the Hopper kernel on CUDA tensors."""
+def momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz,
+                             tz=None):
+    """Launch the Hopper kernel on CUDA tensors, at the launch geometry
+    ``momentum_geometry(n, nz, ny, nx, tz)``."""
     global launches
     n, nz, ny, nx = u.shape
     if nx < 4 or ny < 4:
@@ -52,12 +88,14 @@ def momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
     ptrs = (chk(u, fld, "u"), chk(v, fld, "v"), chk(w, face, "w"),
             chk(Km, fld, "Km"), chk(rhobf, (n, nz), "rhobf"),
             chk(rhobh, (n, nz + 1), "rhobh"))
+    geom = momentum_geometry(n, nz, ny, nx, tz)
     du, dv = torch.empty_like(u), torch.empty_like(u)
     dw = torch.empty_like(w)
     fn = _build.function("lesmom", "lesmom_tend", _ARGTYPES)
     _build.raise_on_error(
         fn(*ptrs, du.data_ptr(), dv.data_ptr(), dw.data_ptr(), n, nz, ny, nx,
-           dx, dy, dz, torch.cuda.current_stream(u.device).cuda_stream),
+           geom.tz, geom.smem, dx, dy, dz,
+           torch.cuda.current_stream(u.device).cuda_stream),
         "lesmom")
     launches += 1
     return du, dv, dw

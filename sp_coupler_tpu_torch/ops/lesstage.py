@@ -16,12 +16,10 @@ geometry: tile, levels per z-chunk and shared-memory bytes of a block.
 """
 
 import ctypes
-import functools
-from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, tiling
 from ..models.les import step as lstep, subgrid
 
 launches = 0   # stage calls that launched the kernel (CUDA tensors)
@@ -32,32 +30,12 @@ launches = 0   # stage calls that launched the kernel (CUDA tensors)
 # NCSLOT closure planes of Km, Kh and the TKE source)
 TX, TY = 32, 8
 HALO, NF, NSLOT, NCSLOT = 3, 7, 5, 4
-SMEM_LIMIT = 232448   # bytes of shared memory one sm_90 block can use
-SMS = 132             # streaming multiprocessors of an H100 SXM
 # k_stage blocks an SM holds at once: registers bind (at most 128 a
 # thread, __launch_bounds__ in the source), then shared memory
 RESIDENT = 2
 # a chunk's start (its z-halo copied before any overlap, closure at three
 # levels, thermodynamics at two) costs about as much as this many levels
 CHUNK_START_LEVELS = 3
-
-
-class StageGeometry(NamedTuple):
-    """Launch geometry of the stage kernel: a block per (tile of tx x ty
-    columns, chunk of tz levels, instance); smem is a block's dynamic
-    shared memory in bytes."""
-    tx: int
-    ty: int
-    tz: int
-    tiles_x: int
-    tiles_y: int
-    chunks: int
-    n: int
-    smem: int
-
-    @property
-    def blocks(self):
-        return self.tiles_x * self.tiles_y * self.chunks * self.n
 
 
 def shared_bytes():
@@ -68,38 +46,20 @@ def shared_bytes():
         + 4 * (w + h)
 
 
-@functools.lru_cache(maxsize=None)
-def chunk_levels(columns, nz):
-    """Levels per z-chunk for `columns` tiles x instances: the tz that
-    minimises waves x (tz + CHUNK_START_LEVELS), since blocks run in
-    waves of SMS x RESIDENT and a block's time grows with its levels plus
-    its start; the largest such tz on a tie."""
-    waves = lambda t: -(-columns * -(-nz // t) // (SMS * RESIDENT))
-    return min(range(1, nz + 1),
-               key=lambda t: (waves(t) * (t + CHUNK_START_LEVELS), -t))
-
-
 def stage_geometry(n, nz, ny, nx, tz=None):
-    """The stage kernel's launch geometry for an [n, nz, ny, nx] fleet.
+    """The stage kernel's launch geometry for an [n, nz, ny, nx] fleet
+    (ops/tiling.py).
 
-    tz: levels per z-chunk, by default ``chunk_levels`` (at 64x64x160: 10
-    for n = 1, 20 for n = 2, each one wave of 256 blocks). Only the tests
-    and chip_profile.py's sweep pass tz: on a small grid the default is
-    one level a chunk, so a block marches several levels over a ragged
-    tile only when tz is given. Raises ValueError for tz < 1 or shared
-    memory above SMEM_LIMIT.
+    tz: levels per z-chunk, by default ``tiling.chunk_levels`` (at
+    64x64x160: 10 for n = 1, 20 for n = 2, each one wave of 256 blocks).
+    Only the tests and chip_profile.py's sweep pass tz: on a small grid the
+    default is one level a chunk, so a block marches several levels over a
+    ragged tile only when tz is given. Raises ValueError for tz < 1 or
+    shared memory above ``tiling.SMEM_LIMIT``.
     """
-    tiles_x, tiles_y = -(-nx // TX), -(-ny // TY)
-    if tz is None:
-        tz = chunk_levels(tiles_x * tiles_y * n, nz)
-    if tz < 1:
-        raise ValueError("tz must be >= 1, got %r" % (tz,))
-    smem = shared_bytes()
-    if smem > SMEM_LIMIT:
-        raise ValueError("the stage kernel needs %d bytes of shared memory "
-                         "a block, above the %d it can use"
-                         % (smem, SMEM_LIMIT))
-    return StageGeometry(TX, TY, tz, tiles_x, tiles_y, -(-nz // tz), n, smem)
+    return tiling.tile_geometry("stage", n, nz, ny, nx, TX, TY,
+                                shared_bytes(), RESIDENT, CHUNK_START_LEVELS,
+                                tz)
 
 
 class _StageArgs(ctypes.Structure):

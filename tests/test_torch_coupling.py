@@ -85,15 +85,17 @@ def _tall_conv(case):
 @pytest.mark.parametrize("tall", [False, True])
 def test_convert_profiles(case, tall):
     ref = _tall_conv(case) if tall else case["conv"]
-    conv = tconv.convert_profiles(interop.les_profiles(_np(case["prof"])),
-                                  (TG_TALL if tall else TG).zf())
+    conv = tconv.convert_profiles(
+        interop.les_profiles(_np(case["prof"]), "cpu"),
+        (TG_TALL if tall else TG).zf("cpu"))
     for k, r in ref._asdict().items():
         close(getattr(conv, k), r, msg=k)
 
 
 def test_slab_profiles(case):
     ref = jax.vmap(lambda s: jdiag.slab_profiles(JG, s))(case["cloudy"])
-    got = tdiag.slab_profiles(TG, interop.les_state(_np(case["cloudy"])))
+    got = tdiag.slab_profiles(
+        TG, interop.les_state(_np(case["cloudy"]), "cpu"))
     assert float(jnp.max(ref["QL"])) > 0.0
     assert sorted(got) == sorted(ref)
     for k in ref:
@@ -122,8 +124,9 @@ def test_les_forcings(case):
     ref = jax.vmap(lambda cv, p: jconv.les_forcings(cv, p, DT, 0.5))(
         case["conv"], lp)
     conv_t = tconv.ConvertedProfiles(
-        **interop.les_profiles(_np(case["conv"])))
-    got = tconv.les_forcings(conv_t, interop.les_profiles(_np(lp)), DT, 0.5)
+        **interop.les_profiles(_np(case["conv"]), "cpu"))
+    got = tconv.les_forcings(conv_t, interop.les_profiles(_np(lp), "cpu"),
+                             DT, 0.5)
     assert sorted(got) == sorted(ref)
     for k in ref:
         close(got[k], ref[k], msg=k)
@@ -159,10 +162,10 @@ def test_gcm_tendencies(case, conservative):
         case["prof"], conv, {k: jnp.asarray(v) for k, v in lp.items()},
         jnp.asarray(A_d))
     got_t, got_d = tconv.gcm_tendencies(
-        interop.les_profiles(_np(case["prof"])),
-        tconv.ConvertedProfiles(**interop.les_profiles(_np(conv))),
-        interop.les_profiles(lp), torch.tensor(A_d), TG_TALL.zf(),
-        TG_TALL.zh(), DT, conservative=conservative)
+        interop.les_profiles(_np(case["prof"]), "cpu"),
+        tconv.ConvertedProfiles(**interop.les_profiles(_np(conv), "cpu")),
+        interop.les_profiles(lp, "cpu"), torch.tensor(A_d),
+        TG_TALL.zf("cpu"), TG_TALL.zh("cpu"), DT, conservative=conservative)
     assert np.count_nonzero(np.asarray(ref_t["T"])) >= 2 * len(COLS)
     for ref, got in ((ref_t, got_t), (ref_d, got_d)):
         assert sorted(got) == sorted(ref)
@@ -205,9 +208,9 @@ def coupled(case, request):
                    dt_les=15.0, n_substeps=0)
     gs_j, les_j = case["gs"], case["les"]
     prof_j = jax.vmap(lambda s: jdiag.slab_profiles(JG, s))(les_j)
-    gs_t = interop.gcm_state(_np(gs_j))
-    les_t = interop.les_state(_np(les_j))
-    prof_t = interop.les_profiles(_np(prof_j))
+    gs_t = interop.gcm_state(_np(gs_j), "cpu")
+    les_t = interop.les_state(_np(les_j), "cpu")
+    prof_t = interop.les_profiles(_np(prof_j), "cpu")
     rain_j = np.zeros(len(COLS), np.float32)
     rain_t = torch.zeros(len(COLS))
     steps = []

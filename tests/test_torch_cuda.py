@@ -96,7 +96,8 @@ def test_kernel_matches_plain_on_card(dev, n):
 
 # grids a tiled kernel can get wrong (chip_smoke.py, STAGE_SHAPES): a
 # ragged last tile wider than the plane, nx = ny = 4, z-chunks that do not
-# divide nz, one-level chunks, and the default geometry
+# divide nz, one-level chunks, and the default geometry; for the stage
+# kernel and kernels #2-#4
 TILED_SHAPES = [((12, 10, 20), 3, 6), ((12, 10, 20), 3, None),
                 ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
                 ((16, 16, 32), 2, None), ((16, 16, 33), 1, 10),
@@ -207,3 +208,47 @@ def test_split_kernel_rejects_what_it_does_not_take(dev, kernel):
     bad = dict(a, w=a["w"].double())
     with pytest.raises(ValueError, match="float32"):
         _split_call(kernel, bad, grid, cuda=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["split_inputs", "rough_split_inputs"])
+@pytest.mark.parametrize("shape, n, tz", TILED_SHAPES)
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])
+def test_tiled_split_kernel_matches_plain_on_card(dev, kernel, shape, n, tz,
+                                                  inputs):
+    """chip_smoke.py's check of kernels #2-#4 (check_arrays) at the grids a
+    tiled kernel can get wrong, for the split path's inputs and a rough
+    one (s and K per point, u and v of both signs with zero faces)."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    name, launch, plain, args_of, tol, _ = next(
+        k for k in cs.split_kernels() if k[0] == kernel)
+    args = args_of(getattr(cs, inputs)(grid, n, 11 + n), grid)
+    got = launch(*args, tz=tz)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    cs.check_arrays(name, got, ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 6])
+@pytest.mark.parametrize("kernel", ["lesflat", "advect"])
+def test_scalar_kernel_takes_any_stack_on_card(dev, kernel, S):
+    """A stack of 1 scalar, and of 6 (two groups of blocks, the second of
+    2 scalars), on a ragged grid with z-chunks of 6 levels, each scalar
+    held by chip_smoke.check_arrays."""
+    grid = lgrid.LESGrid(nx=12, ny=10, nz=20)
+    name, launch, plain, args_of, tol, _ = next(
+        k for k in cs.split_kernels() if k[0] == kernel)
+    a = cs.rough_split_inputs(grid, 3, 14, str(dev))
+    rep = -(-S // 4)
+    a["scalars"] = torch.cat([a["scalars"] + i for i in range(rep)],
+                             dim=1)[:, :S].contiguous()
+    a["Ks"] = torch.cat([a["Ks"] * (1.0 + 0.1 * i) for i in range(rep)],
+                        dim=1)[:, :S].contiguous()
+    args = args_of(a, grid)
+    got = launch(*args, tz=6)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape[1] == S
+    cs.check_arrays(name, got, ref, tol)

@@ -14,7 +14,8 @@ import torch
 from sp_coupler_tpu.models.gcm import (model as jmodel, spharm as jsph,
                                        vertical as jvert)
 from sp_coupler_tpu_torch import interop
-from sp_coupler_tpu_torch.models.gcm import (model as tmodel, spharm as tsph,
+from sp_coupler_tpu_torch.models.gcm import (dycore as tdycore,
+                                             model as tmodel, spharm as tsph,
                                              vertical as tvert)
 
 torch.set_num_threads(1)
@@ -127,7 +128,7 @@ def test_eulerian_step_first_and_leapfrog(cores):
     leaf's largest entry (measured max 6e-6)."""
     jc, tc = cores
     gj = jc.initial_state(seed=3)
-    gt = interop.gcm_state(jax.tree.map(np.asarray, gj))
+    gt = interop.gcm_state(jax.tree.map(np.asarray, gj), "cpu")
     cols = np.asarray([5, 100, 200])
     for step, first in enumerate((True, False)):
         gj = jc.phase_cloud(jc._phase_a_body(gj, first))
@@ -172,3 +173,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()
     assert tvert.VerticalCoords(NLEV, device="cpu").device.type == "cpu"
+
+
+# the GCM conversion functions and tensor factory, each called with the
+# given keywords (device or none) on a JAX GCMState as numpy
+GCM_MAKERS = {
+    "interop.gcm_state": lambda g, **kw: interop.gcm_state(g, **kw).now.T,
+    "interop.spectral_state": lambda g, **kw: interop.spectral_state(
+        g.now, **kw).T,
+    "interop.grid_fields": lambda g, **kw: interop.grid_fields(g.grid,
+                                                               **kw).T,
+    "SpectralState.zeros": lambda g, **kw: tdycore.SpectralState.zeros(
+        NLEV, 3, 4, **kw).T,
+}
+
+
+@pytest.mark.parametrize("maker", sorted(GCM_MAKERS))
+def test_conversions_default_to_the_card(cores, monkeypatch, maker):
+    """With no device they ask for the CUDA card: with none (as here) they
+    raise and say to pass device='cpu'; device="cpu" runs on the CPU."""
+    g = jax.tree.map(np.asarray, cores[0].initial_state(seed=0))
+    make = GCM_MAKERS[maker]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        make(g)
+    assert make(g, device="cpu").device.type == "cpu"

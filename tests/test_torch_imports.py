@@ -25,6 +25,7 @@ MODULES = (
     "sp_coupler_tpu_torch.ops.lesmom",
     "sp_coupler_tpu_torch.ops.advect",
     "sp_coupler_tpu_torch.ops._build",
+    "sp_coupler_tpu_torch.ops.tiling",
     "sp_coupler_tpu_torch.coupling.convert",
     "sp_coupler_tpu_torch.coupling.coupler",
     "sp_coupler_tpu_torch.models.gcm.spharm",

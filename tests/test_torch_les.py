@@ -44,6 +44,16 @@ def t(x):
     return torch.tensor(np.asarray(x))[None]
 
 
+def _state(x):
+    """JAX LESState (one instance or a fleet) -> the port's, on the CPU."""
+    return interop.les_state(jax.tree.map(np.asarray, x), "cpu")
+
+
+def _forcing(x):
+    """JAX LESForcing (one instance or a fleet) -> the port's, on the CPU."""
+    return interop.les_forcing(jax.tree.map(np.asarray, x), "cpu")
+
+
 def make_case():
     """A physical JAX state with w and qr perturbed (tests/test_ops.py)."""
     rng = np.random.default_rng(11)
@@ -65,8 +75,7 @@ def make_case():
         f_thl=jnp.full(NZ, 1e-5), f_qt=jnp.full(NZ, -1e-9),
         f_u=jnp.full(NZ, 1e-5), f_v=jnp.full(NZ, -1e-5),
         z0m=jnp.asarray(0.1))
-    np_ = lambda x: jax.tree.map(np.asarray, x)
-    return st, frc, interop.les_state(np_(st)), interop.les_forcing(np_(frc))
+    return st, frc, _state(st), _forcing(frc)
 
 
 @pytest.fixture(scope="module")
@@ -227,8 +236,7 @@ def _ops_case():
         rng.normal(0, 0.1, (NZ - 1, JG.ny, JG.nx)), jnp.float32)))
     frc = jstate.LESForcing.zeros(NZ)._replace(
         wthl=jnp.asarray(0.01), wqt=jnp.asarray(1e-5))
-    np_ = lambda x: jax.tree.map(np.asarray, x)
-    return st, frc, interop.les_state(np_(st)), interop.les_forcing(np_(frc))
+    return st, frc, _state(st), _forcing(frc)
 
 
 @pytest.fixture(scope="module")
@@ -323,12 +331,11 @@ def test_evolve_adaptive_substep_counts(fleet, subgrid, serial):
             **kw),
         s, f, serial))
     s_j, n_j, c_j = run_j(st, frc)
-    np_ = lambda x: jax.tree.map(np.asarray, x)
     s_t, n_t, c_t = tstep.map_fleet(
         lambda si, fi: tstep.evolve_adaptive(
             TG, tstep.LESPhysics(subgrid=subgrid), si, fi, si.time + span,
             **kw),
-        interop.les_state(np_(st)), interop.les_forcing(np_(frc)), serial)
+        _state(st), _forcing(frc), serial)
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
     assert np.asarray(n_j)[0] != np.asarray(n_j)[1]
@@ -356,3 +363,38 @@ def test_init_state_is_seeded():
     b = tstate.init_state(*args, torch.Generator().manual_seed(4))
     assert torch.equal(a.u, b.u) and not torch.equal(a.u[0], a.u[1])
     assert float(a.u.abs().max()) <= 0.5 and a.w.shape == (2, NZ + 1, 16, 16)
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    """make_case's JAX state and forcing, as numpy."""
+    st, frc, _, _ = make_case()
+    return jax.tree.map(np.asarray, st), jax.tree.map(np.asarray, frc)
+
+
+# the LES conversion functions and tensor factories, each called with the
+# given keywords (device or none)
+LES_MAKERS = {
+    "interop.les_state": lambda c, **kw: interop.les_state(c[0], **kw).u,
+    "interop.les_forcing": lambda c, **kw: interop.les_forcing(c[1],
+                                                               **kw).f_u,
+    "interop.les_profiles": lambda c, **kw: interop.les_profiles(
+        {"THL": c[0].thl[:, 0, 0]}, **kw)["THL"],
+    "interop.tensor": lambda c, **kw: interop.tensor(c[0].qt, **kw),
+    "LESForcing.zeros": lambda c, **kw: tstate.LESForcing.zeros(2, NZ,
+                                                                **kw).z0m,
+    "LESGrid.zf": lambda c, **kw: TG.zf(**kw),
+    "LESGrid.zh": lambda c, **kw: TG.zh(**kw),
+}
+
+
+@pytest.mark.parametrize("maker", sorted(LES_MAKERS))
+def test_conversions_default_to_the_card(jax_case, monkeypatch, maker):
+    """With no device they ask for the CUDA card: with none (as here) they
+    raise and say to pass device='cpu', and do not fall back to the CPU
+    (where the kernel wrappers would take their plain versions)."""
+    make = LES_MAKERS[maker]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        make(jax_case)
+    assert make(jax_case, device="cpu").device.type == "cpu"

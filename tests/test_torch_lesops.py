@@ -156,8 +156,26 @@ def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
 
 # ---- the on-card check of kernels #2 and #3 must be able to fail ---------
 
+def _below(f, axis):
+    """f with level k holding level k-1 (edge-replicated at k = 0): a
+    field read one level off."""
+    lo = f.narrow(axis, 0, 1)
+    return torch.cat([lo, f.narrow(axis, 0, f.shape[axis] - 1)], dim=axis)
+
+
+def _swapped(plain, a, keys):
+    """The plain version with every stencil offset's x and y swapped: the
+    planes of the fields `keys` transposed, the plain version run, its
+    output transposed back (needs nx == ny)."""
+    T = lambda t: t.transpose(-1, -2).contiguous()
+    out = plain(dict(a, **{k: T(a[k]) for k in keys}))
+    return T(out) if torch.is_tensor(out) else tuple(T(x) for x in out)
+
+
 def _mutants_scalars(a, g):
-    """Plain versions of kernel #2 with one term removed."""
+    """Plain versions of kernel #2 with one term removed, or with a fault
+    of a tiled kernel: K read one level off, x and y swapped in the
+    stencil."""
     u, v, w, Ks, sc, rf, rh = (a[k] for k in ("u", "v", "w", "Ks", "scalars",
                                               "rhobf", "rhobh"))
     z = torch.zeros_like
@@ -169,14 +187,21 @@ def _mutants_scalars(a, g):
     dif = lambda rhh: stack(lambda s, K: subgrid.diffuse_scalar(
         g, rf, rhh, K, s))
     A, D, Dh = adv(u, v, w), dif(rh), dif(z(rh))
+    plain = lambda b: lesflat.advect_diffuse_scalars_reference(
+        *cs.scalar_args(b, g))
     return {"horizontal advection": adv(z(u), z(v), w) + D,
             "vertical advection": adv(u, v, z(w)) + D,
             "horizontal diffusion": A + D - Dh,
-            "vertical diffusion": A + Dh}
+            "vertical diffusion": A + Dh,
+            "K one level off": plain(dict(a, Ks=_below(Ks, 2))),
+            "x and y swapped": _swapped(plain, a, ("u", "v", "w", "Ks",
+                                                   "scalars"))}
 
 
 def _mutants_momentum(a, g):
-    """Plain versions of kernel #3 with one term or mask removed."""
+    """Plain versions of kernel #3 with one term or mask removed, or with a
+    fault of a tiled kernel: Km read one level off, x and y swapped in
+    the stencil."""
     u, v, w, Km, rf, rh = (a[k] for k in ("u", "v", "w", "Km", "rhobf",
                                           "rhobh"))
     z = torch.zeros_like
@@ -216,12 +241,17 @@ def _mutants_momentum(a, g):
     dwf[:, 1] += Fd(0) / (col(rh, 1) * g.dz)
     dwf[:, nz - 1] -= Fd(nz - 1) / (col(rh, nz - 1) * g.dz)
     mut["fm mask"] = (du, dv, dwf)
+    plain = lambda b: lesmom.momentum_tendencies_reference(
+        *cs.momentum_args(b, g))
+    mut["K one level off"] = plain(dict(a, Km=_below(Km, 1)))
+    mut["x and y swapped"] = _swapped(plain, a, ("u", "v", "w", "Km"))
     return mut
 
 
 SMOKE_GRID = tgrid.LESGrid(nx=16, ny=16, nz=32)
 SCALAR_TERMS = ("horizontal advection", "vertical advection",
-                "horizontal diffusion", "vertical diffusion")
+                "horizontal diffusion", "vertical diffusion",
+                "K one level off", "x and y swapped")
 MOMENTUM_TERMS = SCALAR_TERMS + ("w diffusion", "m0 mask", "fm mask")
 
 
@@ -265,3 +295,82 @@ def test_smoke_check_accepts_float32_rounding(smoke, kernel):
     got = got.double() if torch.is_tensor(got) else [x.double() for x in got]
     fracs = cs.check_arrays(kernel, got, ref, tol)
     assert max(fracs) < 0.1 * cs.ARRAY_FRAC
+
+
+@pytest.fixture(scope="module")
+def rough():
+    """chip_smoke.py's rough inputs of kernels #2-#4 at 16x16x32, n = 2
+    (s and K per point, u and v of both signs with zero faces), and their
+    plain versions' outputs."""
+    a = cs.rough_split_inputs(SMOKE_GRID, 2, 13, "cpu")
+    g = SMOKE_GRID
+    return dict(
+        a=a,
+        scalars=lesflat.advect_diffuse_scalars_reference(*cs.scalar_args(a, g)),
+        momentum=lesmom.momentum_tendencies_reference(*cs.momentum_args(a, g)))
+
+
+@pytest.mark.parametrize("kernel, term",
+                         [("scalars", t) for t in SCALAR_TERMS]
+                         + [("momentum", t) for t in MOMENTUM_TERMS])
+def test_rough_check_rejects_a_missing_term(rough, kernel, term):
+    """The on-card check fails each mutant on the rough input too."""
+    g = SimpleNamespace(dx=SMOKE_GRID.dx, dy=SMOKE_GRID.dy, dz=SMOKE_GRID.dz)
+    mutants = (_mutants_scalars if kernel == "scalars"
+               else _mutants_momentum)(rough["a"], g)
+    tol = cs.SCALAR_TOL if kernel == "scalars" else cs.MOM_TOL
+    with pytest.raises(AssertionError, match="out of tolerance"):
+        cs.check_arrays(kernel, mutants[term], rough[kernel], tol)
+
+
+def test_rough_input_is_rough():
+    """rough_split_inputs gives u and v of both signs with exact zeros (the
+    upwind face's sign(0) == 0), and s and K varying per point."""
+    a = cs.rough_split_inputs(SMOKE_GRID, 2, 13, "cpu")
+    b = cs.split_inputs(SMOKE_GRID, 2, 13, "cpu")
+    for k in ("u", "v"):
+        assert (a[k] > 0).any() and (a[k] < 0).any() and (a[k] == 0).any()
+    for k in ("scalars", "Ks", "Km"):
+        nz = b[k] != 0
+        assert float((a[k][nz] / b[k][nz]).std()) > 1e-3
+
+
+class _FakeProfile:
+    """Stand-in for torch.profiler.profile: each capture yields the next
+    list of (kernel name, us) device records."""
+
+    captures = []
+
+    def __init__(self, activities):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        ev = lambda name, us: SimpleNamespace(
+            name=name, device_type=torch.autograd.DeviceType.CUDA,
+            time_range=SimpleNamespace(elapsed_us=lambda: us))
+        return [ev(n, us) for n, us in _FakeProfile.captures.pop(0)]
+
+
+def test_device_us_times_the_launches_it_sees(monkeypatch):
+    """chip_smoke.device_us: a kernel missing one record of 20 is timed by
+    the 19 it shows; a capture without an expected kernel is taken again;
+    a kernel launched twice a call counts twice; three captures without
+    it raise."""
+    import torch.profiler
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    _FakeProfile.captures = [
+        [("k_means", 5.0)] * 20,                                # no k_stage
+        [("k_means", 5.0)] * 20 + [("k_stage", 40.0)] * 19
+        + [("fill", 1.0)] * 40]
+    got = cs.device_us(lambda: None, expect=("k_means", "k_stage"))
+    assert got == {"k_means": 5.0, "k_stage": 40.0, "fill": 2.0}
+    _FakeProfile.captures = [[("k_means", 5.0)] * 20] * 3
+    with pytest.raises(RuntimeError, match="not each of"):
+        cs.device_us(lambda: None, expect=("k_stage",))

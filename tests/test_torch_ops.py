@@ -20,7 +20,7 @@ from sp_coupler_tpu.models.les import (grid as jgrid, state as jstate,
 from sp_coupler_tpu.ops import lesstage_pallas as jls
 from sp_coupler_tpu_torch import interop
 from sp_coupler_tpu_torch.models.les import grid as tgrid, step as tstep
-from sp_coupler_tpu_torch.ops import lesstage, _build
+from sp_coupler_tpu_torch.ops import lesstage, tiling, _build
 
 torch.set_num_threads(1)
 
@@ -30,8 +30,14 @@ TG = tgrid.LESGrid(nx=16, ny=16, nz=NZ, dz=25.0)
 NAMES = ("u", "v", "w", "thl", "qt", "qr", "e12")
 
 
-def _np(x):
-    return jax.tree.map(np.asarray, x)
+def _state(x):
+    """JAX LESState (one instance or a fleet) -> the port's, on the CPU."""
+    return interop.les_state(jax.tree.map(np.asarray, x), "cpu")
+
+
+def _forcing(x):
+    """JAX LESForcing (one instance or a fleet) -> the port's, on the CPU."""
+    return interop.les_forcing(jax.tree.map(np.asarray, x), "cpu")
 
 
 def _stage_setup():
@@ -76,8 +82,8 @@ def test_stage_reference_matches_jax_pallas_stage():
     dt, frac = 2.0, 0.5
     ref = jls.stage_fused(JG, jstep.LESPhysics(), cur, base, frc, frac, dt)
     got = lesstage.stage_fused_reference(
-        TG, tstep.LESPhysics(), interop.les_state(_np(cur)),
-        interop.les_state(_np(base)), interop.les_forcing(_np(frc)), frac,
+        TG, tstep.LESPhysics(), _state(cur),
+        _state(base), _forcing(frc), frac,
         torch.tensor([dt]))
     _check_stage(got, ref)
 
@@ -96,7 +102,7 @@ def test_stage_fleet_matches_jax_vmapped_stage():
     dt, frac = 2.0, 1.0 / 3.0
     ref = jax.vmap(lambda s, f: jls.stage_fused(
         JG, jstep.LESPhysics(), s, s, f, frac, dt))(st, frc)
-    ts, tf = interop.les_state(_np(st)), interop.les_forcing(_np(frc))
+    ts, tf = _state(st), _forcing(frc)
     got = lesstage.stage_fused(TG, tstep.LESPhysics(), ts, ts, tf, frac,
                                torch.full((2,), dt))
     for i in range(2):
@@ -119,8 +125,8 @@ def test_substep_through_fused_entry_matches_jax_split():
                              frc, dt)
     lesstage.launches = 0
     s_t, k_t = tstep.substep(TG, tstep.LESPhysics(use_kernel=True),
-                             interop.les_state(_np(st)),
-                             interop.les_forcing(_np(frc)),
+                             _state(st),
+                             _forcing(frc),
                              torch.tensor([dt]))
     assert lesstage.launches == 0          # CPU tensors: no kernel launch
     for f in ("u", "v", "w", "thl", "qt", "qr", "e12", "rain", "ustar"):
@@ -134,9 +140,9 @@ def test_substep_through_fused_entry_matches_jax_split():
 def test_stage_on_cpu_never_launches():
     cur, base, frc = _stage_setup()
     lesstage.launches = 0
-    lesstage.stage_fused(TG, tstep.LESPhysics(), interop.les_state(_np(cur)),
-                         interop.les_state(_np(base)),
-                         interop.les_forcing(_np(frc)), 1.0,
+    lesstage.stage_fused(TG, tstep.LESPhysics(), _state(cur),
+                         _state(base),
+                         _forcing(frc), 1.0,
                          torch.tensor([1.0]))
     assert lesstage.launches == 0
 
@@ -170,8 +176,8 @@ def test_fall_speed_exponents_must_be_positive():
     cur, base, frc = _stage_setup()
     with pytest.raises(ValueError, match="exponents"):
         lesstage.stage_fused_cuda(
-            TG, phys, interop.les_state(_np(cur)),
-            interop.les_state(_np(base)), interop.les_forcing(_np(frc)),
+            TG, phys, _state(cur),
+            _state(base), _forcing(frc),
             1.0, torch.tensor([1.0]))
 
 
@@ -179,8 +185,8 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     cur, base, frc = _stage_setup()
     with pytest.raises(ValueError, match="CUDA"):
         lesstage.stage_fused_cuda(
-            TG, tstep.LESPhysics(), interop.les_state(_np(cur)),
-            interop.les_state(_np(base)), interop.les_forcing(_np(frc)),
+            TG, tstep.LESPhysics(), _state(cur),
+            _state(base), _forcing(frc),
             1.0, torch.tensor([1.0]))
 
 
@@ -195,8 +201,8 @@ def test_stage_reference_stays_plain(monkeypatch):
     from sp_coupler_tpu_torch.ops import lesflat, lesmom
     cur, base, frc = _stage_setup()
     args = (TG, tstep.LESPhysics(use_kernel=True),
-            interop.les_state(_np(cur)), interop.les_state(_np(base)),
-            interop.les_forcing(_np(frc)), 0.5, torch.tensor([2.0]))
+            _state(cur), _state(base),
+            _forcing(frc), 0.5, torch.tensor([2.0]))
     monkeypatch.setattr(lesflat, "advect_diffuse_scalars", _raise)
     monkeypatch.setattr(lesmom, "momentum_tendencies", _raise)
     with pytest.raises(AssertionError, match="split-path kernel"):
@@ -216,8 +222,8 @@ def test_stage_refuses_physics_it_does_not_implement(monkeypatch, subgrid,
     assert not lesstage.supported(phys)
     assert lesstage.supported(tstep.LESPhysics())
     cur, base, frc = _stage_setup()
-    args = (TG, phys, interop.les_state(_np(cur)),
-            interop.les_state(_np(base)), interop.les_forcing(_np(frc)),
+    args = (TG, phys, _state(cur),
+            _state(base), _forcing(frc),
             0.5, torch.tensor([2.0]))
     for fn in (lesstage.stage_fused, lesstage.stage_fused_cuda):
         with pytest.raises(ValueError, match="implements subgrid='tke'"):
@@ -247,7 +253,7 @@ def test_stage_geometry_covers_every_point_once(n, nz, ny, nx, tz):
     (_block_region), update every (instance, level, column) exactly once,
     and a block's shared memory stays within what sm_90 allows."""
     g = lesstage.stage_geometry(n, nz, ny, nx, tz)
-    assert g.smem <= lesstage.SMEM_LIMIT == 227 * 1024
+    assert g.smem <= tiling.SMEM_LIMIT == 227 * 1024
     assert (g.tiles_x, g.tiles_y) == (-(-nx // g.tx), -(-ny // g.ty))
     assert g.chunks == -(-nz // g.tz) and (tz is None or g.tz == tz)
     hits = np.zeros((n, nz, ny, nx), np.int32)
@@ -280,9 +286,9 @@ def test_stage_geometry_default_chunks():
     assert lesstage.stage_geometry(3, 20, 10, 12).tz == 1
     assert lesstage.stage_geometry(2, 32, 16, 16).tz == 1
     lesstage.stage_geometry(1, 160, 64, 64)
-    before = lesstage.chunk_levels.cache_info()
+    before = tiling.chunk_levels.cache_info()
     g = lesstage.stage_geometry(1, 160, 64, 64)
-    after = lesstage.chunk_levels.cache_info()
+    after = tiling.chunk_levels.cache_info()
     assert g.tz == 10
     assert (after.hits, after.misses) == (before.hits + 1, before.misses)
 
@@ -290,7 +296,7 @@ def test_stage_geometry_default_chunks():
 def test_stage_geometry_refuses(monkeypatch):
     with pytest.raises(ValueError, match="tz must be"):
         lesstage.stage_geometry(1, 32, 16, 16, tz=0)
-    monkeypatch.setattr(lesstage, "SMEM_LIMIT", 48 * 1024)
+    monkeypatch.setattr(tiling, "SMEM_LIMIT", 48 * 1024)
     with pytest.raises(ValueError, match="shared memory"):
         lesstage.stage_geometry(1, 32, 64, 64)
 
