@@ -34,7 +34,17 @@ Phases (any failure raises and exits non-zero):
   6. the Smagorinsky path: the same 2 coupled steps with
      LESPhysics(subgrid="smagorinsky"); the scalar and momentum kernels'
      launch counts must each equal 3 x the substeps taken, and the stage
-     kernel must not run.
+     kernel must not run;
+  7. the CLI (phase_cli), as a user runs the port: run_T21.sh's flags
+     (T21/L19 + 2 x 64x64x160, columns 824/888, --cplsurf) through
+     spmaster for 2 coupled steps, the second through call_phased; the
+     stage kernel launches 3 x the substeps the run reports, the records
+     are finite and timing.txt has its phase columns; then the same run
+     restarted from its restart.npz appends a record; then a small run
+     (T10/L8 + 2 x 16x16x32) with the Smagorinsky closure and the
+     variability nudge, where lesflat and lesmom launch 3 x substeps.
+     spifs.nc is not written (the card's host may lack h5py): the records
+     go to MemoryWriter and are checked there, and a line says so.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -733,7 +743,234 @@ def phase_main(card, subgrid="tke"):
     with open(os.path.join(OUT_DIR, out), "w") as f:
         json.dump(dict(card=card, subgrid=subgrid, steps=steps,
                        launches=launches), f, indent=1)
-    return launches
+    return launches, steps
+
+
+# run_T21.sh's flags (its polygon of SP columns near Barbados, 2 LES
+# instances, surface coupling) and the columns they select on the T21 grid
+RUN_T21 = ["--gcmexp", "TEST", "--poly", "20", "-50", "10", "-50", "10",
+           "-40", "20", "-40", "--numles", "2", "--cplsurf"]
+RUN_T21_COLS = [824, 888]
+
+
+class MemoryWriter:
+    """A spifs.nc writer (``spifs.SpifsWriter``'s calls) that keeps every
+    record in memory: the card's host may have no h5py, which the file
+    needs. The records of a path outlive the writer in STORE, so that a
+    restarted run appends to them as it would to the file."""
+
+    STORE = {}
+
+    def __init__(self, path, gcm_ktot, les_info=None, start_time=None,
+                 append=False, with_surf_vars=True, compress=0):
+        if not append:
+            MemoryWriter.STORE[path] = {"Time": [], "groups": {}}
+        self.rec = MemoryWriter.STORE[path]
+        self.step = len(self.rec["Time"]) - 1
+
+    def add_les_column(self, index, lat, lon):
+        self.rec["groups"].setdefault(int(index), {})
+
+    add_output_column = add_les_column
+
+    def update_time(self, t):
+        self.rec["Time"].append(float(t))
+        self.step = len(self.rec["Time"]) - 1
+
+    def write_column(self, index, lock=False, **kwargs):
+        g = self.rec["groups"][int(index)]
+        for var, arr in kwargs.items():
+            g.setdefault(var, {})[self.step] = np.asarray(arr, np.float32)
+
+    def sync(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def read_records(path):
+    """(Time list, {column: {var: [records, ...] array}}) of a run's
+    output kept by MemoryWriter."""
+    rec = MemoryWriter.STORE[path]
+    groups = {col: {var: np.stack([r[i] for i in sorted(r)])
+                    for var, r in g.items()}
+              for col, g in rec["groups"].items()}
+    return list(rec["Time"]), groups
+
+
+def cli_leg(argv, writer):
+    """One run through the port's CLI (spmaster.build_runner + drive, as
+    spmaster.main), each step timed on the host clock; the launch counts
+    are set to 0 just before it and read just after. Returns (runner,
+    step walls, launches)."""
+    from sp_coupler_tpu_torch import spmaster
+    runner = spmaster.build_runner(argv, writer=writer)
+    if runner.device.type != "cuda":
+        raise AssertionError("the CLI took %s, not the card" % runner.device)
+    walls, step = [], runner.step
+
+    def timed_step():
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+
+    runner.step = timed_step
+    torch.cuda.synchronize()
+    reset_launches()
+    rc = spmaster.drive(runner)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError("spmaster %s exited %d" % (" ".join(argv), rc))
+    return runner, walls, launches
+
+
+def check_leg_launches(name, runner, launches, kernels):
+    """The path's kernels launched 3 x the substeps the run reports, the
+    others not at all. A serial fleet launches once per substep of each
+    instance; a batched one (small instances) once per substep of the
+    fleet, as many as its slowest instance takes."""
+    per_step = np.sum if runner.fleet.serial else np.max
+    total = int(sum(per_step(s) for s in runner.substeps))
+    for k, count in launches.items():
+        want = 3 * total if k in kernels else 0
+        if count != want or (k in kernels and count == 0):
+            raise AssertionError("%s: %s launches %d, want %d (3 x %d "
+                                 "substeps)" % (name, k, count, want, total))
+
+
+def check_finite_records(name, groups, cols, n_rec, variables):
+    for col in cols:
+        for var in variables:
+            a = groups[col][var]
+            if a.shape[0] != n_rec or not np.all(np.isfinite(a)):
+                raise AssertionError("%s: column %d %s has shape %s, finite "
+                                     "%s" % (name, col, var, a.shape,
+                                             bool(np.all(np.isfinite(a)))))
+
+
+def timing_rows(odir):
+    """timing.txt: (its header lines, its step rows as float lists)."""
+    with open(os.path.join(odir, "timing.txt")) as f:
+        lines = f.read().splitlines()
+    head = [ln for ln in lines if ln.startswith("#")]
+    rows = [[float(x) for x in ln.split()] for ln in lines
+            if not ln.startswith("#")][1:]
+    return head, rows
+
+
+def phase_cli(card, main_steps):
+    """run_T21.sh's run through the port's CLI on the card, its restart,
+    and a small Smagorinsky leg with the variability nudge.
+    main_steps: phase_main's step records of the same 2 steps through the
+    bare CoupledStepFn, printed beside the CLI's."""
+    import importlib.util
+    import tempfile
+    writer = MemoryWriter
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    log("cli: spifs.nc is not written (h5py %s here): the records are "
+        "kept in memory (MemoryWriter) and checked there; the file format "
+        "is held by the CPU tests" % ("imports" if have_h5py
+                                      else "does not import"))
+    res = dict(card=card, h5py=have_h5py)
+    with tempfile.TemporaryDirectory() as tmp:
+        odir = os.path.join(tmp, "run_T21")
+        conf = os.path.join(tmp, "phases.json")
+        with open(conf, "w") as f:
+            json.dump({"timing_phases": 1}, f)
+        spifs_path = os.path.join(odir, "spifs.nc")
+        # 1. run_T21.sh's flags, 2 coupled steps (--steps 1 + the overlap)
+        argv = RUN_T21 + ["--steps", "1", "--conf", conf, "--odir", odir]
+        runner, walls, launches = cli_leg(argv, writer)
+        if runner.sp_cols != RUN_T21_COLS:
+            raise AssertionError("run_T21.sh's polygon selected %s, not %s"
+                                 % (runner.sp_cols, RUN_T21_COLS))
+        check_leg_launches("cli run_T21", runner, launches,
+                           PATH_KERNELS["tke"])
+        times, groups = read_records(spifs_path)
+        if len(times) != 2:
+            raise AssertionError("cli run_T21: %d records, want 2"
+                                 % len(times))
+        check_finite_records("cli run_T21", groups, RUN_T21_COLS, 2,
+                             ("thl", "f_T", "A_d", "z0m", "wthl", "rain"))
+        head, rows = timing_rows(odir)
+        if not head or not head[0].startswith("# LES grid points") or \
+                len(rows) != 2:
+            raise AssertionError("timing.txt: header %s, %d step rows"
+                                 % (head, len(rows)))
+        if not (rows[1][1] > 0.0 and rows[1][5] > 0.0):
+            raise AssertionError("call_phased row without pre/post: %s"
+                                 % rows[1])
+        grid = runner.fleet.grid
+        pts = grid.nx * grid.ny * grid.nz
+        legs = [dict(name="run_T21", steps=[
+            dict(wall_s=w, substeps=s, io_s=r[-1],
+                 gridpoint_updates_per_s=pts * sum(s) / w)
+            for w, s, r in zip(walls, runner.substeps, rows)],
+            launches=launches, phased_row=rows[1])]
+        for i, st in enumerate(legs[0]["steps"]):
+            log("cli run_T21 step %d: %.3f s, substeps %s, %.4g LES "
+                "gridpoint-updates/s, host I/O column %.2f s (bare "
+                "CoupledStepFn, phase_main: %.3f s, substeps %s) on %s"
+                % (i, st["wall_s"], st["substeps"],
+                   st["gridpoint_updates_per_s"], st["io_s"],
+                   main_steps[i]["wall_s"], main_steps[i]["substeps"], card))
+        log("cli run_T21: columns %s, launches %s, call_phased row %s"
+            % (runner.sp_cols, launches, rows[1]))
+
+        # 2. the restart: loads restart.npz, appends one record
+        runner, walls, launches = cli_leg(argv + ["--restart"], writer)
+        times, groups = read_records(spifs_path)
+        if len(times) != 3 or launches["lesstage"] == 0:
+            raise AssertionError("cli restart: %d records (want 3), "
+                                 "launches %s" % (len(times), launches))
+        check_finite_records("cli restart", groups, RUN_T21_COLS, 3,
+                             ("thl", "f_T", "A_d", "z0m", "wthl", "rain"))
+        legs.append(dict(name="restart", walls=walls, launches=launches,
+                         times=times))
+        log("cli restart: %d records at %s s, step walls %s, launches %s"
+            % (len(times), times, ["%.3f" % w for w in walls], launches))
+
+        # 3. small: Smagorinsky split path + the variability nudge
+        odir3 = os.path.join(tmp, "nudge")
+        conf3 = os.path.join(tmp, "small.json")
+        with open(conf3, "w") as f:
+            json.dump({"les_itot": 16, "les_jtot": 16, "les_ktot": 32,
+                       "les_subgrid": "smagorinsky", "timing_phases": 0}, f)
+        argv3 = ["--trunc", "10", "--levels", "8", "--steps", "1",
+                 "--points", "15", "-50", "--numles", "2", "--qt_forcing",
+                 "variance", "--conf", conf3, "--odir", odir3]
+        runner, walls, launches = cli_leg(argv3, writer)
+        check_leg_launches("cli nudge", runner, launches,
+                           PATH_KERNELS["smagorinsky"])
+        times, groups = read_records(os.path.join(odir3, "spifs.nc"))
+        cols = runner.sp_cols
+        check_finite_records("cli nudge", groups, cols, 2,
+                             ("thl", "qt_std", "qt_beta"))
+        for col in cols:
+            # the nudge is not applied on the first step (its diagnostics
+            # stay 0) and is on the second (beta > 0, qt_std > 0)
+            g = groups[col]
+            if not (np.all(g["qt_beta"][0] == 0.0)
+                    and np.all(g["qt_beta"][1] > 0.0)
+                    and np.all(g["qt_std"][1] > 0.0)):
+                raise AssertionError("cli nudge: column %d qt_beta %s, "
+                                     "qt_std of step 2 %s"
+                                     % (col, g["qt_beta"], g["qt_std"][1]))
+        legs.append(dict(name="nudge", walls=walls, launches=launches,
+                         substeps=runner.substeps, columns=cols))
+        log("cli nudge (T10/L8 + 2 x 16x16x32, Smagorinsky, qt_forcing "
+            "variance): columns %s, substeps %s, launches %s, qt_std step 2 "
+            "max %s on %s" % (cols, runner.substeps, launches,
+                              [float(groups[c]["qt_std"][1].max())
+                               for c in cols], card))
+    res["legs"] = legs
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_cli.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return [leg["launches"] for leg in legs]
 
 
 def main():
@@ -743,7 +980,9 @@ def main():
     split = phase_split_kernels(card)
     phase_small_coupled(card)
     phase_small_coupled(card, "smagorinsky")
-    runs = [phase_main(card), phase_main(card, "smagorinsky")]
+    tke, main_steps = phase_main(card)
+    runs = [tke, phase_main(card, "smagorinsky")[0]]
+    runs += phase_cli(card, main_steps)
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():

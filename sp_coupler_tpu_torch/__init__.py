@@ -1,13 +1,16 @@
 """sp_coupler_tpu_torch — PyTorch/CUDA port of sp_coupler_tpu.
 
-The coupled T21 GCM + embedded-LES step of the JAX package, rewritten on
-torch tensors: the same modules, the same [n, z, y, x] layouts and float32
-at every public function. The one TPU kernel on that path (the fused LES
-RK stage, ``sp_coupler_tpu/ops/lesstage_pallas.py``) is a hand-written
-CUDA kernel for Hopper (``csrc/lesstage.cu``, bound in ``ops/lesstage``).
+The coupled T21 GCM + embedded-LES step of the JAX package, its run
+driver and CLI (``runtime/driver.py``, ``python -m
+sp_coupler_tpu_torch.spmaster``), rewritten on torch tensors: the same
+modules, the same [n, z, y, x] layouts and float32 at every public
+function. The TPU kernels (the fused LES RK stage and the split path's
+scalar and momentum kernels) are hand-written CUDA kernels for Hopper
+(``csrc/*.cu``, bound in ``ops/``).
 
 The package imports neither ``jax`` nor the JAX package; its physical
-constants are a copy of ``sp_coupler_tpu.constants``. Float32 products stay exact float32 (the
+constants, configuration, geometry, input-deck and spifs.nc modules are
+copies of the JAX package's. Float32 products stay exact float32 (the
 JAX package asks for HIGHEST precision on the spectral transforms and
 the pressure projection), so TF32 is switched off on import. Its entry
 points run on the CUDA card unless the caller asks for another device
@@ -33,3 +36,13 @@ def default_device(device=None):
         raise RuntimeError("no CUDA card: pass device='cpu' to run on the "
                            "CPU")
     return torch.device("cuda")
+
+
+def generator(device, *key):
+    """A torch.Generator on device, seeded from the integers of key (e.g.
+    a run seed and an instance or step counter) through numpy's
+    SeedSequence, so that keys that differ give unrelated streams."""
+    import numpy as np
+    seed = int(np.random.SeedSequence([int(k) for k in key])
+               .generate_state(1)[0])
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)

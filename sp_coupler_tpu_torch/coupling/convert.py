@@ -1,8 +1,9 @@
 """Coupling conversions: GCM columns <-> LES forcings/tendencies.
 
-Port of ``convert_profiles``, ``les_forcings`` and ``gcm_tendencies`` from
-``sp_coupler_tpu/coupling/convert.py``. Every function takes the SP
-columns as a leading batch axis ([n, L] profiles, top level first).
+Port of ``convert_profiles``, ``convert_surface_fluxes``, ``les_forcings``
+and ``gcm_tendencies`` from ``sp_coupler_tpu/coupling/convert.py``. Every
+function takes the SP columns as a leading batch axis ([n, L] profiles,
+top level first; [n] surface values).
 """
 
 from typing import NamedTuple
@@ -46,6 +47,19 @@ def convert_profiles(prof, zf_les):
     return ConvertedProfiles(
         u=itp(U), v=itp(V), thl=itp(thl_), qt=itp(qt_), ql=itp(QL),
         ps=Ph[..., -1], Zf=Zf, Zh=Zh, Tv=Tv, THL=thl_, QT=qt_)
+
+
+def convert_surface_fluxes(surf, Ph_sfc, T_sfc):
+    """OpenIFS surface fields -> (z0m, z0h, wthl, wqt) for the LES.
+
+    surf keys: Z0M, Z0H, QLflux, QIflux, SHflux, TLflux, TSflux ([n]).
+    Signs flip: OpenIFS positive down, DALES positive up (spcpl.py
+    :153-167). wthl uses the sensible heat flux only (TSflux).
+    """
+    rho = Ph_sfc / (c.rd * T_sfc)
+    wqt = -(surf["QLflux"] + surf["QIflux"] + surf["SHflux"]) / rho
+    wthl = -surf["TSflux"] * thermo.iexner(Ph_sfc) / (c.cp * rho)
+    return surf["Z0M"], surf["Z0H"], wthl, wqt
 
 
 def les_forcings(conv: ConvertedProfiles, les_prof, dt_gcm, factor=1.0):

@@ -2,46 +2,28 @@
 
 Port of ``sp_coupler_tpu/coupling/coupler.py::CoupledStepFn`` without a
 mesh: one call runs the GCM first half and cloud scheme, gathers and
-converts the SP columns, builds the LES forcings, evolves the LES fleet
-(CFL/Peclet-adaptive or a fixed substep count), reduces slab profiles,
-remaps the LES state back to GCM tendencies and runs the GCM second
-half. The diagnostics come back packed into one flat float32 vector with
-the JAX package's layout (``unpack_diag`` inverts it on the host).
+converts the SP columns, builds the LES forcings (with the GCM's surface
+fluxes under ``cplsurf``), applies the variability nudge (``qt_variance``),
+evolves the LES fleet (CFL/Peclet-adaptive or a fixed substep count),
+reduces slab profiles, remaps the LES state back to GCM tendencies and
+runs the GCM second half. The diagnostics come back packed into one flat
+float32 vector with the JAX package's layout (``unpack_diag`` inverts it
+on the host). ``call_phased`` runs the same step as its three phases with
+a device barrier after each, for the driver's per-phase timing.
 """
+
+import time
 
 import numpy as np
 import torch
 
-from . import convert
+from sp_coupler_tpu_torch import generator
+from . import convert, nudge
 from ..models.les import step as lstep, diag as ldiag
 from ..models.les.state import LESForcing
+from ..utils import tree
 
 _PORTED = "ROADMAP.md, open items"
-
-
-def _flatten(tree):
-    """Leaves and structure of a diag tree in jax.tree.flatten order:
-    dict keys sorted, NamedTuple fields in order."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-        return ([l for p in parts for l in p[0]],
-                ("dict", keys, [p[1] for p in parts]))
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        parts = [_flatten(x) for x in tree]
-        return ([l for p in parts for l in p[0]],
-                ("namedtuple", type(tree), [p[1] for p in parts]))
-    return [tree], None
-
-
-def _unflatten(spec, leaves):
-    if spec is None:
-        return next(leaves)
-    kind, meta, children = spec
-    vals = [_unflatten(ch, leaves) for ch in children]
-    if kind == "dict":
-        return dict(zip(meta, vals))
-    return meta(*vals)
 
 
 class CoupledStepFn:
@@ -52,16 +34,6 @@ class CoupledStepFn:
                  conservative=False, cplsurf=False, qt_variance=False,
                  constant_T=False, mesh=None, seed=42, evolve_chunks=1,
                  serial_evolve="auto", cfl=0.7, peclet=0.1, dt_min=0.2):
-        # constant_T and seed configure only the variability nudge
-        del constant_T, seed
-        if cplsurf:
-            raise NotImplementedError(
-                "cplsurf (coupled surface fluxes) is not ported yet (%s: "
-                "convert_surface_fluxes / cplsurf)" % _PORTED)
-        if qt_variance:
-            raise NotImplementedError(
-                "qt_variance (variability nudge) is not ported yet (%s: "
-                "fields_3d / nudge)" % _PORTED)
         if mesh is not None or int(evolve_chunks) != 1:
             raise NotImplementedError(
                 "meshes and evolve_chunks > 1 are not ported yet (%s: "
@@ -80,6 +52,10 @@ class CoupledStepFn:
         self.ffac = les_forcing_factor
         self.gfac = gcm_forcing_factor
         self.conservative = conservative
+        self.cplsurf = cplsurf
+        self.qt_variance = qt_variance
+        self.constant_T = constant_T
+        self.seed = seed
         self.serial_evolve = serial_evolve   # "auto" | "serial" | "batched"
         self.zf = les_grid.zf(self.device)
         self.zh_full = les_grid.zh(self.device)
@@ -89,23 +65,53 @@ class CoupledStepFn:
                  first=False, skip_half=False):
         """One coupled step. Returns (gcm_state, les_state, les profiles,
         rain, packed diag). skip_half: phase A and the cloud scheme were
-        already run on gcm_state."""
-        del step_idx  # only the (unported) variability nudge reads it
+        already run on gcm_state. step_idx seeds the nudge's draws."""
         gcm_state, les_state, forcing, conv, prof, pre_diag = self._pre(
-            gcm_state, les_state, prev_prof, first, skip_half)
+            gcm_state, les_state, prev_prof, step_idx, first, skip_half)
         les_state, n_sub, n_clamp = self._evolve_to(les_state, forcing,
                                                     self.core.cfg.dt)
         return self._post(gcm_state, les_state, conv, prof, rain_last,
                           n_sub, n_clamp, pre_diag, first)
 
-    def call_phased(self, *args, **kwargs):
-        raise NotImplementedError(
-            "call_phased is not ported yet (%s: call_phased)" % _PORTED)
+    def call_phased(self, gcm_state, les_state, prev_prof, rain_last,
+                    step_idx, first=False, skip_half=False):
+        """The same step as __call__, run as pre / evolve / post with a
+        device barrier after each: returns (out, (t_pre, t_ev, t_post)),
+        host seconds. The driver routes every timing_phases-th step here
+        for the per-phase columns of timing.txt (splib.py:340-343)."""
+        t0 = time.time()
+        gcm_state, les_state, forcing, conv, prof, pre_diag = self._pre(
+            gcm_state, les_state, prev_prof, step_idx, first, skip_half)
+        self._sync()
+        t_pre = time.time() - t0
+        t0 = time.time()
+        les_state, n_sub, n_clamp = self._evolve_to(les_state, forcing,
+                                                    self.core.cfg.dt)
+        self._sync()
+        t_ev = time.time() - t0
+        t0 = time.time()
+        out = self._post(gcm_state, les_state, conv, prof, rain_last, n_sub,
+                         n_clamp, pre_diag, first)
+        self._sync()
+        return out, (t_pre, t_ev, time.time() - t0)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def nudge_noise(self, step_idx):
+        """The nudge's normal draws [n, ny, nx] for step step_idx, from a
+        torch.Generator keyed by (seed + 1, step_idx) (the JAX package
+        folds step_idx into a jax.random key instead)."""
+        gen = generator(self.device, self.seed + 1, step_idx)
+        return torch.randn((self.cols.shape[0], self.grid.ny, self.grid.nx),
+                           generator=gen, device=self.device)
 
     # ------------------------------------------------------------------
 
-    def _pre(self, gcm_state, les_state, prev_prof, first, skip_half=False):
-        """GCM first half + gather/convert/forcings."""
+    def _pre(self, gcm_state, les_state, prev_prof, step_idx, first,
+             skip_half=False):
+        """GCM first half + gather/convert/forcings (+ nudge)."""
         core = self.core
         dt = core.cfg.dt
         if not skip_half:
@@ -125,15 +131,39 @@ class CoupledStepFn:
         rain = les_prof["Rain"]
 
         n = self.cols.shape[0]
-        full = lambda v: torch.full((n,), v, dtype=torch.float32,
-                                    device=self.device)
-        z0m, z0h, wthl, wqt = full(0.1), full(0.02), full(0.0), full(0.0)
+        if self.cplsurf:
+            surf = core.surface_fields(gcm_state, self.cols)
+            z0m, z0h, wthl, wqt = convert.convert_surface_fluxes(
+                surf, prof["Phalf"][:, -1], prof["T"][:, -1])
+        else:
+            surf = None
+            full = lambda v: torch.full((n,), v, dtype=torch.float32,
+                                        device=self.device)
+            z0m, z0h, wthl, wqt = full(0.1), full(0.02), full(0.0), full(0.0)
         forcing = LESForcing(
             f_u=fdict["f_u"], f_v=fdict["f_v"], f_thl=fdict["f_thl"],
             f_qt=fdict["f_qt"], f_ql=fdict["f_ql"], f_ps=fdict["f_ps"],
             ql_ref=conv.ql, wthl=wthl, wqt=wqt, z0m=z0m, z0h=z0h)
         pre_diag = {"gcm": prof, "forcing": fdict, "rain": rain,
                     "z0m": z0m, "z0h": z0h, "wthl": wthl, "wqt": wqt}
+        if surf is not None:
+            pre_diag["surf"] = surf
+
+        if self.qt_variance:
+            if first:
+                # not applied on the first step; its diagnostics are zero,
+                # as on the driver's generic path (fleet.time <= 0)
+                z = torch.zeros_like(conv.ql)
+                pre_diag.update(qt_alpha=z, qt_beta=z, qt_std=z)
+            else:
+                fields = ldiag.fields_3d(les_state)
+                res = nudge.variability_nudge(
+                    fields["QT"], fields["THL"], fields["Qsat"], conv.ql,
+                    les_state.pbf, dt, R=self.nudge_noise(step_idx),
+                    constant_T=self.constant_T)
+                les_state = les_state._replace(qt=res.qt, thl=res.thl)
+                pre_diag.update(qt_alpha=res.alpha, qt_beta=res.beta,
+                                qt_std=res.qt_std)
         return gcm_state, les_state, forcing, conv, prof, pre_diag
 
     def _evolve_to(self, les_state, forcing, dt_frac):
@@ -187,7 +217,7 @@ class CoupledStepFn:
 
     def _pack_diag(self, diag):
         """Flatten the diag tree into one f32 vector; record the spec."""
-        leaves, spec = _flatten(diag)
+        leaves, spec = tree.flatten(diag)
         self._diag_spec = (spec, [tuple(l.shape) for l in leaves],
                            [l.dtype for l in leaves])
         return torch.cat([l.to(torch.float32).reshape(-1) for l in leaves])
@@ -204,4 +234,4 @@ class CoupledStepFn:
             out.append(np.asarray(flat[off:off + n]).reshape(shp)
                        .astype(npdt))
             off += n
-        return _unflatten(spec, iter(out))
+        return tree.unflatten(spec, iter(out))

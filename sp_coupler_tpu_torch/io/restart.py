@@ -1,0 +1,95 @@
+"""Checkpoint / resume.
+
+Port of ``sp_coupler_tpu/io/restart.py``. The coupled state is two trees
+(GCM state, LES fleet state) plus the LES profiles of the generic path; a
+checkpoint is one compressed npz of their leaves and a small JSON of host
+scalars, in the run's output directory. The leaves are numbered in
+``jax.tree.flatten`` order (``utils/tree.py``) under the same
+``gcm_i``/``les_i``/``prof_i`` keys, so a checkpoint written by either
+package loads into the other. Resume reopens spifs.nc in append mode (the
+driver writes nothing on the first restarted step, splib.py:272-274).
+"""
+
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+
+from ..interop import to_numpy
+from ..utils import tree
+
+log = logging.getLogger(__name__)
+
+FNAME = "restart.npz"
+META = "restart.json"
+
+
+def _flatten(tag, state):
+    leaves, _ = tree.flatten(state)
+    return {"%s_%d" % (tag, i): np.asarray(to_numpy(x))
+            for i, x in enumerate(leaves)}
+
+
+def _unflatten(tag, data, template):
+    """template's tree with its leaves replaced by data's, in order: a
+    tensor leaf becomes a tensor on its device, others stay numpy."""
+    leaves, spec = tree.flatten(template)
+    new = []
+    for i, leaf in enumerate(leaves):
+        arr = np.array(data["%s_%d" % (tag, i)])
+        new.append(torch.as_tensor(arr, device=leaf.device)
+                   if isinstance(leaf, torch.Tensor) else arr)
+    return tree.unflatten(spec, iter(new))
+
+
+def save(runner):
+    out = {}
+    meta = {
+        "gcm_time": float(runner.gcm.get_model_time()),
+        "fleet_time": float(getattr(runner.fleet, "time", 0.0)),
+        "sp_cols": list(map(int, runner.sp_cols)),
+        "rain_last": [float(x) for x in np.asarray(runner.rain_last)],
+        "gcm_step": int(getattr(runner.gcm, "step_count", 0)),
+    }
+    if hasattr(runner.gcm, "state"):
+        out.update(_flatten("gcm", runner.gcm.state))
+    if getattr(runner.fleet, "state", None) is not None:
+        out.update(_flatten("les", runner.fleet.state))
+    if runner.prev_profiles is not None:
+        out.update(_flatten("prof", runner.prev_profiles))
+        meta["has_profiles"] = True
+    path = os.path.join(runner.cfg.output_dir, FNAME)
+    np.savez_compressed(path, **out)
+    with open(os.path.join(runner.cfg.output_dir, META), "w") as f:
+        json.dump(meta, f)
+    log.info("restart written to %s", path)
+
+
+def load(runner):
+    path = os.path.join(runner.cfg.output_dir, FNAME)
+    with open(os.path.join(runner.cfg.output_dir, META)) as f:
+        meta = json.load(f)
+    with np.load(path) as data:
+        if hasattr(runner.gcm, "state"):
+            runner.gcm.state = _unflatten("gcm", data, runner.gcm.state)
+            runner.gcm._first = False
+            runner.gcm.step_count = int(meta.get("gcm_step", 0))
+        if getattr(runner.fleet, "state", None) is not None:
+            runner.fleet.state = _unflatten("les", data, runner.fleet.state)
+        elif hasattr(runner.fleet, "init_states") and any(
+                k.startswith("les_") for k in data.files):
+            # the checkpoint holds a fleet state the fleet does not have
+            # yet: initialize one as the template, then overwrite it
+            nz = runner.fleet.get_ktot()
+            z = np.zeros((runner.fleet.n, nz), np.float32)
+            runner.fleet.init_states(z, z, z + 300.0, z + 1e-3,
+                                     np.full(runner.fleet.n, 1e5, np.float32))
+            runner.fleet.state = _unflatten("les", data, runner.fleet.state)
+        runner.fleet.time = meta["fleet_time"]
+        if meta.get("has_profiles") and runner.prev_profiles is None:
+            runner.prev_profiles = _unflatten(
+                "prof", data, to_numpy(runner.fleet.get_profiles()))
+    runner.rain_last = np.asarray(meta["rain_last"])
+    log.info("restart loaded from %s (gcm t=%s)", path, meta["gcm_time"])

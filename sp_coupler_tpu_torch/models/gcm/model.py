@@ -4,12 +4,15 @@ Port of the Eulerian, sigma-coordinate, single-program branch of
 ``sp_coupler_tpu/models/gcm/model.py::GCMCore``: the initial state, the
 three-phase step split at the cloud scheme (phase A = dynamics +
 pre-cloud physics, cloud scheme, phase B = SP tendencies + re-analysis +
-time filter), column gather and SP-tendency scatter. The operator tables
-live on the core's device; the JAX package's ``consts``/``bound`` jit
-plumbing has no counterpart here.
+time filter), column gather, surface fields and SP-tendency scatter. The
+operator tables live on the core's device; the JAX package's
+``consts``/``bound`` jit plumbing has no counterpart here. ``GCMModel`` is
+the host shell with the reference's duck-typed model API that the driver
+calls.
 """
 
 import dataclasses
+import datetime
 from typing import NamedTuple
 
 import numpy as np
@@ -228,6 +231,14 @@ class GCMCore:
             "Zghalf": self.vc.geopotential_half(Tcols),
         }
 
+    def surface_fields(self, state: GCMState, col_idx):
+        """The surface fields the coupler converts under cplsurf, [n] per
+        key, at the columns col_idx."""
+        j = col_idx // self.nlon
+        i = col_idx % self.nlon
+        return {k: state.sfc[k][j, i] for k in (
+            "Z0M", "Z0H", "QLflux", "QIflux", "SHflux", "TLflux", "TSflux")}
+
     def with_sp_tendencies(self, state: GCMState, col_idx, tend):
         """Scatter per-column tendencies ([n, L] per variable) into the
         dense SP buffers."""
@@ -240,3 +251,127 @@ class GCMCore:
             base[:, j, i] = v.T
             new_t[k] = base
         return state._replace(sp_tend=new_t)
+
+
+class GCMModel:
+    """Host-side shell with the reference-like duck-typed API."""
+
+    support_async = False
+
+    def __init__(self, cfg: GCMConfig = GCMConfig(), seed=0, device=None):
+        self.core = GCMCore(cfg, device=device)
+        self.cfg = cfg
+        self.state = self.core.initial_state(seed)
+        self.mask = set()
+        self.step_count = 0
+        self.exp_name = "TEST"
+        self.num_steps = 0
+        self.step = 0
+        # float32 latitudes, as the JAX package's (the same columns fall
+        # inside a region on both sides)
+        mu = self.core.sht.mu.cpu().numpy()
+        lats = np.degrees(np.arcsin(mu))
+        lons = np.arange(self.core.nlon) * 360.0 / self.core.nlon
+        self.latitudes = np.repeat(lats, len(lons))
+        self.longitudes = np.tile(lons, len(lats))
+        self.ktot = cfg.nlev
+        self._start = datetime.datetime.fromisoformat(cfg.start_date)
+        self._phase = "idle"
+        self._first = True
+
+    # -- lifecycle (initialize_code/commit_* are no-ops in-process) --------
+    def initialize_code(self):
+        pass
+
+    def commit_parameters(self):
+        pass
+
+    def commit_grid(self):
+        pass
+
+    def cleanup_code(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def write_restart(self):
+        pass
+
+    # -- reference API ------------------------------------------------------
+    def get_start_datetime(self):
+        return self._start
+
+    def get_timestep(self):
+        return float(self.cfg.dt)
+
+    def get_model_time(self):
+        return float(self.state.time)
+
+    def get_itot(self):
+        return self.core.nlon
+
+    def get_jtot(self):
+        return self.core.nlat
+
+    def get_ktot(self):
+        return self.cfg.nlev
+
+    def set_mask(self, i):
+        self.mask.add(int(i))
+
+    def set_vdf_in_sp_mask(self, value):
+        """value=True disables vertical diffusion in the masked columns;
+        False leaves it on everywhere. These are OpenIFS's semantics ("True
+        = disable vdiff inside the mask"), which the reference driver calls
+        as set_vdf_in_sp_mask(not couple_surface)."""
+        m = np.ones((self.core.nlat, self.core.nlon), np.float32)
+        if value:
+            for idx in self.mask:
+                m[idx // self.core.nlon, idx % self.core.nlon] = 0.0
+        self._vdf_disable_in_mask = value
+        self.state = self.state._replace(vdiff_mask=torch.as_tensor(
+            m, device=self.core.device))
+
+    def _refresh_vdiff_mask(self):
+        if getattr(self, "_vdf_disable_in_mask", False):
+            self.set_vdf_in_sp_mask(True)
+
+    def evolve_model_until_cloud_scheme(self):
+        self._refresh_vdiff_mask()
+        self.state = self.core._phase_a_body(self.state, self._first)
+        self._phase = "pre_cloud"
+        return True
+
+    def evolve_model_cloud_scheme(self):
+        self.state = self.core.phase_cloud(self.state)
+        self._phase = "post_cloud"
+        return True
+
+    def evolve_model_from_cloud_scheme(self):
+        self.state = self.core._phase_b_body(self.state, self._first)
+        self._first = False
+        self._phase = "idle"
+        self.step_count += 1
+        return True
+
+    def _cols(self, cols):
+        return torch.as_tensor(np.asarray(cols, np.int64),
+                               device=self.core.device)
+
+    def get_profile_fields(self, var, cols):
+        prof = self.core.column_profiles(self.state, self._cols(cols))
+        return prof[var].cpu().numpy()
+
+    def get_profile_field(self, var, col):
+        return self.get_profile_fields(var, [col])[0]
+
+    def get_surface_field(self, var, cols):
+        sf = self.core.surface_fields(self.state, self._cols(cols))
+        return sf[var].cpu().numpy()
+
+    def set_profile_tendency(self, var, col_index, profile):
+        t = torch.as_tensor(np.asarray(profile, np.float32),
+                            device=self.core.device)[None]
+        self.state = self.core.with_sp_tendencies(
+            self.state, self._cols([col_index]), {var: t})

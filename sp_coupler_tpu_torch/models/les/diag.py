@@ -1,7 +1,8 @@
 """LES diagnostics: slab-mean profiles and cloud fraction on GCM levels.
 
-Port of ``slab_profiles`` and ``cloud_fraction_on_gcm_levels`` from
-``sp_coupler_tpu/models/les/diag.py``, for a whole fleet at once.
+Port of ``slab_profiles``, ``cloud_fraction_on_gcm_levels`` and
+``fields_3d`` from ``sp_coupler_tpu/models/les/diag.py``, for a whole
+fleet at once.
 """
 
 import torch
@@ -51,3 +52,10 @@ def cloud_fraction_on_gcm_levels(grid, cloudfrac_z, gcm_Zh_desc):
     W = _interp.conservative_matrix(gcm_Zh_desc, zh,
                                     torch.ones_like(cloudfrac_z))
     return torch.matmul(W, cloudfrac_z[..., None])[..., 0]
+
+
+def fields_3d(state):
+    """3-D diagnostic fields [n, nz, ny, nx] for the variability nudge
+    (get_field access, spcpl.py:627-636)."""
+    T, ql, qs, thv = _step.thermodynamics(state)
+    return {"QT": state.qt, "THL": state.thl, "QL": ql, "Qsat": qs, "T": T}

@@ -1,0 +1,250 @@
+"""LES fleet: all embedded instances as one batched state.
+
+Port of ``sp_coupler_tpu/models/les/model.py``. The fleet is one LESState
+with a leading instance axis on one device; evolve, profiles and fields
+run on the whole fleet at once (big instances are stepped one after the
+other, ``step.map_fleet``). LESInstance is the reference's per-instance
+duck-typed API (get_profile_U, get_cloudfraction, ... — spcpl.py:274-385,
+747-767) over the fleet, on host numpy copies.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from sp_coupler_tpu_torch import default_device, generator
+from ...interop import to_numpy
+from . import state as lstate, step as lstep, diag as ldiag
+from .state import LESForcing
+
+log = logging.getLogger(__name__)
+
+
+class LESFleet:
+    """Batched LES instances sharing one grid and physics configuration,
+    on the card unless device says otherwise (``default_device``)."""
+
+    def __init__(self, grid, phys: lstep.LESPhysics, n_les: int,
+                 dt_les: float, seed: int = 42, schedule: str = "auto",
+                 cfl: float = 0.7, peclet: float = 0.1, dt_min: float = 0.2,
+                 n_substeps: int = 0, device=None):
+        self.grid = grid
+        self.phys = phys
+        self.n = n_les
+        self.dt = float(dt_les)
+        self.seed = seed
+        self.n_substeps = int(n_substeps)  # >0: fixed substeps per evolve
+        self.cfl, self.peclet, self.dt_min = cfl, peclet, dt_min
+        self.serial = (lstep.serial_fleet_default(grid) if schedule == "auto"
+                       else schedule == "serial")
+        self.device = default_device(device)
+        self.state = None              # fleet LESState after init_states
+        self.time = 0.0        # fleet clock (s); all instances share it
+
+    # ---- grid metadata (reference getters, spio.py:94-116) ----------------
+
+    def get_itot(self):
+        return self.grid.nx
+
+    def get_jtot(self):
+        return self.grid.ny
+
+    def get_ktot(self):
+        return self.grid.nz
+
+    def get_dx(self):
+        return self.grid.dx
+
+    def get_dy(self):
+        return self.grid.dy
+
+    def get_xsize(self):
+        return self.grid.nx * self.grid.dx
+
+    def get_ysize(self):
+        return self.grid.ny * self.grid.dy
+
+    def get_zf(self):
+        return self.grid.zf("cpu").numpy()
+
+    def get_zh(self):
+        """Half-level heights [nz]: cell tops, matching DALES's zh export."""
+        return self.grid.zh("cpu").numpy()[1:]
+
+    # ---- state management --------------------------------------------------
+
+    def init_states(self, u, v, thl, qt, ps, start_time=0.0):
+        """Initialize all instances from per-instance profiles [n, nz].
+
+        Noise amplitudes follow set_les_state (spcpl.py:285-291). Instance
+        i draws from its own torch.Generator keyed by (seed, i), so an
+        instance's start does not depend on the fleet's size (the JAX
+        package folds i into a jax.random key; the draws differ).
+        """
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                      device=self.device)
+        u, v, thl, qt = t(u), t(v), t(thl), t(qt)
+        ps = t(ps).expand(self.n)
+        parts = [lstate.init_state(self.grid, u[i:i + 1], v[i:i + 1],
+                                   thl[i:i + 1], qt[i:i + 1], ps[i:i + 1],
+                                   generator(self.device, self.seed, i))
+                 for i in range(self.n)]
+        self.state = lstate.LESState(*[torch.cat(f, dim=0)
+                                       for f in zip(*parts)])
+        self.time = float(start_time)
+        self.state = self.state._replace(time=torch.full(
+            (self.n,), start_time, dtype=torch.float32, device=self.device))
+
+    def evolve_to(self, t_end, forcing: LESForcing):
+        """Advance every instance to t_end under the given fleet forcing."""
+        span = float(t_end) - self.time
+        if span <= 0:
+            return
+        g, p = self.grid, self.phys
+        nn = self.n_substeps
+        te = torch.full((self.n,), float(t_end), dtype=torch.float32,
+                        device=self.device)
+        if nn:
+            def one(s, f):
+                s = lstep.evolve(g, p, s, f, span / nn, nn)
+                z = torch.zeros(s.u.shape[0], dtype=torch.int32,
+                                device=s.u.device)
+                return s, z + nn, z
+        else:
+            def one(s, f):
+                return lstep.evolve_adaptive(
+                    g, p, s, f, te[:s.u.shape[0]], dt_max=self.dt,
+                    cfl=self.cfl, peclet=self.peclet, dt_min=self.dt_min)
+        self.state, n_sub, n_clamp = lstep.map_fleet(one, self.state, forcing,
+                                                     self.serial)
+        self.last_substeps = int(n_sub[0])
+        self.last_dtmin_clamped = to_numpy(n_clamp)
+        if np.any(self.last_dtmin_clamped > 0):
+            log.warning("CFL-required dt fell below dt_min in instance(s) %s "
+                        "(%s clamped substeps): LES likely unstable",
+                        list(np.where(self.last_dtmin_clamped > 0)[0]),
+                        self.last_dtmin_clamped[self.last_dtmin_clamped > 0])
+        self.time = float(t_end)
+
+    def get_profiles(self):
+        """Slab means: dict of [n, nz] tensors (+ scalars [n])."""
+        return ldiag.slab_profiles(self.grid, self.state)
+
+    def get_fields(self):
+        """3-D diagnostic fields for the variability nudge."""
+        return ldiag.fields_3d(self.state)
+
+    def cloud_fractions(self, gcm_Zh):
+        """A_d on GCM layers for every instance; gcm_Zh [n, L+1]
+        descending."""
+        prof = self.get_profiles()
+        Zh = torch.as_tensor(np.asarray(gcm_Zh, np.float32),
+                             device=self.device)
+        return ldiag.cloud_fraction_on_gcm_levels(
+            self.grid, prof["cloudfrac_z"], Zh)
+
+    def set_qt_thl(self, qt, thl):
+        """Write back 3-D fields (variability nudge, spcpl.py:732-734)."""
+        self.state = self.state._replace(qt=qt, thl=thl)
+
+    def write_restart(self):
+        pass  # the driver's io.restart checkpoints the fleet state
+
+    def cleanup_code(self):
+        pass
+
+    def stop(self):
+        pass
+
+
+class LESInstance:
+    """Per-instance duck-typed view with the reference LES API surface."""
+
+    support_async = False
+
+    def __init__(self, fleet: LESFleet, index: int):
+        self.fleet = fleet
+        self.index = index
+        self.grid_index = -1           # GCM column index, set by the driver
+        self.lat = 0.0
+        self.lon = 0.0
+        self._prof_cache = None
+
+    # grid
+    def get_itot(self):
+        return self.fleet.get_itot()
+
+    def get_jtot(self):
+        return self.fleet.get_jtot()
+
+    def get_ktot(self):
+        return self.fleet.get_ktot()
+
+    def get_zf(self):
+        return self.fleet.get_zf()
+
+    def get_zh(self):
+        return self.fleet.get_zh()
+
+    def get_model_time(self):
+        return self.fleet.time
+
+    # state / profile getters (one instance out of the fleet)
+    def _profiles(self):
+        if self._prof_cache is None:
+            self._prof_cache = to_numpy(self.fleet.get_profiles())
+        return self._prof_cache
+
+    def invalidate_cache(self):
+        self._prof_cache = None
+
+    def _p(self, key):
+        return self._profiles()[key][self.index]
+
+    def get_profile_U(self):
+        return self._p("U")
+
+    def get_profile_V(self):
+        return self._p("V")
+
+    def get_profile_THL(self):
+        return self._p("THL")
+
+    def get_profile_QT(self):
+        return self._p("QT")
+
+    def get_profile_QL(self):
+        return self._p("QL")
+
+    def get_profile_QL_ice(self):
+        return self._p("QL_ice")
+
+    def get_profile_QL_water(self):
+        return self._p("QL_water")
+
+    def get_profile_QR(self):
+        return self._p("QR")
+
+    def get_profile_T(self):
+        return self._p("T")
+
+    def get_presf(self):
+        return self._p("presf")
+
+    def get_rhof(self):
+        return self._p("Rhof")
+
+    def get_rhobf(self):
+        return self._p("Rhobf")
+
+    def get_surface_pressure(self):
+        return float(self._p("PS"))
+
+    def get_rain(self):
+        return float(self._p("Rain"))
+
+    def get_cloudfraction(self, gcm_Zh):
+        cf = self.fleet.cloud_fractions(
+            np.broadcast_to(gcm_Zh, (self.fleet.n,) + np.shape(gcm_Zh)))
+        return to_numpy(cf[self.index])

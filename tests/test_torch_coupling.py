@@ -264,10 +264,10 @@ def test_coupled_diag_matches(coupled, step):
 def test_unported_coupler_settings_raise():
     core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
                           device="cpu")
-    for kw in (dict(cplsurf=True), dict(qt_variance=True),
-               dict(evolve_chunks=2), dict(mesh=object())):
+    for kw in (dict(evolve_chunks=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, **kw)
-    fn = TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn.call_phased(None, None, None, None, 0)
+    # the surface coupling, the nudge and the phased step are ported
+    fn = TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, cplsurf=True,
+                 qt_variance=True)
+    assert fn.cplsurf and fn.qt_variance and callable(fn.call_phased)

@@ -33,6 +33,18 @@ MODULES = (
     "sp_coupler_tpu_torch.models.gcm.dycore",
     "sp_coupler_tpu_torch.models.gcm.physics",
     "sp_coupler_tpu_torch.models.gcm.model",
+    "sp_coupler_tpu_torch.config",
+    "sp_coupler_tpu_torch.utils.geometry",
+    "sp_coupler_tpu_torch.utils.decks",
+    "sp_coupler_tpu_torch.utils.tree",
+    "sp_coupler_tpu_torch.io.h5nc",
+    "sp_coupler_tpu_torch.io.spifs",
+    "sp_coupler_tpu_torch.io.restart",
+    "sp_coupler_tpu_torch.coupling.nudge",
+    "sp_coupler_tpu_torch.models.les.model",
+    "sp_coupler_tpu_torch.models.dummy",
+    "sp_coupler_tpu_torch.runtime.driver",
+    "sp_coupler_tpu_torch.spmaster",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
