@@ -44,7 +44,22 @@ Phases (any failure raises and exits non-zero):
      (T10/L8 + 2 x 16x16x32) with the Smagorinsky closure and the
      variability nudge, where lesflat and lesmom launch 3 x substeps.
      spifs.nc is not written (the card's host may lack h5py): the records
-     go to MemoryWriter and are checked there, and a line says so.
+     go to MemoryWriter and are checked there, and a line says so. The
+     run_T21.sh leg also writes the LES cross sections (les_cross,
+     heights 2/40/80, dtav 60 s): les-work-<col>/cross.nc of both columns,
+     written by the native writer (a Python fallback fails the phase),
+     read back by the port's reader and by scipy;
+  8. the seed: LESFleet.init_states at 2 x 64x64x160 on the card equals
+     the CPU's start, moved to the card, bit for bit;
+  9. the parity harness at full width (verify/parity.py, real mode:
+     T21/L19 + 2 x 64x64x160, dt 600 s, dt_les 5 s) on the card through
+     the stage kernel, held by parity.compare against the committed CPU
+     run of the port and reported against the JAX package's (verify/ref/,
+     PARITY_REFS); the stage kernel launches 3 x the substeps;
+  10. the chunked step: one coupled step of the main path's case with
+     evolve_chunks=3 from the start of an unchunked one; 3 x substeps
+     launches, finite profiles within PROFILE_TOL[0] of the unchunked
+     step's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -184,9 +199,20 @@ def phase_build():
         _build.load(name)
         return time.time() - t0
 
+    def native_writer():
+        from sp_coupler_tpu_torch.io import spnc
+        t0 = time.time()
+        if spnc._load_lib() is None:
+            raise AssertionError("the native netCDF writer "
+                                 "(sp_coupler_tpu_torch/csrc/spnc.cpp) did "
+                                 "not build")
+        return time.time() - t0
+
     t0 = time.time()
-    with ThreadPoolExecutor(len(BUILDS)) as ex:
+    with ThreadPoolExecutor(len(BUILDS) + 1) as ex:
+        spnc_s = ex.submit(native_writer)
         secs = dict(zip(BUILDS, ex.map(one, BUILDS)))
+        secs["spnc (g++)"] = spnc_s.result()
     os.makedirs(OUT_DIR, exist_ok=True)
     for name in BUILDS:
         blog = _build.build_log(name)   # '' if this process built nothing
@@ -198,6 +224,7 @@ def phase_build():
                                        "spill")):
                 log("ptxas %s:" % name, line.strip())
         log("build: %s %.1f s" % (name, secs[name]))
+    log("build: native netCDF writer spnc (g++) %.1f s" % secs["spnc (g++)"])
     log("build: all %.1f s" % (time.time() - t0))
 
 
@@ -746,6 +773,180 @@ def phase_main(card, subgrid="tke"):
     return launches, steps
 
 
+def phase_seed(card):
+    """LESFleet.init_states at 2 x 64x64x160 on the card: bitwise the
+    start it gives on the CPU, moved to the card (the draws come from CPU
+    generators keyed by (seed, instance))."""
+    from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
+                                                 model as les_model)
+    grid = lgrid.LESGrid()
+    prof = lambda a: np.tile(np.asarray(a, np.float32), (2, 1))
+    args = (prof(np.linspace(-5.0, 5.0, grid.nz)), prof(np.full(grid.nz, 2.0)),
+            prof(np.linspace(298.0, 312.0, grid.nz)),
+            prof(np.linspace(0.016, 0.002, grid.nz)),
+            np.full(2, 101300.0, np.float32))
+    states = {}
+    for dev in ("cuda", "cpu"):
+        fleet = les_model.LESFleet(grid, lstep.LESPhysics(), 2, 15.0,
+                                   device=dev)
+        fleet.init_states(*args)
+        states[dev] = fleet.state
+    for name, a, b in zip(states["cpu"]._fields, states["cuda"],
+                          states["cpu"]):
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+            raise AssertionError("init_states on the card differs from the "
+                                 "CPU's in %s" % name)
+    log("seed: LESFleet.init_states at 2 x %dx%dx%d on the card == the "
+        "CPU's, bit for bit (%d fields) on %s"
+        % (grid.nx, grid.ny, grid.nz, len(states["cpu"]), card))
+
+
+# the parity harness's full-width reference runs on the CPU, and whether
+# the card's run is held against each. The card starts from the port's
+# CPU run's state, so it is held against that run. The JAX run starts
+# from other draws (jax.random for the GCM's vorticity perturbation and
+# the LES noise) and leaves PROFILE_TOL on the CPU already (the GCM's
+# winds differ by up to 43 m/s at the start: PARITY_H100.md), so the
+# card's run is only reported against it
+PARITY_REFS = (("torch", "parity_real_torch_cpu.npz", True),
+               ("jax", "parity_real_jax_cpu.npz", False))
+
+
+def phase_parity(card):
+    """verify/parity.py's real case on the card, through the stage kernel,
+    held against the committed CPU runs. Returns the launch counts."""
+    from sp_coupler_tpu_torch.verify import parity
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
+    ref_dir = os.path.join(os.path.dirname(parity.__file__), "ref")
+    with np.load(os.path.join(ref_dir, PARITY_REFS[0][1])) as ref:
+        n_steps = 1 + max(int(k[4:k.index("_")]) for k in ref.files)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "parity_real_h100.npz")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    _, substeps = parity.run(path, n_steps=n_steps, device="cuda",
+                             **parity.REAL)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    grid = lgrid.LESGrid(nx=parity.REAL["les_n"], ny=parity.REAL["les_n"],
+                         nz=parity.REAL["les_nz"])
+    per_step = np.sum if lstep.serial_fleet_default(grid) else np.max
+    total = int(sum(per_step(s) for s in substeps))
+    for k, count in launches.items():
+        want = 3 * total if k == "lesstage" else 0
+        if count != want or (k == "lesstage" and count == 0):
+            raise AssertionError("parity: %s launches %d, want %d (3 x %d "
+                                 "substeps)" % (k, count, want, total))
+    log("parity real (T21/L19 + 2 x 64x64x160, dt 600 s, dt_les 5 s): %d "
+        "steps in %.3f s, substeps %s, launches %s on %s"
+        % (n_steps, wall, substeps, launches, card))
+    res = dict(card=card, steps=n_steps, wall_s=wall, substeps=substeps,
+               launches=launches, against={})
+    failed = []
+    for name, fname, enforced in PARITY_REFS:
+        ref_path = os.path.join(ref_dir, fname)
+        diffs = parity.diffs(ref_path, path)
+        ok = parity.compare(ref_path, path, verbose=False)
+        res["against"][name] = dict(file=fname, enforced=enforced, ok=ok,
+                                    diffs=diffs)
+        log("parity vs %s (%s): %s, enforced %s; max rel diff by key: %s"
+            % (name, fname, "PASS" if ok else "FAIL", enforced,
+               " ".join("%s %.3g" % kv for kv in diffs.items())))
+        if enforced and not ok:
+            failed.append(name)
+    with open(os.path.join(OUT_DIR, "chip_smoke_parity.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    if failed:
+        raise AssertionError("parity: the card's run is outside PROFILE_TOL "
+                             "of %s" % failed)
+    return launches
+
+
+def phase_chunked(card):
+    """One coupled step of the main path's case with evolve_chunks=3 from
+    the start of an unchunked step: 3 x substeps launches, finite profiles
+    within PROFILE_TOL[0] of the unchunked step's (the card's CFL dt makes
+    the substep sequences differ; their exact equality is a CPU test).
+    At this size the fleet runs serially, so the kernel launches once per
+    substep of each instance. Returns the chunked step's launch counts."""
+    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+    from sp_coupler_tpu_torch.verify import parity
+    fn, start = main_path_case()
+    fn3 = CoupledStepFn(fn.core, fn.grid, fn.phys, fn.cols.tolist(),
+                        dt_les=fn.dt_les, n_substeps=0, evolve_chunks=3,
+                        serial_evolve=fn.serial_evolve)
+    out = {}
+    for k, f in ((1, fn), (3, fn3)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        res = f(*start, 0, first=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+        nsub = [int(x) for x in f.unpack_diag(res[4])["n_substeps"]]
+        out[k] = (res[2], nsub, launches)
+        log("chunked: evolve_chunks=%d: %.3f s, substeps %s, launches %s on "
+            "%s" % (k, wall, nsub, launches, card))
+    prof3, nsub3, launches = out[3]
+    for k, count in launches.items():
+        want = 3 * sum(nsub3) if k == "lesstage" else 0
+        if count != want or (k == "lesstage" and count == 0):
+            raise AssertionError("chunked: %s launches %d, want %d (3 x %s "
+                                 "substeps)" % (k, count, want, nsub3))
+    gaps = {}
+    for key in ("THL", "QT", "U"):
+        a, b = out[1][0][key], prof3[key]
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError("chunked: non-finite %s" % key)
+        gaps[key] = float((a - b).abs().max() / a.abs().max())
+        if gaps[key] > parity.PROFILE_TOL[0]:
+            raise AssertionError("chunked: %s %.3g of max|unchunked| off, "
+                                 "over %g" % (key, gaps[key],
+                                              parity.PROFILE_TOL[0]))
+    log("chunked: profiles of 3 chunks against 1, max rel diff: %s (tol %g)"
+        % (" ".join("%s %.3g" % kv for kv in gaps.items()),
+           parity.PROFILE_TOL[0]))
+    return launches
+
+
+def check_cross(odir, cols, n_steps, grid):
+    """les-work-<col>/cross.nc of each column: the native writer wrote it,
+    the port's reader and scipy read it, thlxy* planes ny x nx with at
+    least one record a step, finite water paths."""
+    from scipy.io import netcdf_file
+    from sp_coupler_tpu_torch.io import spnc
+    if spnc._load_lib() is None:
+        raise AssertionError("cross.nc: the native writer is not loaded "
+                             "(the Python fallback wrote it)")
+    shapes = {}
+    for col in cols:
+        path = os.path.join(odir, "les-work-%d" % col, "cross.nc")
+        if not os.path.isfile(path):
+            raise AssertionError("cross.nc missing: %s" % path)
+        data, units = spnc.read_cdf(path)
+        planes = sorted(k for k in data if k.startswith("thlxy"))
+        for k in planes:
+            shp = np.asarray(data[k]).shape
+            if shp[1:] != (grid.ny, grid.nx) or shp[0] < n_steps:
+                raise AssertionError("cross.nc %d %s shape %s" % (col, k, shp))
+        if len(planes) != 3 or not np.all(np.isfinite(data["lwp"])) or \
+                units["lwp"] != "kg/m^2":
+            raise AssertionError("cross.nc %d: planes %s, lwp finite %s"
+                                 % (col, planes,
+                                    bool(np.all(np.isfinite(data["lwp"])))))
+        f = netcdf_file(path, "r", mmap=False)
+        try:
+            np.testing.assert_array_equal(f.variables[planes[0]][:],
+                                          data[planes[0]])
+        finally:
+            f.close()
+        shapes[col] = {k: list(np.asarray(data[k]).shape) for k in planes}
+    return shapes
+
+
 # run_T21.sh's flags (its polygon of SP columns near Barbados, 2 LES
 # instances, surface coupling) and the columns they select on the T21 grid
 RUN_T21 = ["--gcmexp", "TEST", "--poly", "20", "-50", "10", "-50", "10",
@@ -802,13 +1003,22 @@ def read_records(path):
 def cli_leg(argv, writer):
     """One run through the port's CLI (spmaster.build_runner + drive, as
     spmaster.main), each step timed on the host clock; the launch counts
-    are set to 0 just before it and read just after. Returns (runner,
-    step walls, launches)."""
+    are set to 0 just before it and read just after; the cross-section
+    writes inside the steps are timed too (runner.cross_walls). Returns
+    (runner, step walls, launches)."""
     from sp_coupler_tpu_torch import spmaster
     runner = spmaster.build_runner(argv, writer=writer)
     if runner.device.type != "cuda":
         raise AssertionError("the CLI took %s, not the card" % runner.device)
     walls, step = [], runner.step
+    runner.cross_walls, write_cross = [], runner._write_cross
+
+    def timed_cross(t):
+        t0 = time.time()
+        write_cross(t)
+        runner.cross_walls.append(time.time() - t0)
+
+    runner._write_cross = timed_cross
 
     def timed_step():
         t0 = time.time()
@@ -879,7 +1089,9 @@ def phase_cli(card, main_steps):
         odir = os.path.join(tmp, "run_T21")
         conf = os.path.join(tmp, "phases.json")
         with open(conf, "w") as f:
-            json.dump({"timing_phases": 1}, f)
+            json.dump({"timing_phases": 1, "les_cross": True,
+                       "les_cross_heights": [2, 40, 80],
+                       "les_cross_dtav": 60.0}, f)
         spifs_path = os.path.join(odir, "spifs.nc")
         # 1. run_T21.sh's flags, 2 coupled steps (--steps 1 + the overlap)
         argv = RUN_T21 + ["--steps", "1", "--conf", conf, "--odir", odir]
@@ -919,6 +1131,11 @@ def phase_cli(card, main_steps):
                    main_steps[i]["wall_s"], main_steps[i]["substeps"], card))
         log("cli run_T21: columns %s, launches %s, call_phased row %s"
             % (runner.sp_cols, launches, rows[1]))
+        cross = check_cross(odir, RUN_T21_COLS, 2, grid)
+        legs[0]["cross"] = dict(shapes=cross, write_s=runner.cross_walls)
+        log("cli run_T21: les-work-<col>/cross.nc by the native writer, "
+            "read by spnc.read_cdf and scipy: %s; the writes took %s s in "
+            "the steps" % (cross, ["%.4f" % w for w in runner.cross_walls]))
 
         # 2. the restart: loads restart.npz, appends one record
         runner, walls, launches = cli_leg(argv + ["--restart"], writer)
@@ -983,6 +1200,9 @@ def main():
     tke, main_steps = phase_main(card)
     runs = [tke, phase_main(card, "smagorinsky")[0]]
     runs += phase_cli(card, main_steps)
+    phase_seed(card)
+    runs.append(phase_parity(card))
+    runs.append(phase_chunked(card))
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():

@@ -38,11 +38,14 @@ def default_device(device=None):
     return torch.device("cuda")
 
 
-def generator(device, *key):
-    """A torch.Generator on device, seeded from the integers of key (e.g.
-    a run seed and an instance or step counter) through numpy's
-    SeedSequence, so that keys that differ give unrelated streams."""
+def generator(*key):
+    """A CPU torch.Generator seeded from the integers of key (e.g. a run
+    seed and an instance or step counter) through numpy's SeedSequence, so
+    that keys that differ give unrelated streams. Callers draw on the CPU
+    and move the draws to their device: a CUDA generator of the same seed
+    gives another stream, and a seed must give one run on every device
+    (as the JAX package's threefry keys do)."""
     import numpy as np
     seed = int(np.random.SeedSequence([int(k) for k in key])
                .generate_state(1)[0])
-    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return torch.Generator().manual_seed(seed)

@@ -23,8 +23,6 @@ from ..models.les import step as lstep, diag as ldiag
 from ..models.les.state import LESForcing
 from ..utils import tree
 
-_PORTED = "ROADMAP.md, open items"
-
 
 class CoupledStepFn:
     """Coupled step for a fixed configuration on the GCM core's device."""
@@ -34,10 +32,10 @@ class CoupledStepFn:
                  conservative=False, cplsurf=False, qt_variance=False,
                  constant_T=False, mesh=None, seed=42, evolve_chunks=1,
                  serial_evolve="auto", cfl=0.7, peclet=0.1, dt_min=0.2):
-        if mesh is not None or int(evolve_chunks) != 1:
+        if mesh is not None:
             raise NotImplementedError(
-                "meshes and evolve_chunks > 1 are not ported yet (%s: "
-                "multi-device and multi-process)" % _PORTED)
+                "meshes are not ported yet (ROADMAP.md, open items: "
+                "multi-device and multi-process)")
         self.core = gcm_core
         self.device = gcm_core.device
         self.grid = les_grid
@@ -57,6 +55,9 @@ class CoupledStepFn:
         self.constant_T = constant_T
         self.seed = seed
         self.serial_evolve = serial_evolve   # "auto" | "serial" | "batched"
+        # evolve_chunks > 1 runs the evolve as k evolves of dt/k between
+        # pre and post (the JAX package's k device programs)
+        self.evolve_chunks = max(1, int(evolve_chunks))
         self.zf = les_grid.zf(self.device)
         self.zh_full = les_grid.zh(self.device)
         self._diag_spec = None
@@ -65,11 +66,17 @@ class CoupledStepFn:
                  first=False, skip_half=False):
         """One coupled step. Returns (gcm_state, les_state, les profiles,
         rain, packed diag). skip_half: phase A and the cloud scheme were
-        already run on gcm_state. step_idx seeds the nudge's draws."""
+        already run on gcm_state. step_idx seeds the nudge's draws. With
+        evolve_chunks = k > 1 the evolve runs as k evolves of dt/k, their
+        substep and clamp counts summed."""
         gcm_state, les_state, forcing, conv, prof, pre_diag = self._pre(
             gcm_state, les_state, prev_prof, step_idx, first, skip_half)
-        les_state, n_sub, n_clamp = self._evolve_to(les_state, forcing,
-                                                    self.core.cfg.dt)
+        k = self.evolve_chunks
+        n_sub = n_clamp = 0
+        for _ in range(k):
+            les_state, ns, nc = self._evolve_to(les_state, forcing,
+                                                self.core.cfg.dt / k)
+            n_sub, n_clamp = n_sub + ns, n_clamp + nc
         return self._post(gcm_state, les_state, conv, prof, rain_last,
                           n_sub, n_clamp, pre_diag, first)
 
@@ -78,7 +85,8 @@ class CoupledStepFn:
         """The same step as __call__, run as pre / evolve / post with a
         device barrier after each: returns (out, (t_pre, t_ev, t_post)),
         host seconds. The driver routes every timing_phases-th step here
-        for the per-phase columns of timing.txt (splib.py:340-343)."""
+        for the per-phase columns of timing.txt (splib.py:340-343); it
+        evolves in one piece (the driver does not phase a chunked step)."""
         t0 = time.time()
         gcm_state, les_state, forcing, conv, prof, pre_diag = self._pre(
             gcm_state, les_state, prev_prof, step_idx, first, skip_half)
@@ -101,11 +109,12 @@ class CoupledStepFn:
 
     def nudge_noise(self, step_idx):
         """The nudge's normal draws [n, ny, nx] for step step_idx, from a
-        torch.Generator keyed by (seed + 1, step_idx) (the JAX package
-        folds step_idx into a jax.random key instead)."""
-        gen = generator(self.device, self.seed + 1, step_idx)
+        CPU torch.Generator keyed by (seed + 1, step_idx), moved to the
+        device: the same draws on every device (the JAX package folds
+        step_idx into a jax.random key instead)."""
+        gen = generator(self.seed + 1, step_idx)
         return torch.randn((self.cols.shape[0], self.grid.ny, self.grid.nx),
-                           generator=gen, device=self.device)
+                           generator=gen).to(self.device)
 
     # ------------------------------------------------------------------
 

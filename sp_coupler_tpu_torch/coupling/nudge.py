@@ -48,7 +48,8 @@ def _bisect(f, lo, hi, n=N_BISECT):
 def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
                       constant_T=False, ql_significant=1e-9):
     """qt/thl/qsat: [n, nz, ny, nx]; ql_ref/p: [n, nz]. R: the noise
-    [n, ny, nx], or None to draw it from ``generator``.
+    [n, ny, nx], or None to draw it from ``generator`` (on the
+    generator's device, then moved to qt's).
 
     Level cases (spcpl.py:658-729):
     1. ql_ref significant -> bisect beta in [0, BETA_MAX] so that
@@ -61,8 +62,8 @@ def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
     """
     n, nz, ny, nx = qt.shape
     if R is None:
-        R = torch.randn((n, ny, nx), generator=generator, device=qt.device,
-                        dtype=qt.dtype)
+        R = torch.randn((n, ny, nx), generator=generator,
+                        device=generator.device, dtype=qt.dtype).to(qt.device)
     R = (R - torch.mean(R, dim=(1, 2), keepdim=True))[:, None]
     lev = lambda x: x[..., None, None]
     mean = lambda x: torch.mean(x, dim=(2, 3))

@@ -78,19 +78,20 @@ class LESFleet:
         """Initialize all instances from per-instance profiles [n, nz].
 
         Noise amplitudes follow set_les_state (spcpl.py:285-291). Instance
-        i draws from its own torch.Generator keyed by (seed, i), so an
+        i draws from its own CPU torch.Generator keyed by (seed, i), so an
         instance's start does not depend on the fleet's size (the JAX
-        package folds i into a jax.random key; the draws differ).
+        package folds i into a jax.random key; the draws differ). The
+        state is built on the CPU and moved to the device once, so a seed
+        gives bitwise the same start on every device.
         """
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                      device=self.device)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
         u, v, thl, qt = t(u), t(v), t(thl), t(qt)
         ps = t(ps).expand(self.n)
         parts = [lstate.init_state(self.grid, u[i:i + 1], v[i:i + 1],
                                    thl[i:i + 1], qt[i:i + 1], ps[i:i + 1],
-                                   generator(self.device, self.seed, i))
+                                   generator(self.seed, i))
                  for i in range(self.n)]
-        self.state = lstate.LESState(*[torch.cat(f, dim=0)
+        self.state = lstate.LESState(*[torch.cat(f, dim=0).to(self.device)
                                        for f in zip(*parts)])
         self.time = float(start_time)
         self.state = self.state._replace(time=torch.full(

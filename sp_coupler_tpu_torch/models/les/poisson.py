@@ -1,10 +1,12 @@
 """Anelastic pressure projection: all-matmul eigenbasis solve.
 
-Port of the eigenbasis path of ``sp_coupler_tpu/models/les/poisson.py``.
-The periodic horizontal directions are diagonalized with a real DFT
-written as dense matmuls; the vertical operator is symmetrized and
-eigen-factorized once per evolve call (``torch.linalg.eigh``); one
-iterative-refinement pass polishes the float32 residual.
+Port of ``sp_coupler_tpu/models/les/poisson.py``: the eigenbasis solve of
+the hot path and the rfft2 + Thomas reference solver that cross-checks it
+(``project(method="thomas")``). In the eigenbasis solve the periodic
+horizontal directions are diagonalized with a real DFT written as dense
+matmuls; the vertical operator is symmetrized and eigen-factorized once
+per evolve call (``torch.linalg.eigh``); one iterative-refinement pass
+polishes the float32 residual.
 
 The JAX package needs float32-accurate products here (its TPU default,
 bf16, leaves an unusable residual). The port keeps TF32 off for the same
@@ -116,18 +118,66 @@ def solve_pressure(grid, rhobf, rhobh, rhs, solver=None, refine=1):
     return phi
 
 
+# ---------------------------------------------------------------------------
+# reference Thomas/rfft2 path (sequential in z; a cross-check off the hot
+# path, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _modified_wavenumbers(grid, device, dtype=torch.float32):
+    """Eigenvalues [ny, nx//2 + 1] of the periodic horizontal second
+    difference on the rfft2 modes."""
+    kx = torch.arange(grid.nx // 2 + 1, dtype=torch.float32, device=device)
+    ky = torch.arange(grid.ny, dtype=torch.float32, device=device)
+    lx = (2.0 - 2.0 * torch.cos(2.0 * np.pi * kx / grid.nx)) / grid.dx ** 2
+    ly = (2.0 - 2.0 * torch.cos(2.0 * np.pi * ky / grid.ny)) / grid.dy ** 2
+    return (ly[:, None] + lx[None, :]).to(dtype)
+
+
+def solve_pressure_thomas(grid, rhobf, rhobh, rhs):
+    """rfft2 + Thomas-sweep reference solver: the forward and backward
+    sweeps run over nz, one level at a time, on every instance and mode at
+    once. rhobf [n, nz], rhobh [n, nz+1], rhs [n, nz, ny, nx]."""
+    lam = _modified_wavenumbers(grid, rhs.device, rhs.dtype)    # [ny, nxh]
+    rhat = torch.fft.rfft2(rhs, dim=(Y, X))                 # [n, nz, ny, nxh]
+
+    dz2 = grid.dz ** 2
+    a = rhobh[:, :-1] / dz2                                 # [n, nz] sub-diag
+    cc = rhobh[:, 1:] / dz2                                 # [n, nz] super
+    a = torch.cat([torch.zeros_like(a[:, :1]), a[:, 1:]], dim=1)
+    cc = torch.cat([cc[:, :-1], torch.zeros_like(cc[:, :1])], dim=1)
+    b = -col(a + cc) - col(rhobf) * lam                     # [n, nz, ny, nxh]
+
+    mean_mode = lam == 0.0                                  # [ny, nxh]
+    b0 = torch.where(mean_mode, torch.ones_like(b[:, 0]), b[:, 0])
+    c0 = torch.where(mean_mode, torch.zeros_like(b[:, 0]), cc[:, :1, None])
+    r0 = torch.where(mean_mode, torch.zeros_like(rhat[:, 0]), rhat[:, 0])
+
+    cps, dps = [c0 / b0], [r0 / b0]
+    for k in range(1, grid.nz):
+        ak = a[:, k, None, None]
+        denom = b[:, k] - ak * cps[-1]
+        cps.append(cc[:, k, None, None] / denom)
+        dps.append((rhat[:, k] - ak * dps[-1]) / denom)
+    phis = [dps[-1]]
+    for k in range(grid.nz - 2, -1, -1):
+        phis.append(dps[k] - cps[k] * phis[-1])
+    phat = torch.stack(phis[::-1], dim=1)
+    return torch.fft.irfft2(phat, s=(grid.ny, grid.nx), dim=(Y, X))
+
+
 def project(grid, rhobf, rhobh, u, v, w, dt, solver=None, method="eigen"):
     """Project (u, v, w) onto the divergence-free subspace.
 
     ``dt``: the stage length, a python float or [n, 1, 1, 1] tensor.
+    ``method``: "eigen" (the all-matmul solve, ``solver`` prebuilt on the
+    hot path) or "thomas" (the rfft2 + Thomas reference).
     Returns corrected velocities and the pressure potential phi.
     """
-    if method != "eigen":
-        raise NotImplementedError(
-            "projection method %r is not ported yet (ROADMAP.md, open "
-            "items: solve_pressure_thomas)" % (method,))
     div = divergence(grid, rhobf, rhobh, u, v, w) / dt
-    phi = solve_pressure(grid, rhobf, rhobh, div, solver=solver)
+    if method == "thomas":
+        phi = solve_pressure_thomas(grid, rhobf, rhobh, div)
+    else:
+        phi = solve_pressure(grid, rhobf, rhobh, div, solver=solver)
     u = u - dt * (phi - torch.roll(phi, 1, X)) / grid.dx
     v = v - dt * (phi - torch.roll(phi, 1, Y)) / grid.dy
     dphidz = (phi[:, 1:] - phi[:, :-1]) / grid.dz

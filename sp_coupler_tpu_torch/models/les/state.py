@@ -98,8 +98,10 @@ def init_state(grid, u0, v0, thl0, qt0, ps, generator, vabsmax=0.5,
     """Initial fleet state: [n, nz] profiles broadcast plus uniform noise.
 
     Noise amplitudes match the reference coupler's set_les_state; the
-    draws come from ``generator`` (a torch.Generator on the profiles'
-    device), so they differ from the JAX package's threefry draws.
+    draws come from ``generator`` on its own device (a CPU generator, as
+    ``sp_coupler_tpu_torch.generator`` gives, draws the same on every
+    device) and are moved to the profiles' device. They differ from the
+    JAX package's threefry draws.
     """
     n = u0.shape[0]
     nz, ny, nx = grid.nz, grid.ny, grid.nx
@@ -107,8 +109,8 @@ def init_state(grid, u0, v0, thl0, qt0, ps, generator, vabsmax=0.5,
     shp = (n, nz, ny, nx)
 
     def unif():
-        r = torch.rand(shp, generator=generator, device=dev,
-                       dtype=torch.float32)
+        r = torch.rand(shp, generator=generator, device=generator.device,
+                       dtype=torch.float32).to(dev)
         return 2.0 * r - 1.0
 
     col = lambda p: p[:, :, None, None]

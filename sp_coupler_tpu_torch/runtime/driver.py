@@ -14,9 +14,12 @@ Per coupled step (reference call stack SURVEY.md section 3.2):
   -> GCM tendencies (remap + scatter) -> phase B -> timing.txt line.
 
 The runner takes the CUDA card unless the caller names a device
-(``default_device``). Settings of the JAX driver that are not ported
-(device meshes, chunked evolves, LES cross-sections, netCDF replay)
-raise NotImplementedError naming their ROADMAP.md entry.
+(``default_device``). Replayed models (``ncfile``: ``models/ncreplay.py``)
+take the generic path; ``les_cross`` writes each instance's cross
+sections (``io/crossio.py``); ``les_evolve_chunks`` > 1 splits the evolve
+of a fused step. Settings of the JAX driver that are not ported (device
+meshes, hybrid coordinates, the semi-Lagrangian GCM) raise
+NotImplementedError naming their ROADMAP.md entry.
 """
 
 import datetime
@@ -44,13 +47,7 @@ QT_MODES = {"sp": lstep.QT_FORCING_GLOBAL,
             "local": lstep.QT_FORCING_LOCAL,
             "strong": lstep.QT_FORCING_STRONG}
 
-_MULTI = ("ROADMAP.md, open items: multi-device and multi-process "
-          "(item 12)")
-
-
-def _unported(what, entry):
-    return NotImplementedError("%s is not ported yet (ROADMAP.md, open "
-                               "items: %s)" % (what, entry))
+_MULTI = "ROADMAP.md, open items: multi-device and multi-process"
 
 
 def create_gcm(cfg: SPConfig, device=None):
@@ -69,7 +66,8 @@ def create_gcm(cfg: SPConfig, device=None):
     if cfg.gcm_type == "dummy":
         return dummy_mod.DummyGCM()
     if cfg.gcm_type in ("ncfile", "spifsnc_gcm"):
-        raise _unported("gcm_type %r" % cfg.gcm_type, "ncreplay")
+        from ..models import ncreplay
+        return ncreplay.ReplayGCM(os.path.join(cfg.gcm_input_dir, "spifs.nc"))
     raise ValueError("unknown gcm_type " + cfg.gcm_type)
 
 
@@ -93,7 +91,9 @@ def create_fleet(cfg: SPConfig, n_les, device=None):
     if cfg.les_type == "dummy":
         return dummy_mod.DummyLESFleet(n_les)
     if cfg.les_type in ("ncfile", "spifsnc_les"):
-        raise _unported("les_type %r" % cfg.les_type, "ncreplay")
+        from ..models import ncreplay
+        return ncreplay.ReplayLESFleet(
+            os.path.join(cfg.les_input_dir, "spifs.nc"), n_les)
     raise ValueError("unknown les_type " + cfg.les_type)
 
 
@@ -130,6 +130,8 @@ class SPRunner:
         self._half_step_done = False
         self._pending_record = None
         self._fused_prof = None
+        self.crossio = None
+        self._cross_next = -float("inf")
 
     # ------------------------------------------------------------------ init
 
@@ -203,6 +205,18 @@ class SPRunner:
 
         self.rain_last = np.zeros(max(n, 1))
 
+        # per-instance LES cross-section output (DALES writes surf_xy/
+        # cross-section netCDFs per work dir, reference README.md:108-111)
+        if (cfg.les_cross and isinstance(self.fleet, les_model.LESFleet)
+                and n > 0):
+            from ..io import crossio
+            self.crossio = crossio.FleetCrossIO(
+                cfg.output_dir, self.fleet.grid, self.sp_cols,
+                heights=tuple(h - 1 for h in cfg.les_cross_heights))
+            log.info("per-instance cross-section output: les-work-*/"
+                     "cross.nc every %.0f s", max(cfg.les_cross_dtav,
+                                                  cfg.gcm_dt))
+
         # fused path: native GCM + native LES -> one CoupledStepFn call per
         # coupled step; the host only writes spifs.nc
         if (hasattr(self.gcm, "core")
@@ -222,6 +236,7 @@ class SPRunner:
                 qt_variance=(cfg.qt_forcing == "variance"),
                 constant_T=cfg.variability_nudge_constant_T,
                 seed=cfg.seed,
+                evolve_chunks=cfg.les_evolve_chunks,
                 serial_evolve=cfg.les_schedule)
 
         if not cfg.restart:
@@ -275,12 +290,6 @@ class SPRunner:
             raise NotImplementedError(
                 "device meshes (--mesh_les, --lesprocs, --gcmprocs) are not "
                 "ported yet (%s)" % _MULTI)
-        if cfg.les_evolve_chunks > 1:
-            raise NotImplementedError(
-                "les_evolve_chunks > 1 is not ported yet (%s)" % _MULTI)
-        if cfg.les_cross:
-            raise _unported("les_cross (per-instance cross-section output)",
-                            "crossio / spnc")
         if cfg.les_queue_threads > 0:
             log.info("--queue %d accepted (no-op: the LES fleet is one "
                      "batched device computation)", cfg.les_queue_threads)
@@ -405,7 +414,8 @@ class SPRunner:
 
     def _variability_nudge(self, conv, dt, write):
         """Coupler-side qt variance nudge (qt_forcing=variance); its draws
-        come from a torch.Generator keyed by (seed + 1, fleet time)."""
+        come from a CPU torch.Generator keyed by (seed + 1, fleet time),
+        so they are the same on every device."""
         if self.fleet.time <= 0:
             return
         fields = self.fleet.get_fields()
@@ -413,8 +423,7 @@ class SPRunner:
         res = nudge.variability_nudge(
             fields["QT"], fields["THL"], fields["Qsat"], conv.ql,
             prof["presf"], dt,
-            generator=generator(self.device, self.cfg.seed + 1,
-                                int(self.fleet.time)),
+            generator=generator(self.cfg.seed + 1, int(self.fleet.time)),
             constant_T=self.cfg.variability_nudge_constant_T)
         self.fleet.set_qt_thl(res.qt, res.thl)
         if write:
@@ -538,6 +547,16 @@ class SPRunner:
             self.writer.write_column(col, **out)
         self.rain_last = np.asarray(d["rain"])
 
+    def _write_cross(self, t):
+        """Per-instance cross-section record at the dtav cadence; the
+        serialization runs on the native writer's worker thread, off the
+        step loop."""
+        if self.crossio is None or t + 1e-6 < self._cross_next:
+            return
+        fields = self.fleet.get_fields()
+        self.crossio.write(self.fleet.state, fields["QL"], t)
+        self._cross_next = t + max(self.cfg.les_cross_dtav, 1.0)
+
     def _flush_pending(self):
         """Drain the previous step's spifs record (write-behind): called
         right after the next step is run, as the reference syncs its
@@ -572,12 +591,13 @@ class SPRunner:
         # Every cfg.timing_phases-th step runs as pre / evolve / post with
         # a device barrier after each (call_phased, the same math), which
         # gives timing.txt real per-phase columns at that cadence
-        # (splib.py:340-343)
+        # (splib.py:340-343); a chunked evolve is never phased
         n_ph = int(cfg.timing_phases or 0)
         phase_t = None
         args = (self.gcm.state, self.fleet.state, prev_prof,
                 np.asarray(self.rain_last, np.float32), self.gcm.step_count)
-        if n_ph > 0 and self.step_index > 0 and self.step_index % n_ph == 0:
+        if (n_ph > 0 and self.step_index > 0 and self.step_index % n_ph == 0
+                and self.coupled.evolve_chunks == 1):
             out, phase_t = self.coupled.call_phased(
                 *args, first=self.gcm._first, skip_half=skip)
         else:
@@ -609,6 +629,7 @@ class SPRunner:
                 self._flush_pending()
                 io_wall += time.time()
         self._sync()
+        self._write_cross(t + dt)
         step_wall = time.time() - start - max(io_wall, 0.0)
         n = max(len(self.sp_cols), 1)
         # phase columns (gcm1/gather/forcings/tendencies/gcm2) are zero on
@@ -688,6 +709,8 @@ class SPRunner:
         profiles = self._les_profiles()
         self.prev_profiles = profiles
         self._check_finite_profiles(profiles)
+        if isinstance(self.fleet, les_model.LESFleet):
+            self._write_cross(t + dt)
         tw_les += time.time()
 
         tw_tend = -time.time()
@@ -794,6 +817,11 @@ class SPRunner:
             self._flush_pending()   # drain the write-behind record
         except Exception as e:
             log.error("pending spifs record flush failed: %s", e)
+        if self.crossio is not None:
+            try:
+                self.crossio.close()
+            except Exception as e:
+                log.error("cross-section writer close failed: %s", e)
         if save_restart and self.fleet is not None:
             from ..io import restart as restart_io
             try:

@@ -264,10 +264,13 @@ def test_coupled_diag_matches(coupled, step):
 def test_unported_coupler_settings_raise():
     core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
                           device="cpu")
-    for kw in (dict(evolve_chunks=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, **kw)
-    # the surface coupling, the nudge and the phased step are ported
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, open items: multi-device and "
+                             "multi-process"):
+        TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, mesh=object())
+    # the surface coupling, the nudge, the phased step and the chunked
+    # evolve are ported
     fn = TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, cplsurf=True,
-                 qt_variance=True)
+                 qt_variance=True, evolve_chunks=3)
     assert fn.cplsurf and fn.qt_variance and callable(fn.call_phased)
+    assert fn.evolve_chunks == 3

@@ -248,10 +248,6 @@ def test_device_defaults_to_the_card(tmp_path):
     (dict(mesh_les=2), "multi-device and multi-process"),
     (dict(les_num_procs=4), "multi-device and multi-process"),
     (dict(gcm_num_procs=2), "multi-device and multi-process"),
-    (dict(les_evolve_chunks=2), "multi-device and multi-process"),
-    (dict(les_cross=True), "crossio / spnc"),
-    (dict(gcm_type="ncfile"), "ncreplay"),
-    (dict(gcm_type="dummy", les_type="ncfile"), "ncreplay"),
     (dict(gcm_advection="sl"), "semi-Lagrangian GCM"),
     (dict(gcm_truncation=63), "semi-Lagrangian GCM"),
     (dict(gcm_hybrid=True), "hybrid vertical coordinates"),

@@ -45,6 +45,10 @@ MODULES = (
     "sp_coupler_tpu_torch.models.dummy",
     "sp_coupler_tpu_torch.runtime.driver",
     "sp_coupler_tpu_torch.spmaster",
+    "sp_coupler_tpu_torch.verify.parity",
+    "sp_coupler_tpu_torch.models.ncreplay",
+    "sp_coupler_tpu_torch.io.spnc",
+    "sp_coupler_tpu_torch.io.crossio",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

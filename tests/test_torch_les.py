@@ -347,11 +347,49 @@ def test_evolve_adaptive_substep_counts(fleet, subgrid, serial):
                                    err_msg=f)
 
 
-def test_unported_settings_raise(case):
-    _, _, ts, tf = case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpois.project(TG, ts.rhobf, ts.rhobh, ts.u, ts.v, ts.w, 1.0,
-                      method="thomas")
+def _noisy_winds(st, seed):
+    """st's winds plus normal noise (u, v 0.5 m/s; w 0.3 m/s inside), as
+    numpy (tests/test_les.py::test_eigen_matches_thomas)."""
+    rng = np.random.default_rng(seed)
+    u = np.asarray(st.u) + rng.normal(0, 0.5, st.u.shape).astype(np.float32)
+    v = np.asarray(st.v) + rng.normal(0, 0.5, st.v.shape).astype(np.float32)
+    w = np.array(st.w)
+    w[1:-1] = rng.normal(0, 0.3, w[1:-1].shape).astype(np.float32)
+    return u, v, w
+
+
+def test_thomas_matches_eigen(case):
+    """The rfft2 + Thomas reference solve agrees with the eigenbasis solve
+    on the projected velocities at atol 2e-5 (tests/test_les.py:69-84)."""
+    st, _, ts, _ = case
+    u, v, w = (t(x) for x in _noisy_winds(st, 7))
+    eig = tpois.project(TG, ts.rhobf, ts.rhobh, u, v, w, 5.0)
+    tho = tpois.project(TG, ts.rhobf, ts.rhobh, u, v, w, 5.0,
+                        method="thomas")
+    for name, a, b in zip("uvw", eig[:3], tho[:3]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=2e-5,
+                                   err_msg=name)
+
+
+def test_thomas_matches_jax(case):
+    """solve_pressure_thomas and project(method="thomas") against the JAX
+    package's, on one rhs and on the winds of a fleet of two instances."""
+    st, _, ts, _ = case
+    rhs = np.random.default_rng(9).normal(0, 1e-3, st.thl.shape).astype(
+        np.float32)
+    ref = jpois.solve_pressure_thomas(JG, st.rhobf, st.rhobh, rhs)
+    got = tpois.solve_pressure_thomas(TG, ts.rhobf, ts.rhobh, t(rhs))
+    close(got, ref, rtol=1e-4, atol_frac=1e-5, msg="phi")
+    winds = [_noisy_winds(st, s) for s in (7, 8)]
+    fleet = lambda k: torch.tensor(np.stack([w[k] for w in winds]))
+    two = lambda p: torch.cat([p, p])
+    got = tpois.project(TG, two(ts.rhobf), two(ts.rhobh), fleet(0),
+                        fleet(1), fleet(2), 5.0, method="thomas")
+    for i, (u, v, w) in enumerate(winds):
+        ref = jpois.project(JG, st.rhobf, st.rhobh, u, v, w, 5.0,
+                            method="thomas")
+        for name, a, b in zip("uvwp", got, ref):
+            close(a[i], b, rtol=1e-4, atol_frac=1e-5, msg=name)
 
 
 def test_init_state_is_seeded():

@@ -1,0 +1,220 @@
+"""The port's parity harness (``verify/parity.py``) against the JAX
+package's, its npz files, and the seeded draws it relies on.
+
+At T10/L8 + 2 x 8x8x12 (tests/test_parity.py's size) the port's ``run``
+is started from the JAX run's exact state (``init=``, through
+``interop``) and held against JAX's ``run`` with ``compare`` at
+PROFILE_TOL, both ways. The port's ``compare`` reads the npz files JAX
+writes. The LES start and the nudge's noise come from CPU generators, so
+a seed gives the same draws on every device (the card's run is held
+against a CPU run in ``chip_smoke.py``).
+"""
+
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sp_coupler_tpu.coupling import convert as jconvert
+from sp_coupler_tpu.models.gcm import model as jmodel
+from sp_coupler_tpu.models.les import grid as jgrid, state as jstate
+from sp_coupler_tpu.verify import parity as jparity
+from sp_coupler_tpu_torch import generator, interop
+from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+from sp_coupler_tpu_torch.models.gcm import model as tmodel
+from sp_coupler_tpu_torch.models.les import (grid as tgrid, model as tles,
+                                             state as tstate,
+                                             step as tstep)
+from sp_coupler_tpu_torch.verify import parity
+
+torch.set_num_threads(2)
+
+SIZE = dict(les_n=8, les_nz=12, n_les=2)
+SEED = 7
+REF_DIR = os.path.join(os.path.dirname(parity.__file__), "ref")
+
+
+def jax_start(trunc=10, nlev=8, les_n=8, les_nz=12, n_les=2, seed=SEED,
+              les_dz=100.0, les_dx=200.0):
+    """The state JAX's parity.run starts from (its init_les), as numpy."""
+    core = jmodel.GCMCore(jmodel.GCMConfig(trunc=trunc, nlev=nlev, dt=600.0))
+    grid = jgrid.LESGrid(nx=les_n, ny=les_n, nz=les_nz, dx=les_dx,
+                         dy=les_dx, dz=les_dz)
+    gs = core.initial_state(seed=seed)
+    cols = np.linspace(100, 350, n_les).astype(np.int32)
+
+    @jax.jit
+    def init_les(gstate):
+        prof0 = core.column_profiles(gstate, jnp.asarray(cols))
+        conv0 = jax.vmap(lambda p: jconvert.convert_profiles(
+            p, grid.zf()))(prof0)
+        keys = jax.vmap(lambda i: jax.random.fold_in(
+            jax.random.PRNGKey(seed), i))(jnp.arange(n_les))
+        return jax.vmap(lambda u, v, thl, qt, ps, k: jstate.init_state(
+            grid, u, v, thl, qt, ps, k))(
+            conv0.u, conv0.v, conv0.thl, conv0.qt, conv0.ps, keys)
+
+    return [jax.tree.map(np.asarray, s) for s in (gs, init_les(gs))]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX's run and the port's from JAX's start, 2 steps each; a seeded
+    port run of 1 step."""
+    d = tmp_path_factory.mktemp("parity")
+    paths = {k: str(d / (k + ".npz")) for k in ("jax", "port", "seeded")}
+    jparity.run(paths["jax"], n_steps=2, **SIZE)
+    gs, les = jax_start()
+    port = parity.run(paths["port"], n_steps=2, device="cpu",
+                      init=(interop.gcm_state(gs, "cpu"),
+                            interop.les_state(les, "cpu")), **SIZE)
+    seeded = parity.run(paths["seeded"], n_steps=1, device="cpu", **SIZE)
+    return dict(paths=paths, port=port, seeded=seeded, dir=d)
+
+
+def test_port_matches_jax_from_its_state(runs):
+    """From JAX's start the port stays inside PROFILE_TOL of JAX, held
+    either way round, with the same substeps."""
+    p = runs["paths"]
+    assert parity.compare(p["jax"], p["port"], verbose=False)
+    assert parity.compare(p["port"], p["jax"], verbose=False)
+    ref = np.load(p["jax"])
+    out, substeps = runs["port"]
+    assert sorted(out) == sorted(ref.files)
+    for k in out:
+        assert out[k].shape == ref[k].shape and np.all(np.isfinite(out[k]))
+    assert min(min(s) for s in substeps) > 0
+
+
+def test_same_device_bit_identical(runs):
+    """Two seeded runs on one device agree bit for bit."""
+    out, substeps = parity.run(str(runs["dir"] / "again.npz"), n_steps=1,
+                               device="cpu", **SIZE)
+    ref, ref_substeps = runs["seeded"]
+    assert substeps == ref_substeps
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    assert parity.compare(runs["paths"]["seeded"],
+                          str(runs["dir"] / "again.npz"), verbose=False)
+
+
+def _shifted(src, dst, key="step0_prof_THL", by=30.0):
+    data = dict(np.load(src))
+    data[key] = data[key] + by
+    np.savez_compressed(dst, **data)
+    return dst
+
+
+def test_compare_detects_divergence(runs):
+    a = runs["paths"]["seeded"]
+    c = _shifted(a, str(runs["dir"] / "c.npz"))
+    assert not parity.compare(a, c, verbose=False)
+    # runs of other configurations (here: another step count) are refused
+    with pytest.raises(ValueError, match="mismatched"):
+        parity.compare(a, runs["paths"]["port"], verbose=False)
+
+
+def test_compare_reads_jax_npz(runs):
+    """The port's compare (and its CLI) on the files JAX wrote gives the
+    JAX package's verdicts."""
+    a = runs["paths"]["jax"]
+    c = _shifted(a, str(runs["dir"] / "jax_c.npz"))
+    for pair, want in (((a, a), True), ((a, c), False)):
+        assert parity.compare(*pair, verbose=False) is want
+        assert jparity.compare(*pair, verbose=False) is want
+        assert parity.main(["compare", *pair]) == (0 if want else 1)
+
+
+def test_committed_real_references():
+    """The full-width reference files (T21/L19 + 2 x 64x64x160, 3 steps on
+    the CPU) hold the harness's keys. chip_smoke.py enforces the card's
+    run against the JAX file only where the port's CPU run, with its own
+    draws, stays inside PROFILE_TOL of it; it does not (the GCM's
+    vorticity perturbation is drawn from another stream: PARITY_H100.md),
+    and the temperature fields, which that perturbation barely moves,
+    stay inside."""
+    import chip_smoke
+    ref = {k: os.path.join(REF_DIR, "parity_real_%s_cpu.npz" % k)
+           for k in ("jax", "torch")}
+    keys = {f"step{s}_{k}" for s in range(3) for k in (
+        "prof_THL", "prof_QT", "prof_U", "gcm_T", "gcm_U", "gcm_SH",
+        "std_thl", "std_w")}
+    for path in ref.values():
+        data = np.load(path)
+        assert set(data.files) == keys
+        assert data["step0_prof_THL"].shape == (2, 160)
+        assert data["step2_std_w"].shape == (2, 161)
+        assert data["step1_gcm_T"].shape == (2, 19)
+    enforced = {name: on for name, _, on in chip_smoke.PARITY_REFS}
+    assert enforced == {"torch": True, "jax": False}
+    assert parity.compare(ref["jax"], ref["torch"], verbose=False) is False
+    a, b = np.load(ref["jax"]), np.load(ref["torch"])
+    for s in range(3):
+        for k in ("gcm_T", "prof_THL"):
+            key = f"step{s}_{k}"
+            diff = np.abs(a[key] - b[key]).max() / np.abs(a[key]).max()
+            assert diff <= parity.PROFILE_TOL[s], key
+
+
+def test_gcm_start_differs_from_jax():
+    """Why the port's real-case run leaves PROFILE_TOL of JAX's: at
+    T21/L19 the GCM's initial vorticity perturbation (torch.Generator
+    against jax.random) gives winds up to 43 m/s apart, while T differs by
+    3e-4 K."""
+    cfg = dict(trunc=21, nlev=19, dt=600.0)
+    ref = jax.tree.map(np.asarray, jmodel.GCMCore(
+        jmodel.GCMConfig(**cfg)).initial_state(seed=SEED).grid)
+    got = interop.to_numpy(tmodel.GCMCore(
+        tmodel.GCMConfig(**cfg), device="cpu").initial_state(seed=SEED).grid)
+    du = np.abs(got["u"] - ref.u).max()
+    dT = np.abs(got["T"] - ref.T).max()
+    print("max |du| %.3g m/s, max |dT| %.3g K" % (du, dT))
+    assert 40.0 < du < 46.0 and dT < 1e-3
+
+
+# ---- seeded draws: CPU generators, the same on every device ---------------
+
+def _gen(*key):
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def test_generator_is_a_cpu_stream():
+    g = generator(7, 1)
+    assert g.device.type == "cpu"
+    np.testing.assert_array_equal(torch.rand(16, generator=g).numpy(),
+                                  torch.rand(16, generator=_gen(7, 1)).numpy())
+
+
+def test_fleet_start_draws_from_cpu_generators():
+    """LESFleet.init_states: instance i is init_state from the CPU stream
+    of (seed, i), whatever the fleet's size."""
+    grid = tgrid.LESGrid(nx=8, ny=8, nz=12, dx=200.0, dy=200.0, dz=100.0)
+    prof = lambda a: np.tile(np.asarray(a, np.float32), (3, 1))
+    u, v = prof(np.linspace(-3, 3, 12)), prof(np.full(12, 1.0))
+    thl, qt = prof(np.linspace(298, 310, 12)), prof(np.full(12, 0.012))
+    ps = np.full(3, 101300.0, np.float32)
+    fleet = tles.LESFleet(grid, tstep.LESPhysics(), 3, 5.0, seed=SEED,
+                          device="cpu")
+    fleet.init_states(u, v, thl, qt, ps)
+    t = lambda a, i: torch.as_tensor(a[i:i + 1])
+    for i in range(3):
+        ref = tstate.init_state(grid, t(u, i), t(v, i), t(thl, i), t(qt, i),
+                                torch.as_tensor(ps[i:i + 1]), _gen(SEED, i))
+        for f in ("u", "v", "thl", "qt", "rhobf", "pbh"):
+            assert torch.equal(getattr(fleet.state, f)[i], getattr(ref, f)[0])
+    assert not torch.equal(fleet.state.u[0], fleet.state.u[1])
+
+
+def test_nudge_noise_draws_from_cpu_generators():
+    core = tmodel.GCMCore(tmodel.GCMConfig(trunc=10, nlev=8, dt=600.0),
+                          device="cpu")
+    grid = tgrid.LESGrid(nx=8, ny=8, nz=12)
+    fn = CoupledStepFn(core, grid, tstep.LESPhysics(), [100, 200], 5.0, 0,
+                       seed=SEED)
+    got = fn.nudge_noise(3)
+    ref = torch.randn((2, 8, 8), generator=_gen(SEED + 1, 3))
+    assert torch.equal(got, ref)
