@@ -25,7 +25,14 @@ the scalar and momentum kernels):
      64x64x160, n = 1 and 2: device time per call (torch.profiler, mean of
      20 calls), CUDA-event time per call, and their share of the bound
      (chip_smoke.tensor_bytes); then their device time at several levels
-     per z-chunk (SPLIT_TZ_SWEEP; the default geometry's marked).
+     per z-chunk (SPLIT_TZ_SWEEP; the default geometry's marked);
+  6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
+     SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
+     step, one first=False coupled step with the fleet batched and one
+     with it serial, from the same state, each timed by phase and by
+     evolve chunk; then the first chunk's evolve again from the same
+     state under torch.profiler (device kernels only): its device busy
+     time against that chunk's unprofiled wall gives the idle share.
 Prints a summary with the card's name and power limit and writes
 chiprun_out/profile.json (profile_<mode>.json for one mode).
 
@@ -33,6 +40,7 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_profile.py path    (phases 1-3 only)
      python3 chip_profile.py stage   (phase 4 only)
      python3 chip_profile.py split   (phase 5 only)
+     python3 chip_profile.py t159    (phase 6 only; not part of "all")
 """
 
 import json
@@ -57,7 +65,7 @@ PORT_KERNELS = ("k_stage", "k_means", "k_scalar", "k_momentum")
 def timed_step(fn, gs, les, prof, rain, first):
     """One coupled step as CoupledStepFn.__call__, timed by phase."""
     t = [time.time()]
-    gs, les, forcing, conv, cprof, pre = fn._pre(gs, les, prof, first)
+    gs, les, forcing, conv, cprof, pre = fn._pre(gs, les, prof, 0, first)
     torch.cuda.synchronize()
     t.append(time.time())
     les, n_sub, n_clamp = fn._evolve_to(les, forcing, fn.core.cfg.dt)
@@ -85,6 +93,28 @@ def busy_us(events):
     return total
 
 
+def kernel_totals(kern):
+    """(the TOP kernels by device time, the port's own kernels), each a
+    list of (name, (ms, calls))."""
+    by_name = {}
+    for e in kern:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us() * 1e-3, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    port = [kv for kv in top if any(k in kv[0] for k in PORT_KERNELS)]
+    return top[:TOP], port
+
+
+def log_kernels(top, port, busy_s):
+    for name, (ms, cnt) in top:
+        cs.log("  %10.1f ms %7d  %.3f ms/call  %s"
+               % (ms, cnt, ms / cnt, name[:100]))
+    for name, (ms, cnt) in port:
+        cs.log("  port kernel %s: %.1f ms in %d calls, %.4f ms/call (%.1f %% "
+               "of busy)" % (name[:60], ms, cnt, ms / cnt,
+                             100 * ms / (1e3 * busy_s)))
+
+
 def phase_steps(card, subgrid="tke"):
     fn, carry = cs.main_path_case(subgrid)
     steps = []
@@ -110,25 +140,13 @@ def phase_steps(card, subgrid="tke"):
     wall_per_sub = statistics.median(s["wall_s"] / sum(s["substeps"])
                                      for s in steps[1:])
     idle = 1.0 - busy / nsub / wall_per_sub
-    by_name = {}
-    for e in kern:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us() * 1e-3, cnt + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    port = [kv for kv in top if any(k in kv[0] for k in PORT_KERNELS)]
-    top = top[:TOP]
+    top, port = kernel_totals(kern)
     cs.log("%s profiled step: substeps %s, device busy %.3f s (%.3f ms per "
            "substep); unprofiled steady steps: median %.3f ms per substep, "
            "so the device is idle %.1f %% of a step on %s"
            % (subgrid, rec["substeps"], busy, 1e3 * busy / nsub,
               1e3 * wall_per_sub, 100 * idle, card))
-    for name, (ms, cnt) in top:
-        cs.log("  %10.1f ms %7d  %.3f ms/call  %s"
-               % (ms, cnt, ms / cnt, name[:100]))
-    for name, (ms, cnt) in port:
-        cs.log("  port kernel %s: %.1f ms in %d calls, %.4f ms/call (%.1f %% "
-               "of busy)" % (name[:60], ms, cnt, ms / cnt,
-                             100 * ms / (1e3 * busy)))
+    log_kernels(top, port, busy)
     return dict(steps=steps, profiled=dict(
         substeps=rec["substeps"], busy_s=busy, idle_share=idle,
         wall_per_substep_s=wall_per_sub,
@@ -254,10 +272,89 @@ def phase_split(card):
     return res
 
 
+def t159_step(fn, carry, step_idx):
+    """One first=False coupled step of a chunked case, timed by phase and
+    by evolve chunk (host clock around torch.cuda.synchronize())."""
+    gs, les, prof, rain = carry
+    k = fn.evolve_chunks
+    t0 = time.time()
+    gs, les, forcing, conv, cprof, pre = fn._pre(gs, les, prof, step_idx,
+                                                 False)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    chunks, n_sub, n_clamp = [], 0, 0
+    for _ in range(k):
+        t0 = time.time()
+        les, ns, nc = fn._evolve_to(les, forcing, fn.core.cfg.dt / k)
+        torch.cuda.synchronize()
+        chunks.append(dict(wall_s=time.time() - t0,
+                           substeps=[int(x) for x in ns]))
+        n_sub, n_clamp = n_sub + ns, n_clamp + nc
+    t0 = time.time()
+    fn._post(gs, les, conv, cprof, rain, n_sub, n_clamp, pre, False)
+    torch.cuda.synchronize()
+    t_post = time.time() - t0
+    evolve = sum(c["wall_s"] for c in chunks)
+    return dict(pre_s=t_pre, post_s=t_post, chunks=chunks, evolve_s=evolve,
+                wall_s=t_pre + evolve + t_post,
+                instance_substeps=sum(sum(c["substeps"]) for c in chunks))
+
+
+def first_chunk_kernels(fn, carry, step_idx):
+    """The device kernel events of the first evolve chunk of the step
+    t159_step times, from the same state, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    gs, les, prof, _ = carry
+    _, les, forcing = fn._pre(gs, les, prof, step_idx, False)[:3]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn._evolve_to(les, forcing, fn.core.cfg.dt / fn.evolve_chunks)
+        torch.cuda.synchronize()
+    return [e for e in p.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def phase_t159(card):
+    """The T159 case's steady step, batched against serial pacing."""
+    fn, carry = cs.t159_case("batched")
+    carry = fn(*carry, 0, first=True)[:4]
+    torch.cuda.synchronize()
+    grid = fn.grid
+    pts = grid.nx * grid.ny * grid.nz
+    out = {}
+    for sched in ("batched", "serial"):
+        fn.serial_evolve = sched
+        rec = t159_step(fn, carry, 1)
+        kern = first_chunk_kernels(fn, carry, 1)
+        if not kern:
+            raise RuntimeError("the profiler saw no device kernels")
+        busy = busy_us(kern) * 1e-6
+        top, port = kernel_totals(kern)
+        c0 = rec["chunks"][0]
+        rec.update(chunk0_busy_s=busy, chunk0_kernels=len(kern),
+                   chunk0_idle_share=1.0 - busy / c0["wall_s"],
+                   gridpoint_updates_per_s=pts * rec["instance_substeps"]
+                   / rec["wall_s"],
+                   chunk0_top=[dict(name=n, ms=ms, calls=c)
+                               for n, (ms, c) in top + port])
+        out[sched] = rec
+        cs.log("t159 %s: step wall %.3f s = pre %.3f + evolve %.3f + post "
+               "%.3f; %d instance-substeps, %.4g LES gridpoint-updates/s; "
+               "chunk 0: wall %.3f s, device busy %.3f s (%d kernels), idle "
+               "%.1f %% on %s"
+               % (sched, rec["wall_s"], rec["pre_s"], rec["evolve_s"],
+                  rec["post_s"], rec["instance_substeps"],
+                  rec["gridpoint_updates_per_s"], c0["wall_s"], busy,
+                  len(kern), 100 * rec["chunk0_idle_share"], card))
+        log_kernels(top, port, busy)
+    return out
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if mode not in ("all", "path", "stage", "split"):
-        raise SystemExit("usage: chip_profile.py [path | stage | split]")
+    if mode not in ("all", "path", "stage", "split", "t159"):
+        raise SystemExit("usage: chip_profile.py [path | stage | split | "
+                         "t159]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -269,6 +366,8 @@ def main():
         out.update(stage=phase_stage(card))
     if mode in ("all", "split"):
         out.update(split=phase_split(card))
+    if mode == "t159":
+        out.update(t159=phase_t159(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

@@ -5,7 +5,9 @@ Drives the port's two paths — the reference T21/L19 GCM coupled two-way to
 2 LES instances of 64 x 64 x 160 (RICO), CFL/Peclet-adaptive, the case of
 bench.py — on one CUDA card: the main path (Deardorff TKE closure) through
 the hand-written CUDA stage kernel, and the Smagorinsky path (the split
-tendency path) through the scalar and momentum kernels.
+tendency path) through the scalar and momentum kernels; then the
+semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
+64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel.
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
@@ -17,7 +19,8 @@ Phases (any failure raises and exits non-zero):
      smallest plane (4x4) and z-chunks that do not divide nz: the
      outputs, the increments out - base on their own, and kmax against a
      float64 run of the plain version, for the stage_inputs state and a
-     rough one (rough_inputs); then each option of STAGE_OPTIONS
+     rough one (rough_inputs), and at the T159 leg's batch (FLEET_SHAPES:
+     64x64x160, n = 64) for stage_inputs; then each option of STAGE_OPTIONS
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
      CUDA-event timings of both and the kernel's bound;
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
@@ -59,7 +62,19 @@ Phases (any failure raises and exits non-zero):
   10. the chunked step: one coupled step of the main path's case with
      evolve_chunks=3 from the start of an unchunked one; 3 x substeps
      launches, finite profiles within PROFILE_TOL[0] of the unchunked
-     step's.
+     step's;
+  11. the SL GCM alone (phase_gcm_sl): the JAX package's two 10-day T42
+     guards (T42/L19, hybrid, SL, dt 1800 s, 481 steps; T42_GUARDS), the
+     window interpolation against the gather one at T159 (WG_*), and
+     CUDA-event times of each method's departure interpolation and of
+     one SL step at T159/L19;
+  12. the T159 regional case (phase_t159): the SL GCM at T159/L19 on the
+     card against the port's CPU run from the same start for 3 steps
+     (T159_*), then T159/L19 SL + 64 x 64x64x160 at the columns of
+     bench_t159.py, dt_les 15 s, evolve_chunks 8, the batched fleet, 2
+     coupled steps: finite profiles and GCM fields, the stage kernel's
+     launches = 3 x the substeps of the batched loop; writes
+     chiprun_out/chip_smoke_t159.json.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -127,6 +142,9 @@ STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
                 ((64, 64, 160), 2, None), ((12, 10, 20), 3, 6),
                 ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
                 ((64, 64, 157), 2, None))
+# the stage kernel alone (phase 3) also at the T159 leg's batch: 64
+# instances of 64x64x160 in one launch, for the smooth input
+FLEET_SHAPES = (((64, 64, 160), 64, None),)
 # physics options the main path does not take (LESPhysics fields), each
 # held by its own effect: the change of the outputs from the default run,
 # against the plain version's change, at INC_FRAC of its max (f_coriolis
@@ -470,13 +488,15 @@ def phase_kernel(card):
     phys = lstep.LESPhysics()
     worst = 0.0
     times = {}
-    for (nx, ny, nz), n, tz in STAGE_SHAPES:
+    shapes = ([(s, (stage_inputs, rough_inputs)) for s in STAGE_SHAPES]
+              + [(s, (stage_inputs,)) for s in FLEET_SHAPES])
+    for ((nx, ny, nz), n, tz), inputs_of in shapes:
         grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
         geom = lesstage.stage_geometry(n, nz, ny, nx, tz=tz)
         kern = lambda *a: lesstage.stage_fused_cuda(*a, tz=tz)
         label = "%dx%dx%d n=%d (tile %dx%d, tz %d, %d blocks)" % (
             nx, ny, nz, n, geom.tx, geom.ty, geom.tz, geom.blocks)
-        for inputs in (stage_inputs, rough_inputs):
+        for inputs in inputs_of:
             cur, base, frc, dt = inputs(grid, n, 7 + n)
             err, k64, p64, inc = check_stage(kern, grid, phys, cur, base,
                                              frc, dt)
@@ -486,9 +506,13 @@ def phase_kernel(card):
                 "increments ok, err / max|increment|: %s"
                 % (label, inputs.__name__, err, k64, p64,
                    " ".join("%s %.2g" % kv for kv in inc.items())))
-        opts = check_options(kern, grid, cur, frc, dt)
-        log("  options ok, change err / max|change|: %s" % (
-            " ".join("%s %.2g" % kv for kv in opts.items())))
+        if inputs is rough_inputs:
+            # the options act visibly on the rough input only (on the
+            # smooth one the qt modes' change is below float32's
+            # resolution of qt)
+            opts = check_options(kern, grid, cur, frc, dt)
+            log("  options ok, change err / max|change|: %s" % (
+                " ".join("%s %.2g" % kv for kv in opts.items())))
         if tz is None:
             cur, base, frc, dt = stage_inputs(grid, n, 7 + n)
             args = (grid, phys, cur, base, frc, 0.5, dt)
@@ -1190,6 +1214,361 @@ def phase_cli(card, main_steps):
     return [leg["launches"] for leg in legs]
 
 
+# ---- the semi-Lagrangian GCM -------------------------------------------
+
+# the JAX package's 10-day T42 guards (tests/test_gcm.py:166-243): T42/L19,
+# hybrid levels, SL, dt 1800 s, the Euler start and 480 steps; the bounds
+# on T and |u| (and q) after day 10 are the JAX tests'. "hs94" is the dry
+# Held-Suarez configuration, "moist" the default physics
+T42_GUARDS = {
+    "hs94": dict(T=(140.0, 350.0), umax=200.0, qmax=None),
+    "moist": dict(T=(150.0, 340.0), umax=150.0, qmax=0.05),
+}
+# window against gather (tests/test_gcm.py:424-467): random displacements
+# of up to WG_DLON x 128 / nlon in longitude and WG_DLAT x 64 / nlat in
+# latitude (the same number of cells as the JAX test's 0.1 and 0.05 rad
+# at T42), taps equal to WG_TOL, level-chunked window to WG_CHUNK_TOL;
+# the ladder is sized for dt WG_DT, the T159 case's
+WG_DLON, WG_DLAT, WG_TOL, WG_CHUNK_TOL = 0.1, 0.05, 1e-5, 1e-4
+WG_DT = 900.0
+
+
+def gcm_core(dev, **kw):
+    from sp_coupler_tpu_torch.models.gcm import model as gcm_model
+    core = gcm_model.GCMCore(gcm_model.GCMConfig(**kw), device=dev)
+    if core.device.type != torch.device(dev).type:
+        raise AssertionError("GCMCore took %s, not %s" % (core.device, dev))
+    return core
+
+
+def t42_guard(name, card):
+    """One 10-day T42 guard on the card: returns its record."""
+    from sp_coupler_tpu_torch.models.gcm import physics
+    kw = dict(trunc=42, nlev=19, dt=1800.0, hybrid=True, advection="sl")
+    if name == "hs94":
+        kw["phys"] = physics.PhysicsParams(
+            dtheta_z=10.0, tau_rad=40.0 * 86400.0,
+            tau_rad_sfc=4.0 * 86400.0, rayleigh_tau=86400.0)
+    core = gcm_core("cuda", **kw)
+    state = core.initial_state(seed=3)
+    if name == "hs94":
+        z = torch.zeros_like
+        dry = state.now._replace(q=z(state.now.q), ql=z(state.now.ql),
+                                 qi=z(state.now.qi), a=z(state.now.a))
+        state = state._replace(now=dry, prev=dry, new=dry,
+                               vdiff_mask=z(state.vdiff_mask))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = core.step(state, first=True)
+    for day in range(10):
+        for _ in range(48):
+            state = core.step(state)
+        if not bool(torch.isfinite(state.now.vort).all()):
+            raise AssertionError("t42 %s: non-finite vorticity after day %d"
+                                 % (name, day + 1))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    g, b = state.grid, T42_GUARDS[name]
+    fields = ("u", "v", "T") + (("q",) if b["qmax"] else ())
+    for k in fields:
+        if not bool(torch.isfinite(getattr(g, k)).all()):
+            raise AssertionError("t42 %s: non-finite %s" % (name, k))
+    rec = dict(T_min=float(g.T.min()), T_max=float(g.T.max()),
+               u_max=float(g.u.abs().max()), wall_s=wall,
+               steps_per_s=481 / wall)
+    ok = (b["T"][0] < rec["T_min"] and rec["T_max"] < b["T"][1]
+          and rec["u_max"] < b["umax"])
+    if b["qmax"]:
+        rec["q_max"] = float(g.q.max())
+        ok = ok and rec["q_max"] < b["qmax"]
+    log("gcm_sl: 10-day T42/L19 %s guard (hybrid, SL, dt 1800 s, 481 "
+        "steps): %s, bounds %s, %.2f s (%.1f steps/s) on %s"
+        % (name, " ".join("%s %.4g" % kv for kv in rec.items()), b, wall,
+           rec["steps_per_s"], card))
+    if not ok:
+        raise AssertionError("t42 %s: outside the JAX test's bounds" % name)
+    return rec
+
+
+def window_vs_gather(sht, dev="cuda"):
+    """tests/test_gcm.py:424-467 at this truncation on the card: the
+    window path (one band, and the dt-sized ladder whole and level-chunked)
+    against the gather path from random in-window targets. Returns the
+    max differences."""
+    from sp_coupler_tpu_torch.models.gcm import semilag
+    slg_g = semilag.SLGrid(sht, method="gather")
+    slg_w = semilag.SLGrid(sht, method="window")
+    slg_b = semilag.SLGrid(sht, method="window", dt=WG_DT)
+    rows = sorted((r0, r1) for segs, _ in slg_b.lon_bands for r0, r1 in segs)
+    if rows[0][0] != 0 or rows[-1][1] != sht.nlat or any(
+            a[1] != b[0] for a, b in zip(rows, rows[1:])):
+        raise AssertionError("the window ladder does not partition the "
+                             "rows: %s" % slg_b.lon_bands)
+    rng = np.random.default_rng(0)
+    shp = (4, sht.nlat, sht.nlon)
+    lam = 2 * np.pi * np.arange(sht.nlon) / sht.nlon
+    phi = np.arcsin(sht.mu.cpu().numpy())
+    dl = rng.uniform(-1, 1, shp) * WG_DLON * 128 / sht.nlon
+    dp = rng.uniform(-1, 1, shp) * WG_DLAT * 64 / sht.nlat
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    fields = t(rng.standard_normal((3,) + shp))
+    lam_t = t(np.remainder(lam[None, None] + dl, 2 * np.pi))
+    phi_t = t(np.clip(phi[None, :, None] + dp, -np.pi / 2 + 1e-4,
+                      np.pi / 2 - 1e-4))
+    err = {}
+    for cubic in (True, False):
+        a = slg_g.interp(fields, lam_t, phi_t, cubic=cubic)
+        for name, slg in (("window", slg_w), ("window_dt", slg_b)):
+            key = "%s %s" % (name, "cubic" if cubic else "linear")
+            err[key] = float((a - slg.interp(fields, lam_t, phi_t,
+                                             cubic=cubic)).abs().max())
+            if not err[key] < WG_TOL:
+                raise AssertionError("gcm_sl: %s off gather by %g"
+                                     % (key, err[key]))
+    cs = slg_b.clamp_stats(lam_t, phi_t)
+    if float(cs["lon"]) != 0.0 or float(cs["lat"]) != 0.0:
+        raise AssertionError("gcm_sl: in-window targets clamped: %s" % cs)
+    ref = slg_b.interp(fields, lam_t, phi_t)
+    slg_b.k_chunk = 2
+    err["window_dt chunked"] = float(
+        (ref - slg_b.interp(fields, lam_t, phi_t)).abs().max())
+    if not err["window_dt chunked"] < WG_CHUNK_TOL:
+        raise AssertionError("gcm_sl: chunked window off by %g"
+                             % err["window_dt chunked"])
+    return err
+
+
+def phase_gcm_sl(card):
+    """The SL GCM alone on the card: the JAX package's two 10-day T42
+    guards, window against gather at T159, and CUDA-event times of each
+    method's departure interpolation and of one SL step at T159/L19.
+    Returns its record."""
+    from sp_coupler_tpu_torch.models.gcm import semilag
+    rec = dict(card=card, t42={k: t42_guard(k, card) for k in T42_GUARDS})
+    core = gcm_core("cuda", trunc=159, nlev=19, dt=900.0, advection="sl")
+    rec["window_vs_gather"] = window_vs_gather(core.sht)
+    log("gcm_sl: window == gather at T159 (%dx%d) within %g (chunked %g): "
+        "%s" % (core.nlat, core.nlon, WG_TOL, WG_CHUNK_TOL,
+                " ".join("%s %.3g" % kv
+                         for kv in rec["window_vs_gather"].items())))
+    # the departure interpolation of a leapfrog step from a state one
+    # Euler step in: [8, 19, 240, 480] fields at the real departure points
+    state = core.step(core.initial_state(seed=0), first=True)
+    sht, vc, tau = core.sht, core.vc, 2.0 * core.cfg.dt
+    traj = semilag.sl_trajectories(sht, vc, core.slg, state.now, tau)
+    dep = semilag.sl_dep_stack(sht, vc, core.slg, state.now, state.prev,
+                               tau)["dep"]
+    lam_d, phi_d = traj["angd"][:2]
+    times = {}
+    vals = {}
+    for method in ("gather", "window"):
+        slg = semilag.SLGrid(sht, method=method, dt=core.cfg.dt)
+        vals[method] = slg.interp(dep, lam_d, phi_d)
+        times["interp_%s_ms" % method] = cuda_ms(
+            lambda: slg.interp(dep, lam_d, phi_d), reps=10, warm=2)
+        if method == "window":
+            cs = slg.clamp_stats(lam_d, phi_d)
+            rec["window_clamped"] = {k: float(v) for k, v in cs.items()}
+    rec["dep_window_vs_gather"] = float(
+        (vals["gather"] - vals["window"]).abs().max()
+        / vals["gather"].abs().max())
+    times["sl_dynamics_ms"] = cuda_ms(
+        lambda: core._phase_a_dyn(state, False), reps=5, warm=1)
+    times["step_ms"] = cuda_ms(lambda: core.step(state), reps=5, warm=1)
+    rec["times"] = times
+    log("gcm_sl: T159/L19 departure interpolation of [8, 19, 240, 480] "
+        "(cubic): gather %.3f ms, window %.3f ms (window/gather max rel "
+        "diff %.3g, clamped %s); SL dynamics %.3f ms, a whole step %.3f ms, "
+        "by CUDA events on %s"
+        % (times["interp_gather_ms"], times["interp_window_ms"],
+           rec["dep_window_vs_gather"], rec["window_clamped"],
+           times["sl_dynamics_ms"], times["step_ms"], card))
+    return rec
+
+
+# ---- the T159 regional case (scripts/bench_t159.py) ----------------------
+
+T159_LES = 64
+# the SL GCM at T159/L19 on the card against the port's CPU run from the
+# same start, 3 steps: the dynamical grid fields at rtol T159_RTOL plus
+# T159_ATOL of max|cpu|; the condensate at T159_Q_ATOL of max|q| and the
+# cloud fraction at T159_A_ATOL absolute. The two differ by float32
+# rounding: the GEMMs of the transforms sum in another order, and CUDA's
+# arcsin/atan2 of the trajectories differ in the last bits; 3 steps grow
+# that to 1.1e-4 of max|cpu| in lnps (a field of max ~5e-3), 6e-5 in the
+# winds and 9e-6 in T. The cloud scheme's relative-humidity threshold
+# turns such differences of T and q into finite ones of qi and the cloud
+# fraction (measured 1.5e-8 kg/kg and 8.8e-4; NVIDIA H100 80GB HBM3,
+# 700 W)
+T159_RTOL, T159_ATOL, T159_Q_ATOL, T159_A_ATOL = 1e-4, 5e-4, 1e-5, 2e-2
+
+
+def t159_columns(core, n=T159_LES):
+    """scripts/bench_t159.py:32-39: 8 rows of |lat| < 15 deg x 8
+    longitudes."""
+    lats = np.asarray(core.sht.latitudes_deg())
+    rows = np.where(np.abs(lats) < 15.0)[0]
+    cols = []
+    for r in rows[:: max(1, len(rows) // 8)]:
+        for k in range(8):
+            cols.append(int(r * core.nlon + (k * core.nlon) // 8))
+    cols = cols[:n]
+    if len(cols) != n:
+        raise AssertionError("T159: %d columns, want %d" % (len(cols), n))
+    return cols
+
+
+def t159_gcm_vs_cpu(card, n_steps=3):
+    """The T159/L19 SL GCM on the card against the port's CPU run from
+    the same (CPU-built) start. Returns the worst errors by field."""
+    from sp_coupler_tpu_torch import interop
+    kw = dict(trunc=159, nlev=19, dt=900.0, advection="sl")
+    cpu = gcm_core("cpu", **kw)
+    dev = gcm_core("cuda", **kw)
+    s_cpu = cpu.initial_state(seed=0)
+    s_dev = interop.gcm_state(interop.to_numpy(s_cpu), "cuda")
+    t0 = time.time()
+    for i in range(n_steps):
+        s_cpu = cpu.step(s_cpu, first=i == 0)
+    t_cpu = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(n_steps):
+        s_dev = dev.step(s_dev, first=i == 0)
+    torch.cuda.synchronize()
+    t_dev = time.time() - t0
+    qmax = float(s_cpu.grid.q.abs().max())
+    errs, bad = {}, []
+    for k in ("u", "v", "T", "q", "lnps", "ql", "qi", "a"):
+        ref = getattr(s_cpu.grid, k)
+        got = getattr(s_dev.grid, k).cpu()
+        err = (got - ref).abs()
+        if k in ("ql", "qi"):
+            tol = T159_Q_ATOL * qmax
+        elif k == "a":
+            tol = T159_A_ATOL
+        else:
+            tol = T159_ATOL * float(ref.abs().max()) + T159_RTOL * ref.abs()
+        errs[k] = [float(err.max()), float(ref.abs().max())]
+        if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+            bad.append(k)
+    log("t159: SL GCM T159/L19, %d steps, card against the CPU from the "
+        "same start: max err / max|cpu| %s; card %.2f s, CPU %.2f s on %s"
+        % (n_steps, " ".join("%s %.3g / %.3g" % (k, e, m)
+                             for k, (e, m) in errs.items()), t_dev, t_cpu,
+           card))
+    if bad:
+        raise AssertionError("t159: the card's GCM leaves the tolerance "
+                             "in %s" % bad)
+    return dict(errors=errs, card_s=t_dev, cpu_s=t_cpu, steps=n_steps)
+
+
+def t159_case(schedule="batched"):
+    """The T159 regional case on the port (scripts/bench_t159.py:15-60):
+    the T159/L19 SL GCM, 64 LES of 64x64x160 (RICO, TKE) at the columns
+    bench_t159.py picks, dt_les 15 s, evolve_chunks 8, the fleet paced
+    by `schedule`. Returns the step function and its start (gcm state,
+    LES fleet, profiles, rain)."""
+    from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
+                                                 diag as ldiag)
+    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+    core = gcm_core("cuda", trunc=159, nlev=19, dt=900.0, advection="sl")
+    grid = lgrid.LESGrid()
+    cols = t159_columns(core)
+    gs = core.initial_state(seed=0)
+    les = seed_les(core, gs, grid, cols)
+    fn = CoupledStepFn(core, grid, lstep.LESPhysics(), cols, dt_les=15.0,
+                       n_substeps=0, evolve_chunks=8,
+                       serial_evolve=schedule)
+    prof = ldiag.slab_profiles(grid, les)
+    return fn, (gs, les, prof, torch.zeros(len(cols), device=core.device))
+
+
+def phase_t159(card):
+    """The T159 regional case on the card: T159/L19 SL GCM + 64 LES of
+    64x64x160 (RICO, TKE), columns as scripts/bench_t159.py picks them,
+    dt_les 15 s, evolve_chunks 8, the batched fleet, 2 coupled steps.
+    The stage kernel launches 3 x the substeps of the batched loop (the
+    substep calls, each over the instances still running). Returns its
+    record."""
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    rec = dict(card=card, gcm_vs_cpu=t159_gcm_vs_cpu(card))
+    torch.cuda.reset_peak_memory_stats()
+    fn, (gs, les, prof, rain) = t159_case()
+    core, grid, cols = fn.core, fn.grid, fn.cols.tolist()
+    calls = [0]
+    substep = lstep.substep
+
+    def counting_substep(*a, **kw):
+        calls[0] += 1
+        return substep(*a, **kw)
+
+    lstep.substep = counting_substep
+    steps = []
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        for step, first in ((0, True), (1, False)):
+            n0 = calls[0]
+            t0 = time.time()
+            gs, les, prof, rain, diag = fn(gs, les, prof, rain, step,
+                                           first=first)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            nsub = [int(x) for x in fn.unpack_diag(diag)["n_substeps"]]
+            for k in ("THL", "QT", "U"):
+                if not bool(torch.isfinite(prof[k]).all()):
+                    raise AssertionError("t159: non-finite %s after step %d"
+                                         % (k, step))
+            for k in ("u", "v", "T", "q", "lnps"):
+                if not bool(torch.isfinite(getattr(gs.grid, k)).all()):
+                    raise AssertionError("t159: non-finite GCM %s after "
+                                         "step %d" % (k, step))
+            if tuple(prof["THL"].shape) != (T159_LES, grid.nz) or \
+                    min(nsub) <= 0:
+                raise AssertionError("t159: THL %s, substeps %s"
+                                     % (tuple(prof["THL"].shape), nsub))
+            rate = grid.nx * grid.ny * grid.nz * sum(nsub) / wall
+            steps.append(dict(first=first, wall_s=wall,
+                              instance_substeps=sum(nsub),
+                              loop_substeps=calls[0] - n0,
+                              substeps_min_max=[min(nsub), max(nsub)],
+                              gridpoint_updates_per_s=rate))
+            log("t159 step %d (first=%s): %.3f s, %d instance-substeps "
+                "(%d..%d per instance) in %d substeps of the batched loop, "
+                "%.4g LES gridpoint-updates/s on %s"
+                % (step, first, wall, sum(nsub), min(nsub), max(nsub),
+                   calls[0] - n0, rate, card))
+        launches = read_launches()
+    finally:
+        lstep.substep = substep
+    loop = sum(st["loop_substeps"] for st in steps)
+    for k, count in launches.items():
+        want = 3 * loop if k == "lesstage" else 0
+        if count != want or (k == "lesstage" and count == 0):
+            raise AssertionError("t159: %s launches %d, want %d (3 x %d "
+                                 "substeps of the batched loop)"
+                                 % (k, count, want, loop))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec.update(columns=cols, steps=steps, launches=launches,
+               peak_memory_gib=peak, les=T159_LES,
+               les_grid=[grid.nx, grid.ny, grid.nz],
+               gcm_grid=[core.nlat, core.nlon])
+    log("t159: T159/L19 SL (%dx%d) + %d x %dx%dx%d, launches %s for %d "
+        "substeps of the batched loop, peak memory %.2f GiB on %s"
+        % (core.nlat, core.nlon, T159_LES, grid.nx, grid.ny, grid.nz,
+           launches, loop, peak, card))
+    return rec
+
+
+def write_t159(gcm_sl, t159):
+    """chiprun_out/chip_smoke_t159.json: the T159 leg and the SL GCM's
+    times."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_t159.json"), "w") as f:
+        json.dump(dict(gcm_sl=gcm_sl, t159=t159), f, indent=1)
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -1203,6 +1582,10 @@ def main():
     phase_seed(card)
     runs.append(phase_parity(card))
     runs.append(phase_chunked(card))
+    gcm_sl = phase_gcm_sl(card)
+    t159 = phase_t159(card)
+    write_t159(gcm_sl, t159)
+    runs.append(t159["launches"])
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,6 +1,7 @@
 """sp_coupler_tpu_torch — PyTorch/CUDA port of sp_coupler_tpu.
 
-The coupled T21 GCM + embedded-LES step of the JAX package, its run
+The coupled GCM + embedded-LES step of the JAX package (the spectral
+GCM Eulerian or semi-Lagrangian, on sigma or hybrid levels), its run
 driver and CLI (``runtime/driver.py``, ``python -m
 sp_coupler_tpu_torch.spmaster``), rewritten on torch tensors: the same
 modules, the same [n, z, y, x] layouts and float32 at every public

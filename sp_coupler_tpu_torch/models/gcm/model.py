@@ -1,14 +1,15 @@
 """GCM model core: phase-split stepping + the column API of the coupler.
 
-Port of the Eulerian, sigma-coordinate, single-program branch of
-``sp_coupler_tpu/models/gcm/model.py::GCMCore``: the initial state, the
-three-phase step split at the cloud scheme (phase A = dynamics +
-pre-cloud physics, cloud scheme, phase B = SP tendencies + re-analysis +
-time filter), column gather, surface fields and SP-tendency scatter. The
-operator tables live on the core's device; the JAX package's
-``consts``/``bound`` jit plumbing has no counterpart here. ``GCMModel`` is
-the host shell with the reference's duck-typed model API that the driver
-calls.
+Port of ``sp_coupler_tpu/models/gcm/model.py::GCMCore`` on one device:
+the initial state, the three-phase step split at the cloud scheme
+(phase A = dynamics + pre-cloud physics, cloud scheme, phase B = SP
+tendencies + re-analysis + time filter), column gather, surface fields
+and SP-tendency scatter, with Eulerian or semi-Lagrangian dynamics
+(``semilag.py``) on sigma or hybrid levels, and the ``split_phases``
+low-memory mode. The operator tables live on the core's device; the JAX
+package's ``consts``/``bound`` jit plumbing and buffer donation have no
+counterpart here. ``GCMModel`` is the host shell with the reference's
+duck-typed model API that the driver calls.
 """
 
 import dataclasses
@@ -20,7 +21,7 @@ import torch
 
 from sp_coupler_tpu_torch import constants as c, default_device
 from ...utils import thermo
-from . import spharm, vertical, dycore, physics
+from . import spharm, vertical, dycore, physics, semilag
 
 
 class GCMState(NamedTuple):
@@ -54,9 +55,17 @@ class GCMConfig:
     start_date: str = "2000-01-01T00:00:00"
     diffusion_tau: float = 4.0 * 3600.0
     robert_eps: float = 0.05
-    hybrid: bool = False
-    advection: str = "eulerian"
-    split_phases: bool = False
+    hybrid: bool = False         # hybrid sigma-p A/B levels; False: sigma
+    advection: str = "eulerian"  # "eulerian" (flux-form leapfrog, up to
+                                 # the advective CFL) | "sl" (3TL
+                                 # semi-Lagrangian, semilag.py)
+    sl_decenter: float = 0.1     # SL-SI off-centering epsilon
+    sl_coriolis: str = "auto"    # "midpoint" | "trapezoid" | "auto"
+                                 # (midpoint unless the polar f tau
+                                 # approaches its bound; semilag.sl_step)
+    split_phases: bool = False   # phase A's dynamics, the SL stages and
+                                 # the physics as separate calls, each
+                                 # intermediate dropped when consumed
     phys: physics.PhysicsParams = physics.PhysicsParams()
 
 
@@ -64,22 +73,44 @@ class GCMCore:
     """Precomputed operators + phase functions on one device."""
 
     def __init__(self, cfg: GCMConfig, device=None):
-        if cfg.advection != "eulerian":
-            raise NotImplementedError(
-                "advection=%r is not ported yet (ROADMAP.md, open items: "
-                "semi-Lagrangian GCM)" % (cfg.advection,))
-        if cfg.split_phases:
-            raise NotImplementedError(
-                "split_phases is not ported yet (ROADMAP.md, open items: "
-                "semi-Lagrangian GCM)")
+        if cfg.advection not in ("eulerian", "sl"):
+            raise ValueError("GCMConfig.advection must be 'eulerian' or "
+                             "'sl', got %r" % (cfg.advection,))
+        if cfg.sl_coriolis not in ("auto", "midpoint", "trapezoid"):
+            raise ValueError("GCMConfig.sl_coriolis must be 'auto', "
+                             "'midpoint' or 'trapezoid', got %r"
+                             % (cfg.sl_coriolis,))
         self.cfg = cfg
         self.device = default_device(device)
         self.sht = spharm.SpectralTransform(cfg.trunc, device=self.device)
         self.vc = vertical.VerticalCoords(cfg.nlev, tref=cfg.tref,
                                           device=self.device,
                                           hybrid=cfg.hybrid)
+        self.slg = None
+        self.sl_cor = cfg.sl_coriolis
+        if self.sl_cor == "auto":
+            # polar f tau = 2 Omega * 2 dt; the centered midpoint form is
+            # stable below 2: take the trapezoid with a margin
+            self.sl_cor = ("trapezoid"
+                           if 2.0 * c.omega * 2.0 * cfg.dt > 1.5
+                           else "midpoint")
+        if cfg.advection == "sl":
+            # dt sizes the latitude-banded interpolation windows for the
+            # 150 m/s design wind (semilag.SLGrid)
+            self.slg = semilag.SLGrid(self.sht, dt=cfg.dt)
+            if cfg.split_phases:
+                # level-chunk the window interpolation: the largest
+                # divisor of nlev <= 4
+                self.slg.k_chunk = next(
+                    (kc for kc in range(min(4, cfg.nlev), 0, -1)
+                     if cfg.nlev % kc == 0), None)
         for dt in (cfg.dt / 2.0, cfg.dt / 4.0, cfg.dt):
             self.vc.implicit_inverse(dt, cfg.trunc)
+        if cfg.advection == "sl":
+            # the SL-SI off-centered arrival weights (semilag.sl_solve)
+            eps = cfg.sl_decenter
+            self.vc.implicit_inverse((1.0 + eps) * cfg.dt / 2.0, cfg.trunc)
+            self.vc.implicit_inverse((1.0 + eps) * cfg.dt, cfg.trunc)
         mu = self.sht.mu.cpu().numpy()          # float32, as the JAX core
         self.lat_rad = torch.as_tensor(np.arcsin(mu), dtype=torch.float32,
                                        device=self.device)[:, None]
@@ -141,16 +172,63 @@ class GCMCore:
 
     # ---- phases ------------------------------------------------------------
 
+    def phase_a(self, state: GCMState, first: bool = False) -> GCMState:
+        """Phase A. Under split_phases the SL dynamics runs as its stages
+        in the JAX package's order (mid-grid, mid-terms, trajectories,
+        departure stack, departure interpolation, arrivals, solve), each
+        intermediate dropped as soon as the next stage has consumed it:
+        the caching allocator then reuses its memory, in stream order, so
+        no stage's working set outlives it."""
+        if not (self.cfg.split_phases and self.slg is not None):
+            return self._phase_a_body(state, first)
+        cfg, sht, vc, slg = self.cfg, self.sht, self.vc, self.slg
+        dt2 = cfg.dt if first else 2.0 * cfg.dt
+        mg = semilag.sl_mid_grid(sht, vc, slg, state.now)
+        mid = semilag.sl_mid_terms(sht, vc, slg, state.now, mg,
+                                   coriolis=self.sl_cor)
+        del mg
+        traj = semilag.sl_trajectories(sht, vc, slg, state.now, dt2)
+        stack = semilag.sl_dep_stack(sht, vc, slg, state.now, state.prev,
+                                     dt2, decenter=cfg.sl_decenter,
+                                     coriolis=self.sl_cor)
+        angm = traj["angm"]
+        dep_vals, pi_dep = semilag.sl_interp_dep(
+            slg, stack["dep"], stack["pi_comb"], *traj["angd"])
+        del stack, traj
+        arr = semilag.sl_arrivals(slg, mid["mid"], mid["N_pi"], *angm,
+                                  dep_vals, pi_dep, dt2,
+                                  coriolis=self.sl_cor)
+        del mid, angm, dep_vals, pi_dep
+        new = semilag.sl_solve(sht, vc, *arr, dt2, decenter=cfg.sl_decenter)
+        del arr
+        new = dycore.hyperdiffuse(sht, new, cfg.dt, cfg.diffusion_tau,
+                                  damp_lnps=True)
+        return self._phase_a_phys(state, new)
+
+    def _phase_a_dyn(self, state: GCMState, first: bool):
+        """Dynamics half of phase A: the provisional spectral state over
+        the leapfrog window (dt on the Euler start), hyperdiffused."""
+        cfg, sht, vc = self.cfg, self.sht, self.vc
+        dt2 = cfg.dt if first else 2.0 * cfg.dt
+        if self.slg is not None:
+            new = semilag.sl_step(sht, vc, self.slg, state.now, state.prev,
+                                  dt2, decenter=cfg.sl_decenter,
+                                  coriolis=self.sl_cor)
+        else:
+            N, _ = dycore.tendencies(sht, vc, state.now, self.fcor)
+            new = dycore.semi_implicit_step(sht, vc, state.now, state.prev,
+                                            N, dt2)
+        return dycore.hyperdiffuse(sht, new, cfg.dt, cfg.diffusion_tau,
+                                   damp_lnps=self.slg is not None)
+
     def _phase_a_body(self, state: GCMState, first: bool = False) -> GCMState:
         """Dynamics step + pre-cloud physics (radiation, vdiff). ``first``
         selects the Euler start (dt window) over the leapfrog (2 dt)."""
-        cfg, sht, vc = self.cfg, self.sht, self.vc
-        dt2 = cfg.dt if first else 2.0 * cfg.dt
-        N, _ = dycore.tendencies(sht, vc, state.now, self.fcor)
-        new = dycore.semi_implicit_step(sht, vc, state.now, state.prev, N,
-                                        dt2)
-        new = dycore.hyperdiffuse(sht, new, cfg.dt, cfg.diffusion_tau)
+        return self._phase_a_phys(state, self._phase_a_dyn(state, first))
 
+    def _phase_a_phys(self, state: GCMState, new) -> GCMState:
+        """Physics half of phase A on the provisional spectral state."""
+        cfg, sht, vc = self.cfg, self.sht, self.vc
         grid = dycore.to_grid(sht, vc, new)
         sfc = self._surface(grid)
         _, p_full = vc.pressures(c.pref0 * torch.exp(grid.lnps))
@@ -185,6 +263,9 @@ class GCMCore:
         grid = g._replace(T=T, q=q, ql=ql, qi=qi, a=a)
         return state._replace(grid=grid, sp_tend=_zero_sp_tend(self.device))
 
+    def phase_b(self, state: GCMState, first: bool = False) -> GCMState:
+        return self._phase_b_body(state, first)
+
     def _phase_b_body(self, state: GCMState, first: bool = False) -> GCMState:
         """Apply SP tendencies, re-analyze, time-filter, advance the clock."""
         cfg, sht = self.cfg, self.sht
@@ -211,6 +292,11 @@ class GCMCore:
         return state._replace(prev=prev, now=new, new=new,
                               time=state.time + dt)
 
+    def step(self, state: GCMState, first=False) -> GCMState:
+        """One GCM step: phase A, cloud scheme, phase B."""
+        return self.phase_b(self.phase_cloud(self.phase_a(state, first)),
+                            first)
+
     # ---- column API (used by the coupler) ----------------------------------
 
     def column_profiles(self, state: GCMState, col_idx):
@@ -223,12 +309,19 @@ class GCMCore:
         ps = c.pref0 * torch.exp(g.lnps[j, i])
         ph_l, pf_l = self.vc.pressures(ps)
         Tcols = take(g.T)
+        if self.vc.hybrid:
+            hc = self.vc.hybrid_coeffs(ps)
+            zg_full = self.vc.geopotential_full(
+                Tcols, lnr=hc["lnr"].T, alpha=hc["alpha"].T)
+            zg_half = self.vc.geopotential_half(Tcols, lnr=hc["lnr"].T)
+        else:
+            zg_full = self.vc.geopotential_full(Tcols)
+            zg_half = self.vc.geopotential_half(Tcols)
         return {
             "U": take(g.u), "V": take(g.v), "T": Tcols,
             "SH": take(g.q), "QL": take(g.ql), "QI": take(g.qi),
             "A": take(g.a), "Pfull": pf_l.T, "Phalf": ph_l.T,
-            "Zgfull": self.vc.geopotential_full(Tcols),
-            "Zghalf": self.vc.geopotential_half(Tcols),
+            "Zgfull": zg_full, "Zghalf": zg_half,
         }
 
     def surface_fields(self, state: GCMState, col_idx):
@@ -267,11 +360,8 @@ class GCMModel:
         self.exp_name = "TEST"
         self.num_steps = 0
         self.step = 0
-        # float32 latitudes, as the JAX package's (the same columns fall
-        # inside a region on both sides)
-        mu = self.core.sht.mu.cpu().numpy()
-        lats = np.degrees(np.arcsin(mu))
-        lons = np.arange(self.core.nlon) * 360.0 / self.core.nlon
+        lats = self.core.sht.latitudes_deg()
+        lons = self.core.sht.longitudes_deg()
         self.latitudes = np.repeat(lats, len(lons))
         self.longitudes = np.tile(lons, len(lats))
         self.ktot = cfg.nlev
@@ -339,7 +429,7 @@ class GCMModel:
 
     def evolve_model_until_cloud_scheme(self):
         self._refresh_vdiff_mask()
-        self.state = self.core._phase_a_body(self.state, self._first)
+        self.state = self.core.phase_a(self.state, self._first)
         self._phase = "pre_cloud"
         return True
 
@@ -349,7 +439,7 @@ class GCMModel:
         return True
 
     def evolve_model_from_cloud_scheme(self):
-        self.state = self.core._phase_b_body(self.state, self._first)
+        self.state = self.core.phase_b(self.state, self._first)
         self._first = False
         self._phase = "idle"
         self.step_count += 1

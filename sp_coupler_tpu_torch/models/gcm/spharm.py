@@ -280,3 +280,11 @@ class SpectralTransform:
         dfdm = self.synthesize_ddmu(s)
         coslat = self.cosl[:, None]
         return dfdl / (self.radius * coslat), dfdm / (self.radius * coslat)
+
+    def latitudes_deg(self):
+        """Gaussian latitudes (degrees, north -> south) from the float32
+        mu, as the JAX package's (the same columns fall in a region)."""
+        return np.degrees(np.arcsin(self.mu.cpu().numpy()))
+
+    def longitudes_deg(self):
+        return np.arange(self.nlon) * 360.0 / self.nlon

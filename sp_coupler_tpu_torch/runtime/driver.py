@@ -17,9 +17,10 @@ The runner takes the CUDA card unless the caller names a device
 (``default_device``). Replayed models (``ncfile``: ``models/ncreplay.py``)
 take the generic path; ``les_cross`` writes each instance's cross
 sections (``io/crossio.py``); ``les_evolve_chunks`` > 1 splits the evolve
-of a fused step. Settings of the JAX driver that are not ported (device
-meshes, hybrid coordinates, the semi-Lagrangian GCM) raise
-NotImplementedError naming their ROADMAP.md entry.
+of a fused step. The GCM takes hybrid levels (``gcm_hybrid``) and
+semi-Lagrangian advection (``gcm_advection`` "sl", or "auto" at T63 and
+above). Settings of the JAX driver that are not ported (device meshes)
+raise NotImplementedError naming their ROADMAP.md entry.
 """
 
 import datetime

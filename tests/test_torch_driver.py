@@ -248,9 +248,6 @@ def test_device_defaults_to_the_card(tmp_path):
     (dict(mesh_les=2), "multi-device and multi-process"),
     (dict(les_num_procs=4), "multi-device and multi-process"),
     (dict(gcm_num_procs=2), "multi-device and multi-process"),
-    (dict(gcm_advection="sl"), "semi-Lagrangian GCM"),
-    (dict(gcm_truncation=63), "semi-Lagrangian GCM"),
-    (dict(gcm_hybrid=True), "hybrid vertical coordinates"),
 ])
 def test_unported_settings_raise(tmp_path, kw, entry):
     base = dict(SMALL, output_dir=str(tmp_path / "out"))
@@ -259,6 +256,42 @@ def test_unported_settings_raise(tmp_path, kw, entry):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md, open items: " + entry):
         r.initialize()
+
+
+@pytest.mark.parametrize("kw, advection", [
+    (dict(gcm_advection="sl"), "sl"),
+    (dict(gcm_truncation=63), "sl"),          # auto -> SL at T >= 63
+    (dict(gcm_hybrid=True), "eulerian"),
+])
+def test_gcm_settings_run_in_driver(tmp_path, kw, advection):
+    """The GCM settings the port once refused run through SPRunner: 2
+    coupled steps with the dummy LES from the JAX runner's start state,
+    whose spifs.nc records match the JAX driver's (the bounds of the
+    module docstring). At T63 the GCM has 4 levels, the fewest that keep
+    the two runs inside ~30 s."""
+    cfg = dict(SMALL, les_type="dummy", **kw)
+    if "gcm_truncation" in kw:
+        cfg["gcm_levels"] = 4
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jr = JRunner(JConfig(output_dir=jdir, **cfg), [jgeom.Point(POINT)])
+    jr.initialize()
+    start = _np(jr.gcm.state)
+    jr.run(2)
+    jr.finalize()
+    r = SPRunner(SPConfig(output_dir=tdir, **cfg), [geometry.Point(POINT)],
+                 device="cpu")
+    r.initialize()
+    assert r.gcm.cfg.advection == jr.gcm.cfg.advection == advection
+    assert r.gcm.cfg.hybrid == jr.gcm.cfg.hybrid == cfg.get("gcm_hybrid",
+                                                            False)
+    assert r.sp_cols == jr.sp_cols
+    r.gcm.state = interop.gcm_state(start, "cpu")
+    r.run(2)
+    r.finalize()
+    got, t_got = read_spifs(os.path.join(tdir, "spifs.nc"))
+    ref, t_ref = read_spifs(os.path.join(jdir, "spifs.nc"))
+    assert len(t_ref) == 2 and np.array_equal(t_got, t_ref)
+    assert_records_close(got, ref)
 
 
 # ---- native runs against the JAX driver -----------------------------------

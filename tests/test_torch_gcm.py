@@ -155,10 +155,28 @@ def test_eulerian_step_first_and_leapfrog(cores):
 @pytest.mark.parametrize("kw", [dict(advection="sl"),
                                 dict(split_phases=True),
                                 dict(hybrid=True)])
-def test_unported_gcm_settings_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, **kw),
-                       device="cpu")
+def test_gcm_settings_run(kw):
+    """The settings the port once refused run: two GCMCore.steps (the
+    Euler start, then a leapfrog step) from a carried-over JAX state match
+    JAX's. The dynamical grid fields at rtol 1e-4 plus 1e-4 of max|ref|,
+    the condensate at 1e-5 of max|q| and the cloud fraction at 5e-3
+    absolute (the bounds of tests/test_torch_semilag.py and their
+    reasons)."""
+    cfg = dict(trunc=TRUNC, nlev=NLEV, dt=DT, **kw)
+    jc = jmodel.GCMCore(jmodel.GCMConfig(**cfg))
+    tc = tmodel.GCMCore(tmodel.GCMConfig(**cfg), device="cpu")
+    gj = jc.initial_state(seed=4)
+    gt = interop.gcm_state(jax.tree.map(np.asarray, gj), "cpu")
+    for first in (True, False):
+        gj, gt = jc.step(gj, first=first), tc.step(gt, first=first)
+    for k in ("u", "v", "T", "q", "lnps"):
+        close(getattr(gt.grid, k), getattr(gj.grid, k), 1e-4, 1e-4, k)
+    qmax = float(np.abs(np.asarray(gj.grid.q)).max())
+    for k, atol in (("ql", 1e-5 * qmax), ("qi", 1e-5 * qmax), ("a", 5e-3)):
+        np.testing.assert_allclose(getattr(gt.grid, k).numpy(),
+                                   np.asarray(getattr(gj.grid, k)), rtol=0.0,
+                                   atol=atol, err_msg=k)
+    assert float(gt.time) == float(gj.time) == 2 * DT
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

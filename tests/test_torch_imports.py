@@ -33,6 +33,7 @@ MODULES = (
     "sp_coupler_tpu_torch.models.gcm.dycore",
     "sp_coupler_tpu_torch.models.gcm.physics",
     "sp_coupler_tpu_torch.models.gcm.model",
+    "sp_coupler_tpu_torch.models.gcm.semilag",
     "sp_coupler_tpu_torch.config",
     "sp_coupler_tpu_torch.utils.geometry",
     "sp_coupler_tpu_torch.utils.decks",
