@@ -7,7 +7,9 @@ bench.py — on one CUDA card: the main path (Deardorff TKE closure) through
 the hand-written CUDA stage kernel, and the Smagorinsky path (the split
 tendency path) through the scalar and momentum kernels; then the
 semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
-64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel.
+64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel;
+then the main path's case on 2 ranks sharing the card (instance
+parallelism over torch.distributed).
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
@@ -75,6 +77,17 @@ Phases (any failure raises and exits non-zero):
      coupled steps: finite profiles and GCM fields, the stage kernel's
      launches = 3 x the substeps of the batched loop; writes
      chiprun_out/chip_smoke_t159.json.
+  13. instance parallelism (phase_mesh): the bench case through the CLI
+     (T21/L19 + 2 x 64x64x160 at columns 1208/1272, TKE, dt_les 15 s,
+     serial pacing, 2 coupled steps) in this process, then on 2 ranks
+     sharing the card (subprocesses of this script, gloo, --mesh_les 2,
+     MESH_TIMEOUT s): rank 0's records and the GCM state equal the single
+     process's bit for bit, the GCM state is the same on both ranks
+     (parallel.mesh.replicate), each rank launched lesstage 3 x its own
+     substeps; the walls of both side by side (one shared card: not a
+     scaling number) and scalebench.measure(sizes=[1, 2]) at 32x32x64
+     (structural); writes chip_smoke_mesh.json and the ranks' logs
+     mesh_rank<r>.log into OUT_DIR.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1214,6 +1227,232 @@ def phase_cli(card, main_steps):
     return [leg["launches"] for leg in legs]
 
 
+# ---- instance parallelism: 2 ranks on one card --------------------------
+
+# the bench.py case through the CLI: T21/L19 + 2 x 64x64x160 (RICO, TKE),
+# columns 1208/1272, dt_les 15 s, each instance its own adaptive loop
+# (serial: bitwise the same arithmetic on 1 rank and on 2), 2 coupled steps
+BENCH_COLS = [1208, 1272]
+MESH_RANKS = 2
+MESH_TIMEOUT = 300      # s for the ranks' run: a hung collective fails it
+MESH_CONF = {"les_schedule": "serial", "timing_phases": 0}
+SCALE_GRID = (32, 32, 64)   # scalebench.measure(sizes=[1, 2]) in the ranks
+
+
+def bench_argv(odir, conf, mesh_les=1):
+    """spmaster flags of the bench.py case: the columns as --points (the
+    T21 grid's own lat/lon, so each point selects its column)."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    sht = spharm.SpectralTransform(21, device="cpu")
+    lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
+    pts = []
+    for c in BENCH_COLS:
+        pts += ["%.6f" % lats[c // len(lons)], "%.6f" % lons[c % len(lons)]]
+    return (["--points"] + pts + ["--les_dt", "15", "--steps", "1",
+                                  "--conf", conf, "--odir", odir]
+            + (["--mesh_les", str(mesh_les)] if mesh_les > 1 else []))
+
+
+def gcm_leaves(runner):
+    from sp_coupler_tpu_torch.utils import tree
+    return [l.detach().cpu().numpy() for l in tree.flatten(runner.gcm.state)[0]]
+
+
+def mesh_rank(odir, conf, report):
+    """One rank of phase_mesh (``chip_smoke.py --mesh-rank ODIR CONF
+    REPORT``, SPTPU_DIST_* set): the bench case through the CLI with
+    --mesh_les 2, the replicate check of the GCM state, then
+    scalebench.measure(sizes=[1, 2]); writes REPORT.<rank>.json (+ the
+    GCM state, and rank 0's records)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    from sp_coupler_tpu_torch.runtime import scalebench
+    try:
+        runner, walls, launches = cli_leg(bench_argv(odir, conf, MESH_RANKS),
+                                          MemoryWriter)
+        rank = pmesh.rank()
+        if runner.mesh is None or pmesh.world_size() != MESH_RANKS:
+            raise AssertionError("rank %d: no les mesh over %d ranks"
+                                 % (rank, MESH_RANKS))
+        pmesh.replicate(runner.gcm.state, pmesh.make_mesh())
+        pos = runner.fleet.positions
+        np.savez("%s.%d.gcm.npz" % (report, rank), *gcm_leaves(runner))
+        if rank == 0:
+            times, groups = read_records(os.path.join(odir, "spifs.nc"))
+            np.savez(report + ".records.npz", Time=np.asarray(times),
+                     **{"%d/%s" % (c, v): a for c, g in groups.items()
+                        for v, a in g.items()})
+        nx, ny, nz = SCALE_GRID
+        bench = scalebench.measure(sizes=[1, 2], nx=nx, ny=ny, nz=nz,
+                                   device=runner.device, verbose=False)
+        rep = dict(rank=rank, device=str(runner.device), positions=pos,
+                   sp_cols=runner.sp_cols, walls=walls,
+                   substeps=runner.substeps, launches=launches,
+                   own_substeps=int(sum(s[p] for s in runner.substeps
+                                        for p in pos)),
+                   bench=bench)
+    finally:
+        pmesh.shutdown()
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def run_ranks(odir, conf, report, store):
+    """Start the MESH_RANKS ranks of phase_mesh on this card (gloo, the
+    card shared); each must exit 0 within MESH_TIMEOUT, else every rank
+    is killed and the phase fails. Their logs go to OUT_DIR."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for rank in range(MESH_RANKS):
+        env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
+                   SPTPU_DIST_NPROCS=str(MESH_RANKS),
+                   SPTPU_DIST_PROC_ID=str(rank), SPTPU_DIST_BACKEND="gloo")
+        logs.append(open(os.path.join(OUT_DIR, "mesh_rank%d.log" % rank),
+                         "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--mesh-rank", odir, conf, report], cwd=here, env=env,
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError("mesh: the ranks did not finish in %d s (logs "
+                             "in %s/mesh_rank*.log)" % (MESH_TIMEOUT, OUT_DIR))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(OUT_DIR, "mesh_rank%d.log" % bad[0])) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError("mesh: rank(s) %s exited %s:\n%s"
+                             % (bad, [procs[r].returncode for r in bad], tail))
+    return time.time() - t0
+
+
+def phase_mesh(card):
+    """The bench case on 2 ranks sharing this card (gloo, --mesh_les 2)
+    against one process in the same call: rank 0's records and the GCM
+    state equal the single process's, the GCM state is the same on both
+    ranks, each rank launches lesstage 3 x its own substeps; the walls of
+    both, and scalebench's sizes 1 and 2 (structural: one card). Returns
+    the launch counts of both runs (the ranks' summed)."""
+    import tempfile
+    from sp_coupler_tpu_torch.ops import _build
+    _build.load("lesstage")         # built before the ranks start
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = os.path.join(tmp, "mesh.json")
+        with open(conf, "w") as f:
+            json.dump(MESH_CONF, f)
+        single_dir = os.path.join(tmp, "single")
+        runner, walls1, launches1 = cli_leg(bench_argv(single_dir, conf),
+                                            MemoryWriter)
+        if runner.sp_cols != BENCH_COLS:
+            raise AssertionError("the bench points selected %s, not %s"
+                                 % (runner.sp_cols, BENCH_COLS))
+        check_leg_launches("mesh single", runner, launches1,
+                           PATH_KERNELS["tke"])
+        times1, groups1 = read_records(os.path.join(single_dir, "spifs.nc"))
+        gcm1, sub1 = gcm_leaves(runner), runner.substeps
+        grid = runner.fleet.grid
+        # bytes an instance the coupled step's all_gather moves: its slab
+        # profiles and its substep and clamp counts
+        from sp_coupler_tpu_torch.models.les import diag as ldiag
+        prof = ldiag.slab_profiles(grid, runner.fleet.state)
+        row_bytes = 4 * (sum(v.numel() for v in prof.values())
+                         // runner.fleet.n + 2)
+        del runner, prof
+        torch.cuda.empty_cache()
+
+        report = os.path.join(tmp, "rank")
+        ranks_wall = run_ranks(os.path.join(tmp, "mesh"), conf, report,
+                               os.path.join(tmp, "store"))
+        reps = []
+        for r in range(MESH_RANKS):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+        gcms = [np.load("%s.%d.gcm.npz" % (report, r))
+                for r in range(MESH_RANKS)]
+        gcms = [[g["arr_%d" % i] for i in range(len(g.files))] for g in gcms]
+        rec = np.load(report + ".records.npz")
+        diffs = {}
+        if not np.array_equal(rec["Time"], np.asarray(times1)):
+            diffs["Time"] = (rec["Time"].tolist(), times1)
+        keys = {"%d/%s" % (c, v) for c, g in groups1.items() for v in g}
+        if keys != set(rec.files) - {"Time"}:
+            raise AssertionError("mesh: rank 0 wrote %s, the single process "
+                                 "%s" % (sorted(rec.files), sorted(keys)))
+        for k in sorted(keys):
+            c, v = k.split("/", 1)
+            a, b = rec[k], groups1[int(c)][v]
+            if not np.array_equal(a, b):
+                diffs[k] = float(np.max(np.abs(a - b))
+                                 / max(float(np.max(np.abs(b))), 1e-30))
+        for r, g in enumerate(gcms[1:], 1):
+            if not all(np.array_equal(x, y) for x, y in zip(g, gcms[0])):
+                raise AssertionError("mesh: the GCM state of rank %d differs "
+                                     "from rank 0's" % r)
+        if not all(np.array_equal(x, y) for x, y in zip(gcms[0], gcm1)):
+            diffs["gcm state"] = max(float(np.max(np.abs(x - y)))
+                                     for x, y in zip(gcms[0], gcm1))
+        if diffs:
+            raise AssertionError("mesh: rank 0's output differs from the "
+                                 "single process's (max|diff| / max|ref|): "
+                                 "%s" % diffs)
+        total = {k: 0 for k in launches1}
+        for rep in reps:
+            if rep["substeps"] != sub1:
+                raise AssertionError("mesh: rank %d substeps %s, single %s"
+                                     % (rep["rank"], rep["substeps"], sub1))
+            for k, count in rep["launches"].items():
+                want = 3 * rep["own_substeps"] if k == "lesstage" else 0
+                if count != want or (k == "lesstage" and count == 0):
+                    raise AssertionError(
+                        "mesh: rank %d launched %s %d times, want %d (3 x "
+                        "its %d substeps)" % (rep["rank"], k, count, want,
+                                              rep["own_substeps"]))
+                total[k] += count
+        log("mesh: 2 ranks on one card (gloo, --mesh_les 2), bench case "
+            "T21/L19 + 2 x %dx%dx%d, columns %s: rank 0's %d records == the "
+            "single process's, bit for bit (%d variables), the GCM state the "
+            "same on both ranks and the single process; positions %s, "
+            "lesstage launches %s = 3 x own substeps %s; the step's "
+            "all_gather moves %d B an instance on %s"
+            % (grid.nx, grid.ny, grid.nz, BENCH_COLS, len(times1), len(keys),
+               [r["positions"] for r in reps],
+               [r["launches"]["lesstage"] for r in reps],
+               [r["own_substeps"] for r in reps], row_bytes, card))
+        for i in range(len(walls1)):
+            log("mesh step %d walls (one shared card, not a scaling number): "
+                "rank 0 %.3f s, rank 1 %.3f s; single process %.3f s; "
+                "substeps %s" % (i, reps[0]["walls"][i], reps[1]["walls"][i],
+                                 walls1[i], sub1[i]))
+        b = reps[0]["bench"]
+        log("mesh scalebench %s, %d x %s instances a rank, %d substeps "
+            "(structural: both ranks share one card): updates/s %s, "
+            "efficiency %s on %s" % (b["mode"], b["per_device_instances"],
+                                     b["grid"], b["substeps"],
+                                     b["updates_per_s"], b["efficiency"],
+                                     card))
+        res = dict(card=card, single=dict(walls=walls1, substeps=sub1,
+                                          launches=launches1),
+                   ranks=reps, ranks_wall_s=ranks_wall, bitwise=True,
+                   gather_bytes_per_instance=row_bytes)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_mesh.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return [launches1, total]
+
+
 # ---- the semi-Lagrangian GCM -------------------------------------------
 
 # the JAX package's 10-day T42 guards (tests/test_gcm.py:166-243): T42/L19,
@@ -1586,6 +1825,7 @@ def main():
     t159 = phase_t159(card)
     write_t159(gcm_sl, t159)
     runs.append(t159["launches"])
+    runs += phase_mesh(card)
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():
@@ -1605,4 +1845,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:5]))
     sys.exit(main())

@@ -1,15 +1,24 @@
 """The coupled step: GCM phase A -> LES fleet evolve -> GCM phase B.
 
-Port of ``sp_coupler_tpu/coupling/coupler.py::CoupledStepFn`` without a
-mesh: one call runs the GCM first half and cloud scheme, gathers and
-converts the SP columns, builds the LES forcings (with the GCM's surface
-fluxes under ``cplsurf``), applies the variability nudge (``qt_variance``),
-evolves the LES fleet (CFL/Peclet-adaptive or a fixed substep count),
-reduces slab profiles, remaps the LES state back to GCM tendencies and
-runs the GCM second half. The diagnostics come back packed into one flat
-float32 vector with the JAX package's layout (``unpack_diag`` inverts it
-on the host). ``call_phased`` runs the same step as its three phases with
-a device barrier after each, for the driver's per-phase timing.
+Port of ``sp_coupler_tpu/coupling/coupler.py::CoupledStepFn``: one call
+runs the GCM first half and cloud scheme, gathers and converts the SP
+columns, builds the LES forcings (with the GCM's surface fluxes under
+``cplsurf``), applies the variability nudge (``qt_variance``), evolves
+the LES fleet (CFL/Peclet-adaptive or a fixed substep count), reduces
+slab profiles, remaps the LES state back to GCM tendencies and runs the
+GCM second half. The diagnostics come back packed into one flat float32
+vector with the JAX package's layout (``unpack_diag`` inverts it on the
+host). ``call_phased`` runs the same step as its three phases with a
+device barrier after each, for the driver's per-phase timing.
+
+With a les mesh (``parallel.mesh.LesMesh``, one torch.distributed rank a
+slot) the LES state is this rank's block of the fleet. Every rank runs
+the GCM and the per-column coupling math for all n columns, evolves its
+own block with its own adaptive loop (the JAX package's ``shard_map``
+over ``les``), and the LES side's rows (slab profiles with the cloud
+fraction by level, substep and clamp counts, the nudge's diagnostics)
+cross between ranks in one all_gather a step, so the tendencies, the
+GCM's phase B and the packed diag are the same on every rank.
 """
 
 import time
@@ -21,27 +30,59 @@ from sp_coupler_tpu_torch import generator
 from . import convert, nudge
 from ..models.les import step as lstep, diag as ldiag
 from ..models.les.state import LESForcing
+from ..parallel import sharding as shd
 from ..utils import tree
+
+NUDGE_DIAG = ("qt_alpha", "qt_beta", "qt_std")
+
+
+def evolve_fleet(grid, phys, state, forcing, span, serial, n_substeps=0,
+                 dt_max=15.0, cfl=0.7, peclet=0.1, dt_min=0.2):
+    """Advance a fleet (under a mesh, a rank's block, on its own) by span
+    seconds: n_substeps fixed substeps of span / n_substeps, or with
+    n_substeps 0 CFL/Peclet-adaptive ones of at most dt_max. serial: each
+    instance its own loop (``step.map_fleet``). Returns (state, substeps
+    [n] int32, dt_min-clamped substeps [n] int32)."""
+    if n_substeps > 0:
+        def one(s, f):
+            s = lstep.evolve(grid, phys, s, f, span / n_substeps, n_substeps)
+            z = torch.zeros(s.u.shape[0], dtype=torch.int32,
+                            device=s.u.device)
+            return s, z + n_substeps, z
+    else:
+        def one(s, f):
+            return lstep.evolve_adaptive(
+                grid, phys, s, f, s.time + span, dt_max=dt_max, cfl=cfl,
+                peclet=peclet, dt_min=dt_min)
+    return lstep.map_fleet(one, state, forcing, serial)
 
 
 class CoupledStepFn:
-    """Coupled step for a fixed configuration on the GCM core's device."""
+    """Coupled step for a fixed configuration on the GCM core's device;
+    mesh: a les mesh whose slots divide the columns (the LES state is
+    this rank's block of the fleet) or None."""
 
     def __init__(self, gcm_core, les_grid, les_phys, sp_cols, dt_les,
                  n_substeps, les_forcing_factor=1.0, gcm_forcing_factor=1.0,
                  conservative=False, cplsurf=False, qt_variance=False,
                  constant_T=False, mesh=None, seed=42, evolve_chunks=1,
                  serial_evolve="auto", cfl=0.7, peclet=0.1, dt_min=0.2):
-        if mesh is not None:
+        if shd.spatial_axes(mesh):
             raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP.md, open items: "
-                "multi-device and multi-process)")
+                "spatial (x, y) meshes are not ported yet (ROADMAP.md, "
+                "open items: spatial and GCM decomposition)")
+        self.mesh = mesh if mesh is not None and mesh.les > 1 else None
         self.core = gcm_core
         self.device = gcm_core.device
         self.grid = les_grid
         self.phys = les_phys
         self.cols = torch.as_tensor(np.asarray(sp_cols), dtype=torch.int64,
                                     device=self.device)
+        self.n = self.cols.shape[0]
+        if self.mesh is not None and self.n % self.mesh.les:
+            raise ValueError("%d columns on a les mesh of %d slots (the "
+                             "driver keeps such a fleet whole)"
+                             % (self.n, self.mesh.les))
         self.dt_les = float(dt_les)
         self.n_substeps = int(n_substeps)
         self.cfl = float(cfl)
@@ -111,16 +152,28 @@ class CoupledStepFn:
         """The nudge's normal draws [n, ny, nx] for step step_idx, from a
         CPU torch.Generator keyed by (seed + 1, step_idx), moved to the
         device: the same draws on every device (the JAX package folds
-        step_idx into a jax.random key instead)."""
+        step_idx into a jax.random key instead). Under a mesh every rank
+        draws the whole fleet's and keeps its block's, so a rank's
+        instances see the draws of a single process."""
         gen = generator(self.seed + 1, step_idx)
-        return torch.randn((self.cols.shape[0], self.grid.ny, self.grid.nx),
-                           generator=gen).to(self.device)
+        R = torch.randn((self.n, self.grid.ny, self.grid.nx), generator=gen)
+        return self._local(R).to(self.device)
+
+    def _local(self, tree_):
+        """This rank's rows of the whole fleet's tensors."""
+        return shd.local_rows(tree_, self.mesh, self.n)
+
+    def _gathered(self, tree_):
+        """The whole fleet's rows of this rank's block's tensors."""
+        return shd.gather_rows(tree_, self.mesh, self.n)
 
     # ------------------------------------------------------------------
 
     def _pre(self, gcm_state, les_state, prev_prof, step_idx, first,
              skip_half=False):
-        """GCM first half + gather/convert/forcings (+ nudge)."""
+        """GCM first half + gather/convert/forcings (+ nudge). The
+        forcing and the nudge's diagnostics come back as this rank's
+        rows."""
         core = self.core
         dt = core.cfg.dt
         if not skip_half:
@@ -130,7 +183,8 @@ class CoupledStepFn:
         prof = core.column_profiles(gcm_state, self.cols)
         conv = convert.convert_profiles(prof, self.zf)
         if first:
-            les_prof = ldiag.slab_profiles(self.grid, les_state)
+            les_prof = self._gathered(ldiag.slab_profiles(self.grid,
+                                                          les_state))
         else:
             les_prof = {k: torch.as_tensor(v, device=self.device)
                         for k, v in prev_prof.items()}
@@ -139,7 +193,7 @@ class CoupledStepFn:
                                             "PS")}, dt, self.ffac)
         rain = les_prof["Rain"]
 
-        n = self.cols.shape[0]
+        n = self.n
         if self.cplsurf:
             surf = core.surface_fields(gcm_state, self.cols)
             z0m, z0h, wthl, wqt = convert.convert_surface_fluxes(
@@ -149,10 +203,10 @@ class CoupledStepFn:
             full = lambda v: torch.full((n,), v, dtype=torch.float32,
                                         device=self.device)
             z0m, z0h, wthl, wqt = full(0.1), full(0.02), full(0.0), full(0.0)
-        forcing = LESForcing(
+        forcing = self._local(LESForcing(
             f_u=fdict["f_u"], f_v=fdict["f_v"], f_thl=fdict["f_thl"],
             f_qt=fdict["f_qt"], f_ql=fdict["f_ql"], f_ps=fdict["f_ps"],
-            ql_ref=conv.ql, wthl=wthl, wqt=wqt, z0m=z0m, z0h=z0h)
+            ql_ref=conv.ql, wthl=wthl, wqt=wqt, z0m=z0m, z0h=z0h))
         pre_diag = {"gcm": prof, "forcing": fdict, "rain": rain,
                     "z0m": z0m, "z0h": z0h, "wthl": wthl, "wqt": wqt}
         if surf is not None:
@@ -162,13 +216,14 @@ class CoupledStepFn:
             if first:
                 # not applied on the first step; its diagnostics are zero,
                 # as on the driver's generic path (fleet.time <= 0)
-                z = torch.zeros_like(conv.ql)
+                z = torch.zeros_like(forcing.ql_ref)
                 pre_diag.update(qt_alpha=z, qt_beta=z, qt_std=z)
             else:
                 fields = ldiag.fields_3d(les_state)
                 res = nudge.variability_nudge(
-                    fields["QT"], fields["THL"], fields["Qsat"], conv.ql,
-                    les_state.pbf, dt, R=self.nudge_noise(step_idx),
+                    fields["QT"], fields["THL"], fields["Qsat"],
+                    forcing.ql_ref, les_state.pbf, dt,
+                    R=self.nudge_noise(step_idx),
                     constant_T=self.constant_T)
                 les_state = les_state._replace(qt=res.qt, thl=res.thl)
                 pre_diag.update(qt_alpha=res.alpha, qt_beta=res.beta,
@@ -177,33 +232,37 @@ class CoupledStepFn:
 
     def _evolve_to(self, les_state, forcing, dt_frac):
         """LES fleet evolve by dt_frac seconds (the hot loop). Big
-        instances run serially, each with its own adaptive loop."""
+        instances run serially, each with its own adaptive loop; under a
+        mesh each rank evolves its block alone, with no straggler
+        coupling between ranks."""
+        nn = 0
         if self.n_substeps > 0:
             nn = max(1, int(round(self.n_substeps * dt_frac
                                   / self.core.cfg.dt)))
-
-            def one(s, f):
-                s = lstep.evolve(self.grid, self.phys, s, f, dt_frac / nn, nn)
-                z = torch.zeros(s.u.shape[0], dtype=torch.int32,
-                                device=s.u.device)
-                return s, z + nn, z
-        else:
-            def one(s, f):
-                return lstep.evolve_adaptive(
-                    self.grid, self.phys, s, f, s.time + dt_frac,
-                    dt_max=self.dt_les, cfl=self.cfl, peclet=self.peclet,
-                    dt_min=self.dt_min)
         serial = (lstep.serial_fleet_default(self.grid)
                   if self.serial_evolve == "auto"
                   else self.serial_evolve == "serial")
-        return lstep.map_fleet(one, les_state, forcing, serial)
+        return evolve_fleet(self.grid, self.phys, les_state, forcing,
+                            dt_frac, serial, n_substeps=nn,
+                            dt_max=self.dt_les, cfl=self.cfl,
+                            peclet=self.peclet, dt_min=self.dt_min)
 
     def _post(self, gcm_state, les_state, conv, prof, rain_last, n_sub,
               n_clamp, pre_diag, first):
-        """Slab diagnostics, LES -> GCM tendencies, GCM second half."""
+        """Slab diagnostics, LES -> GCM tendencies, GCM second half.
+        The LES side's rows of every rank are gathered first, in one
+        all_gather under a mesh; the cloud fractions on GCM levels are
+        computed from the gathered profiles, for the whole fleet at once
+        as in one process (cuBLAS picks its batched product by the batch,
+        so a rank's rows alone would round otherwise)."""
         core, grid = self.core, self.grid
         dt = core.cfg.dt
-        prof_les = ldiag.slab_profiles(grid, les_state)
+        rows = self._gathered(dict(
+            prof=ldiag.slab_profiles(grid, les_state), n_sub=n_sub,
+            n_clamp=n_clamp,
+            **{k: pre_diag[k] for k in NUDGE_DIAG if k in pre_diag}))
+        prof_les = rows.pop("prof")
+        n_sub, n_clamp = rows.pop("n_sub"), rows.pop("n_clamp")
         A_d = ldiag.cloud_fraction_on_gcm_levels(
             grid, prof_les["cloudfrac_z"], conv.Zh)
         jles = {k: prof_les[k] for k in
@@ -217,7 +276,7 @@ class CoupledStepFn:
         rain = pre_diag["rain"]
         rain_last = torch.as_tensor(rain_last, dtype=torch.float32,
                                     device=self.device)
-        diag = dict(pre_diag)
+        diag = dict(pre_diag, **rows)
         diag.update(
             conv=conv, rainrate=(rain - rain_last) / dt,
             les=prof_les, tend=tend, t_diag=tdiag["t"],

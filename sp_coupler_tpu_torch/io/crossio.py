@@ -1,6 +1,6 @@
 """Per-instance LES statistics output: cross sections and column integrals.
 
-Port of ``sp_coupler_tpu/io/crossio.py`` for one process. The reference's
+Port of ``sp_coupler_tpu/io/crossio.py``. The reference's
 DALES instances write their own netCDF files per work directory (surf_xy
 cross sections at configured heights; reference README.md:108-111,
 namoptions &NAMCROSSSECTION crossheight = 2,40,80, dtav = 60). Here each
@@ -10,7 +10,10 @@ writer (``io/spnc.py``), so serialization runs off the step loop.
 
 Variables: xy cross sections of thl, qt, ql, w at the configured level
 indices (0-based), plus LWP / RWP / TWP maps (liquid / rain / total water
-paths). The fleet's fields are copied to the host once per record.
+paths). The fleet's fields are copied to the host once per record. In a
+multi-process run each rank writes the files of the instances it holds
+(``positions``), from its own block of the fleet, as every DALES instance
+writes its own files from its own ranks.
 """
 
 import os
@@ -76,29 +79,43 @@ class CrossSectionWriter:
 
 
 class FleetCrossIO:
-    """Cross-section writers for every instance of the fleet; sp_cols
-    names each instance's work directory."""
+    """Cross-section writers for the instances at fleet positions
+    ``positions`` (default: all); sp_cols, aligned with positions, names
+    each instance's work directory."""
 
-    def __init__(self, out_dir, grid, sp_cols, heights=(2, 40, 80)):
-        self.writers = []
-        for col in sp_cols:
+    def __init__(self, out_dir, grid, sp_cols, heights=(2, 40, 80),
+                 positions=None):
+        self.positions = (list(positions) if positions is not None
+                          else list(range(len(sp_cols))))
+        if len(self.positions) != len(sp_cols):
+            raise ValueError("%d positions for %d columns"
+                             % (len(self.positions), len(sp_cols)))
+        self.writers = {}
+        for pos, col in zip(self.positions, sp_cols):
             d = os.path.join(out_dir, "les-work-%d" % col)
             os.makedirs(d, exist_ok=True)
-            self.writers.append(CrossSectionWriter(
-                os.path.join(d, "cross.nc"), grid, heights))
+            self.writers[pos] = CrossSectionWriter(
+                os.path.join(d, "cross.nc"), grid, heights)
 
-    def write(self, fleet_state, ql_3d, t):
-        """fleet_state: the fleet's LESState; ql_3d [n, nz, ny, nx]."""
-        state = {k: to_numpy(getattr(fleet_state, k)) for k in STATE_FIELDS}
-        ql = to_numpy(ql_3d)
-        for pos, w in enumerate(self.writers):
-            w.write(SimpleNamespace(**{k: v[pos] for k, v in state.items()}),
-                    ql[pos], t)
+    def write(self, fleet_state, ql_3d, t, held=None):
+        """fleet_state: an LESState; ql_3d [n, nz, ny, nx]; held: the
+        fleet positions of their rows (default 0, 1, ...: the whole
+        fleet). Only the rows this writer writes go to the host."""
+        if not self.writers:
+            return
+        held = list(range(ql_3d.shape[0])) if held is None else list(held)
+        rows = [held.index(p) for p in self.writers]
+        state = {k: to_numpy(getattr(fleet_state, k)[rows])
+                 for k in STATE_FIELDS}
+        ql = to_numpy(ql_3d[rows])
+        for j, w in enumerate(self.writers.values()):
+            w.write(SimpleNamespace(**{k: v[j] for k, v in state.items()}),
+                    ql[j], t)
 
     def flush(self):
-        for w in self.writers:
+        for w in self.writers.values():
             w.flush()
 
     def close(self):
-        for w in self.writers:
+        for w in self.writers.values():
             w.close()

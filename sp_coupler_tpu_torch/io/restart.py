@@ -8,6 +8,11 @@ scalars, in the run's output directory. The leaves are numbered in
 ``gcm_i``/``les_i``/``prof_i`` keys, so a checkpoint written by either
 package loads into the other. Resume reopens spifs.nc in append mode (the
 driver writes nothing on the first restarted step, splib.py:272-274).
+
+In a multi-process run the file holds the whole fleet: ``save`` gathers
+every rank's block (a collective: every rank calls it) and rank 0 writes;
+``load`` reads the file on every rank and keeps the rank's block. So a
+checkpoint resumes on any number of ranks.
 """
 
 import json
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ..interop import to_numpy
+from ..parallel import mesh as pmesh, sharding as shd
 from ..utils import tree
 
 log = logging.getLogger(__name__)
@@ -32,19 +38,28 @@ def _flatten(tag, state):
             for i, x in enumerate(leaves)}
 
 
-def _unflatten(tag, data, template):
-    """template's tree with its leaves replaced by data's, in order: a
-    tensor leaf becomes a tensor on its device, others stay numpy."""
+def _unflatten(tag, data, template, rows=None):
+    """template's tree with its leaves replaced by data's (their rows
+    rows, where given), in order: a tensor leaf becomes a tensor on its
+    device, others stay numpy."""
     leaves, spec = tree.flatten(template)
     new = []
     for i, leaf in enumerate(leaves):
-        arr = np.array(data["%s_%d" % (tag, i)])
+        arr = data["%s_%d" % (tag, i)]
+        arr = np.array(arr if rows is None else arr[rows])
         new.append(torch.as_tensor(arr, device=leaf.device)
                    if isinstance(leaf, torch.Tensor) else arr)
     return tree.unflatten(spec, iter(new))
 
 
+def _fleet_rows(fleet):
+    """The rows of the whole fleet this process's fleet state holds."""
+    mesh = getattr(fleet, "mesh", None)
+    return None if mesh is None else mesh.block(fleet.n)
+
+
 def save(runner):
+    """Write the checkpoint (rank 0); a collective under a les mesh."""
     out = {}
     meta = {
         "gcm_time": float(runner.gcm.get_model_time()),
@@ -56,7 +71,11 @@ def save(runner):
     if hasattr(runner.gcm, "state"):
         out.update(_flatten("gcm", runner.gcm.state))
     if getattr(runner.fleet, "state", None) is not None:
-        out.update(_flatten("les", runner.fleet.state))
+        out.update(_flatten("les", shd.gather_rows(
+            runner.fleet.state, getattr(runner.fleet, "mesh", None),
+            getattr(runner.fleet, "n", 0))))
+    if pmesh.rank() != 0:
+        return      # the gather above is collective; rank 0 owns the file
     if runner.prev_profiles is not None:
         out.update(_flatten("prof", runner.prev_profiles))
         meta["has_profiles"] = True
@@ -77,7 +96,8 @@ def load(runner):
             runner.gcm._first = False
             runner.gcm.step_count = int(meta.get("gcm_step", 0))
         if getattr(runner.fleet, "state", None) is not None:
-            runner.fleet.state = _unflatten("les", data, runner.fleet.state)
+            runner.fleet.state = _unflatten("les", data, runner.fleet.state,
+                                            _fleet_rows(runner.fleet))
         elif hasattr(runner.fleet, "init_states") and any(
                 k.startswith("les_") for k in data.files):
             # the checkpoint holds a fleet state the fleet does not have
@@ -86,7 +106,8 @@ def load(runner):
             z = np.zeros((runner.fleet.n, nz), np.float32)
             runner.fleet.init_states(z, z, z + 300.0, z + 1e-3,
                                      np.full(runner.fleet.n, 1e5, np.float32))
-            runner.fleet.state = _unflatten("les", data, runner.fleet.state)
+            runner.fleet.state = _unflatten("les", data, runner.fleet.state,
+                                            _fleet_rows(runner.fleet))
         runner.fleet.time = meta["fleet_time"]
         if meta.get("has_profiles") and runner.prev_profiles is None:
             runner.prev_profiles = _unflatten(

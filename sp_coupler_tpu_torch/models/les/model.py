@@ -3,7 +3,10 @@
 Port of ``sp_coupler_tpu/models/les/model.py``. The fleet is one LESState
 with a leading instance axis on one device; evolve, profiles and fields
 run on the whole fleet at once (big instances are stepped one after the
-other, ``step.map_fleet``). LESInstance is the reference's per-instance
+other, ``step.map_fleet``). With a les mesh (``shard``) the state is this
+rank's block of the fleet: evolve runs on the block, and the profile,
+field and cloud-fraction getters gather the whole fleet's rows on every
+rank (collectives: every rank calls them in the same order). LESInstance is the reference's per-instance
 duck-typed API (get_profile_U, get_cloudfraction, ... — spcpl.py:274-385,
 747-767) over the fleet, on host numpy copies.
 """
@@ -17,13 +20,15 @@ from sp_coupler_tpu_torch import default_device, generator
 from ...interop import to_numpy
 from . import state as lstate, step as lstep, diag as ldiag
 from .state import LESForcing
+from ...parallel import sharding as shd
 
 log = logging.getLogger(__name__)
 
 
 class LESFleet:
     """Batched LES instances sharing one grid and physics configuration,
-    on the card unless device says otherwise (``default_device``)."""
+    on the card unless device says otherwise (``default_device``). n is
+    the whole fleet's size, under a mesh too."""
 
     def __init__(self, grid, phys: lstep.LESPhysics, n_les: int,
                  dt_les: float, seed: int = 42, schedule: str = "auto",
@@ -41,6 +46,17 @@ class LESFleet:
         self.device = default_device(device)
         self.state = None              # fleet LESState after init_states
         self.time = 0.0        # fleet clock (s); all instances share it
+        self.mesh = None       # les mesh: state holds this rank's block
+        self.positions = list(range(n_les))   # the instances state holds
+
+    def shard(self, mesh):
+        """Hold this rank's block of the fleet from now on (the state's
+        too, where there is one already)."""
+        if self.state is not None:
+            self.state = shd.local_rows(self.state, mesh, self.n)
+        self.mesh = mesh
+        self.positions = (list(range(self.n)) if mesh is None
+                          else mesh.positions(self.n))
 
     # ---- grid metadata (reference getters, spio.py:94-116) ----------------
 
@@ -82,7 +98,9 @@ class LESFleet:
         instance's start does not depend on the fleet's size (the JAX
         package folds i into a jax.random key; the draws differ). The
         state is built on the CPU and moved to the device once, so a seed
-        gives bitwise the same start on every device.
+        gives bitwise the same start on every device. Under a mesh only
+        this rank's instances are built: their rows equal a single
+        process's.
         """
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
         u, v, thl, qt = t(u), t(v), t(thl), t(qt)
@@ -90,22 +108,25 @@ class LESFleet:
         parts = [lstate.init_state(self.grid, u[i:i + 1], v[i:i + 1],
                                    thl[i:i + 1], qt[i:i + 1], ps[i:i + 1],
                                    generator(self.seed, i))
-                 for i in range(self.n)]
+                 for i in self.positions]
         self.state = lstate.LESState(*[torch.cat(f, dim=0).to(self.device)
                                        for f in zip(*parts)])
         self.time = float(start_time)
         self.state = self.state._replace(time=torch.full(
-            (self.n,), start_time, dtype=torch.float32, device=self.device))
+            (len(self.positions),), start_time, dtype=torch.float32,
+            device=self.device))
 
     def evolve_to(self, t_end, forcing: LESForcing):
-        """Advance every instance to t_end under the given fleet forcing."""
+        """Advance every instance to t_end under the given fleet forcing
+        (the whole fleet's rows; a rank takes its block's)."""
         span = float(t_end) - self.time
         if span <= 0:
             return
         g, p = self.grid, self.phys
         nn = self.n_substeps
-        te = torch.full((self.n,), float(t_end), dtype=torch.float32,
-                        device=self.device)
+        forcing = shd.local_rows(forcing, self.mesh, self.n)
+        te = torch.full((len(self.positions),), float(t_end),
+                        dtype=torch.float32, device=self.device)
         if nn:
             def one(s, f):
                 s = lstep.evolve(g, p, s, f, span / nn, nn)
@@ -119,6 +140,8 @@ class LESFleet:
                     cfl=self.cfl, peclet=self.peclet, dt_min=self.dt_min)
         self.state, n_sub, n_clamp = lstep.map_fleet(one, self.state, forcing,
                                                      self.serial)
+        counts = shd.gather_rows(dict(n=n_sub, c=n_clamp), self.mesh, self.n)
+        n_sub, n_clamp = counts["n"], counts["c"]
         self.last_substeps = int(n_sub[0])
         self.last_dtmin_clamped = to_numpy(n_clamp)
         if np.any(self.last_dtmin_clamped > 0):
@@ -130,11 +153,14 @@ class LESFleet:
 
     def get_profiles(self):
         """Slab means: dict of [n, nz] tensors (+ scalars [n])."""
-        return ldiag.slab_profiles(self.grid, self.state)
+        return shd.gather_rows(ldiag.slab_profiles(self.grid, self.state),
+                               self.mesh, self.n)
 
     def get_fields(self):
-        """3-D diagnostic fields for the variability nudge."""
-        return ldiag.fields_3d(self.state)
+        """3-D diagnostic fields [n, nz, ny, nx] for the variability
+        nudge."""
+        return shd.gather_rows(ldiag.fields_3d(self.state), self.mesh,
+                               self.n)
 
     def cloud_fractions(self, gcm_Zh):
         """A_d on GCM layers for every instance; gcm_Zh [n, L+1]
@@ -146,8 +172,10 @@ class LESFleet:
             self.grid, prof["cloudfrac_z"], Zh)
 
     def set_qt_thl(self, qt, thl):
-        """Write back 3-D fields (variability nudge, spcpl.py:732-734)."""
-        self.state = self.state._replace(qt=qt, thl=thl)
+        """Write back the whole fleet's 3-D fields (variability nudge,
+        spcpl.py:732-734); a rank keeps its block's."""
+        self.state = self.state._replace(**shd.local_rows(
+            dict(qt=qt, thl=thl), self.mesh, self.n))
 
     def write_restart(self):
         pass  # the driver's io.restart checkpoints the fleet state

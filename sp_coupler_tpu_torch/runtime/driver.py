@@ -1,6 +1,6 @@
 """Run loop: initialize / run / step / finalize (splib equivalent).
 
-Port of ``sp_coupler_tpu/runtime/driver.py`` on one device. It orchestrates
+Port of ``sp_coupler_tpu/runtime/driver.py``. It orchestrates
 the coupled system as the reference's splib.py does (read_config,
 initialize, run, step, run_spinup, finalize — splib.py:97-432), with no
 RPC: the native GCM and LES fleet step through one ``CoupledStepFn`` call
@@ -19,8 +19,16 @@ take the generic path; ``les_cross`` writes each instance's cross
 sections (``io/crossio.py``); ``les_evolve_chunks`` > 1 splits the evolve
 of a fused step. The GCM takes hybrid levels (``gcm_hybrid``) and
 semi-Lagrangian advection (``gcm_advection`` "sl", or "auto" at T63 and
-above). Settings of the JAX driver that are not ported (device meshes)
-raise NotImplementedError naming their ROADMAP.md entry.
+above). Settings of the JAX driver that are not ported (--lesprocs,
+--gcmprocs, mesh x/y) raise NotImplementedError naming their ROADMAP.md
+entry.
+
+Multi-process runs (``--mesh_les`` L under torchrun or ``SPTPU_DIST_*``,
+``parallel/mesh.py``): each rank is one slot of the les axis and holds
+its block of the LES fleet; every rank runs the GCM and the coupling math
+and calls the same collectives in the same order. Rank 0 alone writes
+spifs.nc, timing.txt and the restart; each rank writes the cross.nc of
+the instances it holds.
 """
 
 import datetime
@@ -37,8 +45,10 @@ from ..coupling import convert, nudge
 from ..interop import to_numpy
 from ..io import spifs
 from ..models import dummy as dummy_mod
-from ..models.les import grid as lgrid, step as lstep, model as les_model
+from ..models.les import (grid as lgrid, step as lstep, model as les_model,
+                          diag as ldiag)
 from ..models.les.state import LESForcing
+from ..parallel import mesh as pmesh
 from ..utils import geometry
 
 log = logging.getLogger(__name__)
@@ -48,7 +58,7 @@ QT_MODES = {"sp": lstep.QT_FORCING_GLOBAL,
             "local": lstep.QT_FORCING_LOCAL,
             "strong": lstep.QT_FORCING_STRONG}
 
-_MULTI = "ROADMAP.md, open items: multi-device and multi-process"
+_SPATIAL = "ROADMAP.md, open items: spatial and GCM decomposition"
 
 
 def create_gcm(cfg: SPConfig, device=None):
@@ -98,12 +108,27 @@ def create_fleet(cfg: SPConfig, n_les, device=None):
     raise ValueError("unknown les_type " + cfg.les_type)
 
 
+class _NullFile:
+    """timing.txt of the ranks that do not write it."""
+
+    def write(self, s):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class SPRunner:
-    """One coupled superparameterized run on one device.
+    """One coupled superparameterized run: on one device, or one rank of a
+    multi-process run.
 
     device: the torch device of the models (None: the CUDA card, and a
-    RuntimeError where there is none). writer: the spifs.nc writer class,
-    called as ``spifs.SpifsWriter`` is (its default).
+    RuntimeError where there is none; in a multi-process run on the card,
+    the rank's own card). writer: the spifs.nc writer class, called as
+    ``spifs.SpifsWriter`` is (its default); rank 0 alone uses it.
     """
 
     def __init__(self, config=None, geometries=(), output_geometries=(),
@@ -133,16 +158,27 @@ class SPRunner:
         self._fused_prof = None
         self.crossio = None
         self._cross_next = -float("inf")
+        self.mesh = None      # les mesh of a multi-process run (or None)
+        self.io_proc = True   # this process writes spifs.nc and the rest
 
     # ------------------------------------------------------------------ init
 
     def initialize(self):
         cfg = self.cfg
         self._check_settings()
+        # the mesh first: it brings up the process group, and what follows
+        # needs to know which rank owns the output files (reference: only
+        # the master rank writes, spio.py)
+        self.mesh = self._build_mesh()
+        self.io_proc = pmesh.rank() == 0
 
-        # clobber guard (splib.py:101-102); an empty directory is fine
-        if (not cfg.restart and os.path.isdir(cfg.output_dir)
-                and os.listdir(cfg.output_dir)):
+        # clobber guard (splib.py:101-102); an empty directory is fine.
+        # Every rank looks before any rank creates a file in it
+        clobber = (not cfg.restart and os.path.isdir(cfg.output_dir)
+                   and os.listdir(cfg.output_dir))
+        if pmesh.world_size() > 1:
+            torch.distributed.barrier()
+        if clobber:
             raise RuntimeError("output dir %s exists" % cfg.output_dir)
         os.makedirs(cfg.output_dir, exist_ok=True)
 
@@ -162,12 +198,15 @@ class SPRunner:
         log.info("SP columns: %s", self.sp_cols)
 
         if cfg.dryrun:
+            if not self.io_proc:
+                return self
             np.savetxt(os.path.join(cfg.output_dir, "gridpoints.txt"),
                        np.column_stack((lons, lats)), fmt="%10.6f")
             return self
 
         n = len(self.sp_cols)
         self.fleet = create_fleet(cfg, max(n, 1), self.device)
+        self._shard_fleet_state()
         self.instances = []
         if isinstance(self.fleet, les_model.LESFleet):
             for k, col in enumerate(self.sp_cols):
@@ -194,10 +233,13 @@ class SPRunner:
                 "y": (np.arange(self.fleet.get_jtot()) + 0.5) * dy,
                 "zf": zf,
             }
-        self.writer = self.writer_cls(
-            cfg.output_path, self.gcm.get_ktot(), les_info, start,
-            append=cfg.restart, with_surf_vars=cfg.cplsurf,
-            compress=cfg.output_compress)
+        if self.io_proc:
+            self.writer = self.writer_cls(
+                cfg.output_path, self.gcm.get_ktot(), les_info, start,
+                append=cfg.restart, with_surf_vars=cfg.cplsurf,
+                compress=cfg.output_compress)
+        else:
+            self.writer = spifs.NullWriter()
         if not cfg.restart:
             for col in self.sp_cols:
                 self.writer.add_les_column(col, lats[col], lons[col])
@@ -210,10 +252,19 @@ class SPRunner:
         # cross-section netCDFs per work dir, reference README.md:108-111)
         if (cfg.les_cross and isinstance(self.fleet, les_model.LESFleet)
                 and n > 0):
+            # a rank writes the instances it holds (JAX driver.py:207-228);
+            # an unsharded fleet's files are rank 0's
+            positions = (self.fleet.positions
+                         if self.mesh is not None or self.io_proc else [])
+            if self.mesh is not None:
+                log.info("les_cross shard-local: rank %d owns instances %s",
+                         pmesh.rank(), positions)
             from ..io import crossio
             self.crossio = crossio.FleetCrossIO(
-                cfg.output_dir, self.fleet.grid, self.sp_cols,
-                heights=tuple(h - 1 for h in cfg.les_cross_heights))
+                cfg.output_dir, self.fleet.grid,
+                [self.sp_cols[p] for p in positions],
+                heights=tuple(h - 1 for h in cfg.les_cross_heights),
+                positions=positions)
             log.info("per-instance cross-section output: les-work-*/"
                      "cross.nc every %.0f s", max(cfg.les_cross_dtav,
                                                   cfg.gcm_dt))
@@ -236,6 +287,7 @@ class SPRunner:
                 cplsurf=cfg.cplsurf,
                 qt_variance=(cfg.qt_forcing == "variance"),
                 constant_T=cfg.variability_nudge_constant_T,
+                mesh=self.mesh,
                 seed=cfg.seed,
                 evolve_chunks=cfg.les_evolve_chunks,
                 serial_evolve=cfg.les_schedule)
@@ -286,11 +338,11 @@ class SPRunner:
         """Refuse the settings this port leaves out; log the reference's
         no-op knobs (--queue, --channel, work dirs, redirects)."""
         cfg = self.cfg
-        if (cfg.mesh_les * cfg.mesh_x * cfg.mesh_y > 1
-                or cfg.les_num_procs > 1 or cfg.gcm_num_procs > 1):
+        if (cfg.mesh_x * cfg.mesh_y > 1 or cfg.les_num_procs > 1
+                or cfg.gcm_num_procs > 1):
             raise NotImplementedError(
-                "device meshes (--mesh_les, --lesprocs, --gcmprocs) are not "
-                "ported yet (%s)" % _MULTI)
+                "spatial and GCM decomposition (--lesprocs, --gcmprocs, "
+                "mesh x/y) is not ported yet (%s)" % _SPATIAL)
         if cfg.les_queue_threads > 0:
             log.info("--queue %d accepted (no-op: the LES fleet is one "
                      "batched device computation)", cfg.les_queue_threads)
@@ -306,6 +358,49 @@ class SPRunner:
             if val != default:
                 log.info("--%s %s accepted (no-op: no external model "
                          "processes)", knob, val)
+
+    def _build_mesh(self):
+        """The les mesh of --mesh_les over the torch.distributed ranks, or
+        None (JAX driver.py:304-349). A mesh larger than the world runs
+        unsharded, with the JAX driver's warning."""
+        cfg = self.cfg
+        if pmesh.init_distributed(self.device):
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            log.info("multi-process run: rank %d of %d on %s",
+                     pmesh.rank(), pmesh.world_size(), self.device)
+        if cfg.mesh_les <= 1:
+            return None
+        world = pmesh.world_size()
+        if cfg.mesh_les > world:
+            log.warning("mesh (les=%d, x=%d, y=%d) does not fit %d devices; "
+                        "running unsharded", cfg.mesh_les, cfg.mesh_x,
+                        cfg.mesh_y, world)
+            return None
+        if cfg.mesh_les < world:
+            raise ValueError("--mesh_les %d on %d ranks: launch one rank for "
+                             "each les slot" % (cfg.mesh_les, world))
+        log.info("device mesh: les=%d, x=1, y=1", cfg.mesh_les)
+        return pmesh.make_mesh(cfg.mesh_les)
+
+    def _shard_fleet_state(self):
+        """Lay the LES fleet out over the mesh: this rank holds its block
+        (JAX driver.py:351-375). A fleet whose size the mesh does not
+        divide stays whole on every rank, with the JAX driver's warning,
+        and the run goes on without a mesh."""
+        if self.mesh is None:
+            return
+        if not isinstance(self.fleet, les_model.LESFleet):
+            self.mesh = None
+            return
+        n = self.fleet.n
+        if n % self.mesh.les:
+            log.warning("%d LES instances not divisible by mesh les=%d; "
+                        "fleet stays unsharded", n, self.mesh.les)
+            self.mesh = None
+            return
+        self.fleet.shard(self.mesh)
 
     # ------------------------------------------------------- coupling pieces
 
@@ -477,6 +572,9 @@ class SPRunner:
 
     def _open_timing(self):
         if self.timing_file is None:
+            if not self.io_proc:
+                self.timing_file = _NullFile()
+                return
             self.timing_file = open(
                 os.path.join(self.cfg.output_dir, "timing.txt"), "a")
             if not self.cfg.restart and not self._timing_header_done:
@@ -549,13 +647,15 @@ class SPRunner:
         self.rain_last = np.asarray(d["rain"])
 
     def _write_cross(self, t):
-        """Per-instance cross-section record at the dtav cadence; the
-        serialization runs on the native writer's worker thread, off the
-        step loop."""
+        """Per-instance cross-section record at the dtav cadence, from the
+        instances this process holds (no collective); the serialization
+        runs on the native writer's worker thread, off the step loop."""
         if self.crossio is None or t + 1e-6 < self._cross_next:
             return
-        fields = self.fleet.get_fields()
-        self.crossio.write(self.fleet.state, fields["QL"], t)
+        if self.crossio.writers:
+            ql = ldiag.fields_3d(self.fleet.state)["QL"]
+            self.crossio.write(self.fleet.state, ql, t,
+                               held=self.fleet.positions)
         self._cross_next = t + max(self.cfg.les_cross_dtav, 1.0)
 
     def _flush_pending(self):
@@ -757,7 +857,9 @@ class SPRunner:
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             self.step()
-        path = os.path.join(self.cfg.output_dir, "torch_trace.json")
+        name = ("torch_trace.json" if self.io_proc
+                else "torch_trace.rank%d.json" % pmesh.rank())
+        path = os.path.join(self.cfg.output_dir, name)
         prof.export_chrome_trace(path)
         log.info("torch profiler trace written to %s", path)
 

@@ -8,6 +8,13 @@ precedence (defaults < input decks < --conf JSON < explicit flags) and the
 one-step overlap on the step count for restarts (spmaster.py:267). Beside
 them, --device names the torch device; without it the run takes the CUDA
 card, and fails where there is none.
+
+Several processes, one a slot of the LES instance axis (``--mesh_les``
+N): ``torchrun --nproc_per_node N -m sp_coupler_tpu_torch.spmaster
+--mesh_les N ...``, or N processes with ``SPTPU_DIST_COORD`` (host:port),
+``SPTPU_DIST_NPROCS`` and ``SPTPU_DIST_PROC_ID`` set. On the card each
+rank takes its own card (nccl); ``SPTPU_DIST_BACKEND=gloo`` lets ranks
+share one.
 """
 
 import argparse
@@ -16,6 +23,7 @@ import os
 import sys
 
 from sp_coupler_tpu_torch.config import SPConfig, read_config
+from sp_coupler_tpu_torch.parallel import mesh as pmesh
 from sp_coupler_tpu_torch.utils import decks, geometry
 from sp_coupler_tpu_torch.runtime.driver import SPRunner
 
@@ -131,8 +139,9 @@ def build_parser(defaults: SPConfig):
                         "(when qt_forcing=variance)")
     p.add_argument("--mesh_les", dest="mesh_les", type=int,
                    default=defaults.mesh_les,
-                   help="Device-mesh extent for the LES batch axis (only "
-                        "1 is ported)")
+                   help="Ranks of the LES instance axis: each of the N "
+                        "processes (torchrun, or SPTPU_DIST_*) holds its "
+                        "block of the instances")
     # reference process-topology flags (spmaster.py:101-148, 205-213),
     # accepted for drop-in compatibility
     p.add_argument("--lesprocs", dest="les_num_procs", metavar="N", type=int,
@@ -229,7 +238,10 @@ def drive(runner):
 
 
 def main(argv=None):
-    return drive(build_runner(argv))
+    try:
+        return drive(build_runner(argv))
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

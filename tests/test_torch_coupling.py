@@ -8,6 +8,8 @@ functions agree within rtol 1e-5, atol 1e-6 max|ref| (both sides are
 float32 on the CPU and differ only in the order of operations).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from sp_coupler_tpu_torch import interop
 from sp_coupler_tpu_torch.coupling import convert as tconv
 from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn as TStepFn
 from sp_coupler_tpu_torch.models.gcm import model as tmodel
+from sp_coupler_tpu_torch.parallel import mesh as pmesh
 from sp_coupler_tpu_torch.models.les import (grid as tgrid, step as tstep,
                                              diag as tdiag)
 
@@ -265,11 +268,15 @@ def test_unported_coupler_settings_raise():
     core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
                           device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, open items: multi-device and "
-                             "multi-process"):
-        TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, mesh=object())
-    # the surface coupling, the nudge, the phased step and the chunked
-    # evolve are ported
+                       match="ROADMAP.md, open items: spatial and GCM "
+                             "decomposition"):
+        TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0,
+                mesh=SimpleNamespace(les=1, shape={"les": 1, "x": 2,
+                                                   "y": 1}))
+    # the surface coupling, the nudge, the phased step, the chunked
+    # evolve and a les mesh of one slot (no mesh) are ported
+    assert TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0,
+                   mesh=pmesh.LesMesh(1, 0)).mesh is None
     fn = TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0, cplsurf=True,
                  qt_variance=True, evolve_chunks=3)
     assert fn.cplsurf and fn.qt_variance and callable(fn.call_phased)

@@ -245,9 +245,9 @@ def test_device_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("kw, entry", [
-    (dict(mesh_les=2), "multi-device and multi-process"),
-    (dict(les_num_procs=4), "multi-device and multi-process"),
-    (dict(gcm_num_procs=2), "multi-device and multi-process"),
+    (dict(mesh_x=2), "spatial and GCM decomposition"),
+    (dict(les_num_procs=4), "spatial and GCM decomposition"),
+    (dict(gcm_num_procs=2), "spatial and GCM decomposition"),
 ])
 def test_unported_settings_raise(tmp_path, kw, entry):
     base = dict(SMALL, output_dir=str(tmp_path / "out"))

@@ -50,6 +50,9 @@ MODULES = (
     "sp_coupler_tpu_torch.models.ncreplay",
     "sp_coupler_tpu_torch.io.spnc",
     "sp_coupler_tpu_torch.io.crossio",
+    "sp_coupler_tpu_torch.parallel.mesh",
+    "sp_coupler_tpu_torch.parallel.sharding",
+    "sp_coupler_tpu_torch.runtime.scalebench",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
