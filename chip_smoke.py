@@ -9,7 +9,8 @@ tendency path) through the scalar and momentum kernels; then the
 semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
 64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel;
 then the main path's case on 2 ranks sharing the card (instance
-parallelism over torch.distributed).
+parallelism over torch.distributed), and on 4 ranks each holding a block
+of every plane (--lesprocs 4: the kernels in their halo mode).
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
@@ -88,6 +89,21 @@ Phases (any failure raises and exits non-zero):
      scaling number) and scalebench.measure(sizes=[1, 2]) at 32x32x64
      (structural); writes chip_smoke_mesh.json and the ranks' logs
      mesh_rank<r>.log into OUT_DIR.
+  14. intra-LES spatial decomposition (phase_spatial): (a) the halo-mode
+     kernels #1-#3 in this process on 2 x 2 blocks of 64x64x160, n = 2
+     (halos filled by slicing the whole field, the plane-means kernel's
+     float64 sums added across the blocks) against the whole-plane kernels
+     and against their plain versions, with device times of a 32x32x160
+     block; (b) one 64x64x160 instance, 20 substeps of 2 s, on 2 x 2
+     blocks by 4 gloo ranks sharing the card against one process, at
+     atol/rtol 2e-3 (tests/test_parallel.py:185-229); (c) the bench case
+     through the CLI with --lesprocs 4 on the same ranks against phase
+     13's single process: equal substeps, rank 0's records within
+     PROFILE_TOL, the GCM the same on every rank, lesstage launched 3 x
+     each rank's substeps in halo mode; then phase 7's small Smagorinsky
+     + nudge leg with --mesh_les 2 --lesprocs 2, whose lesflat/lesmom
+     launches are in halo mode; writes chip_smoke_spatial.json and the
+     ranks' logs spatial_rank<r>.log.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -672,12 +688,19 @@ def reset_launches():
     from sp_coupler_tpu_torch.ops import lesstage, lesflat, lesmom, advect
     for m in (lesstage, lesflat, lesmom, advect):
         m.launches = 0
+    for m in (lesstage, lesflat, lesmom):
+        m.halo_launches = 0
 
 
 def read_launches():
+    """Each wrapper's launches: whole-plane (by kernel name) and in halo
+    mode (name + "_halo")."""
     from sp_coupler_tpu_torch.ops import lesstage, lesflat, lesmom, advect
     return dict(lesstage=lesstage.launches, lesflat=lesflat.launches,
-                lesmom=lesmom.launches, advect=advect.launches)
+                lesmom=lesmom.launches, advect=advect.launches,
+                lesstage_halo=lesstage.halo_launches,
+                lesflat_halo=lesflat.halo_launches,
+                lesmom_halo=lesmom.halo_launches)
 
 
 def phase_small_coupled(card, subgrid="tke"):
@@ -1345,7 +1368,9 @@ def phase_mesh(card):
     state equal the single process's, the GCM state is the same on both
     ranks, each rank launches lesstage 3 x its own substeps; the walls of
     both, and scalebench's sizes 1 and 2 (structural: one card). Returns
-    the launch counts of both runs (the ranks' summed)."""
+    the launch counts of both runs (the ranks' summed) and the single
+    process's records, substeps, walls and GCM state (phase_spatial's
+    reference)."""
     import tempfile
     from sp_coupler_tpu_torch.ops import _build
     _build.load("lesstage")         # built before the ranks start
@@ -1450,7 +1475,537 @@ def phase_mesh(card):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_mesh.json"), "w") as f:
         json.dump(res, f, indent=1)
-    return [launches1, total]
+    single = dict(times=times1, groups=groups1, substeps=sub1, walls=walls1,
+                  gcm=gcm1)
+    return [launches1, total], single
+
+
+# ---- intra-LES spatial decomposition: blocks of the plane --------------
+
+# (a) the halo-mode kernels in this process: SPATIAL_GRID (nx, ny, nz) at
+# n = SPATIAL_N, cut into SPLIT = (n_x, n_y) blocks whose halos are
+# filled by slicing the whole field (parallel.plane.Plane.block), the
+# plane-means kernel's float64 sums added across the blocks
+SPATIAL_GRID, SPATIAL_N, SPLIT = (64, 64, 160), 2, (2, 2)
+# (b), (c): SPATIAL_RANKS ranks sharing this card (gloo), each a
+# subprocess of this script, SPATIAL_TIMEOUT s for all their legs
+SPATIAL_RANKS = 4
+SPATIAL_TIMEOUT = 600
+# (b): tests/test_parallel.py:185-229 on the port: one 64x64x160
+# instance (its _one_instance profiles, the port's draws), 20 substeps of
+# 2 s, 2 x 2 blocks against one process, at its atol/rtol 2e-3
+EVOLVE_SUBSTEPS, EVOLVE_DT = 20, 2.0
+EVOLVE_TOL = dict(atol=2e-3, rtol=2e-3)
+# (c): the bench case through the CLI with --lesprocs 4 against phase_mesh's
+# single process (its records within verify/parity.py's PROFILE_TOL of
+# max|ref| by step), and phase_cli's small Smagorinsky + nudge leg with
+# --mesh_les 2 --lesprocs 2
+SPATIAL_ARGS = ["--lesprocs", "4"]
+SMAG_SPATIAL = ["--mesh_les", "2", "--lesprocs", "2"]
+SMAG_CONF = {"les_itot": 16, "les_jtot": 16, "les_ktot": 32,
+             "les_subgrid": "smagorinsky", "timing_phases": 0,
+             "les_schedule": "serial"}
+SMAG_ARGV = ["--trunc", "10", "--levels", "8", "--steps", "1", "--points",
+             "15", "-50", "--numles", "2", "--qt_forcing", "variance"]
+# f_thl = (THL_gcm - <thl>_les) / dt, the LES thl forcing, is a difference
+# of two ~300 K float32 values over dt; on blocks <thl> is a float64 sum
+# over the ranks, in one process a float32 one, so the two differ by a
+# float32 spacing or two of 300 K (3.05e-5 K) over the record's dt. Beside
+# PROFILE_TOL of max|ref| it may differ by F_ULPS spacings of max|thl|
+# over dt (tests/test_torch_spatial.py holds the CPU runs the same way)
+F_ULPS = 8
+# the halo-mode entries of the kernels line: name -> the wrapper's
+# whole-plane entry
+HALO_KERNELS = {"lesstage_halo": "lesstage", "lesflat_halo": "lesflat",
+                "lesmom_halo": "lesmom"}
+
+
+def split_planes(ny, nx):
+    """The Planes of the SPLIT blocks of an ny x nx plane (their cuts
+    only: no collective runs in this process)."""
+    from sp_coupler_tpu_torch.parallel import plane as pplane
+    n_x, n_y = SPLIT
+    return [pplane.Plane(ny, nx, n_y, n_x, iy, ix)
+            for ix in range(n_x) for iy in range(n_y)]
+
+
+def assemble(planes, parts):
+    """The whole planes of the blocks parts[i] of planes[i]."""
+    p0 = planes[0]
+    out = torch.empty(parts[0].shape[:-2] + (p0.ny, p0.nx),
+                      dtype=parts[0].dtype, device=parts[0].device)
+    for p, x in zip(planes, parts):
+        out[..., p.y0:p.y0 + p.by, p.x0:p.x0 + p.bx] = x
+    return out
+
+
+def stage_blocks(planes, grid, phys, cur, base, frc, frac, dt):
+    """The stage kernel in halo mode on every block of planes, in this
+    process: the plane-means kernel on each padded block, their float64
+    sums added, then the stage kernel on each; the outputs assembled into
+    whole planes, kmax the blocks' maximum."""
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.ops import lesstage
+    pend = []
+    for p in planes:
+        pcur = cur._replace(**{k: p.block(getattr(cur, k), lesstage.HALO)
+                               for k in lstep.FIELDS})
+        pend.append(lesstage.stage_sums(grid, phys, pcur,
+                                        p.block_fields(base), frc, frac, dt))
+    total = sum(q.sums for q in pend)
+    outs = [lesstage.stage_apply(q, total, grid.ny * grid.nx) for q in pend]
+    fields = [assemble(planes, [o[i] for o in outs]) for i in range(7)]
+    kmax = torch.stack([o[7] for o in outs]).amax(0)
+    return tuple(fields) + (kmax, outs[0][8], outs[0][9])
+
+
+def split_blocks(planes, name, args, halo):
+    """The split kernel `name`'s arguments on each block of planes, the
+    fields padded with halo points (the density profiles and spacings
+    as they are)."""
+    fields = 5 if name != "lesmom" else 4
+    return [tuple(p.block(a, halo) for a in args[:fields]) + args[fields:]
+            for p in planes]
+
+
+def spatial_kernels(card):
+    """(a): the halo-mode kernels #1-#3 on 2 x 2 blocks of SPATIAL_GRID,
+    n = SPATIAL_N, against the whole-plane kernels and against their plain
+    versions; device times of a 32 x 32 block's call against the whole
+    plane's, and against the whole-plane kernel on a plane of the block's
+    size. Returns {name: max_abs_err, times} for the kernels line."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
+    from sp_coupler_tpu_torch.ops import lesstage
+    nx, ny, nz = SPATIAL_GRID
+    n = SPATIAL_N
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    planes = split_planes(ny, nx)
+    phys = lstep.LESPhysics()
+    res = {}
+    worst = 0.0
+    for inputs in (stage_inputs, rough_inputs):
+        cur, base, frc, dt = inputs(grid, n, 21)
+        args = (grid, phys, cur, base, frc, 0.5, dt)
+        got = stage_blocks(planes, *args)
+        whole = lesstage.stage_fused_cuda(*args)
+        plain = lesstage.stage_fused_reference(*args)
+        inc_k, inc_p = {}, {}
+        for k, a, b, c in zip(STAGE_NAMES, got[:7], whole[:7], plain[:7]):
+            b_k = base.w[:, :-1] if k == "w" else getattr(base, k)
+            inc_k[k] = check_increment("halo %s vs whole-plane kernel" % k,
+                                       a, b, b_k, INC_FRAC, INC_RTOL)
+            inc_p[k] = check_increment("halo %s vs plain" % k, a, c, b_k,
+                                       INC_FRAC, INC_RTOL)
+            worst = max(worst, check_close("halo %s vs plain" % k, a, c,
+                                           **FIELD_TOL))
+        for ref, what in ((whole, "whole-plane kernel"), (plain, "plain")):
+            check_close("halo kmax vs " + what, got[7], ref[7], 0.0,
+                        KMAX_RTOL)
+            check_close("halo ustar2 vs " + what, got[8], ref[8], 0.0,
+                        USTAR2_RTOL)
+            check_close("halo rain vs " + what, got[9], ref[9], **RAIN_TOL)
+        log("spatial (a) lesstage halo mode, %dx%dx%d n=%d in %dx%d blocks "
+            "(halo %d), %s: increments ok, err / max|increment| vs the "
+            "whole-plane kernel %s, vs plain %s; kmax rel err vs whole %.3g"
+            % (nx, ny, nz, n, SPLIT[0], SPLIT[1], lesstage.HALO,
+               inputs.__name__, " ".join("%s %.2g" % kv
+                                         for kv in inc_k.items()),
+               " ".join("%s %.2g" % kv for kv in inc_p.items()),
+               float((got[7] / whole[7] - 1).abs().max())))
+    res["lesstage_halo"] = dict(max_abs_err=worst)
+
+    # times: one block's halo-mode call (both launches, its own sums)
+    # against the whole plane's call and the whole-plane kernel on a
+    # plane of the block's size
+    cur, base, frc, dt = stage_inputs(grid, n, 21)
+    p = planes[0]
+    pcur = cur._replace(**{k: p.block(getattr(cur, k), lesstage.HALO)
+                           for k in lstep.FIELDS})
+    pbase = p.block_fields(base)
+
+    def block_call():
+        q = lesstage.stage_sums(grid, phys, pcur, pbase, frc, 0.5, dt)
+        return lesstage.stage_apply(q, q.sums, grid.ny * grid.nx)
+
+    bgrid = lgrid.LESGrid(nx=p.bx, ny=p.by, nz=nz)
+    bcur, bbase, bfrc, bdt = stage_inputs(bgrid, n, 21)
+    small = lambda: lesstage.stage_fused_cuda(bgrid, phys, bcur, bbase,
+                                              bfrc, 0.5, bdt)
+    plain_block = lambda: lesstage.stage_fused_reference(
+        bgrid, phys, bcur, bbase, bfrc, 0.5, bdt)
+    big = lambda: lesstage.stage_fused_cuda(grid, phys, cur, base, frc, 0.5,
+                                            dt)
+    ms = cuda_ms(block_call)
+    dev = device_ms(block_call, DEVICE_KERNELS["lesstage"])
+    dev_small = device_ms(small, DEVICE_KERNELS["lesstage"])
+    dev_big = device_ms(big, DEVICE_KERNELS["lesstage"])
+    plain_ms = cuda_ms(plain_block)
+    pts = n * nz * p.by * p.bx
+    nbytes = 4 * (7 * n * nz * (p.by + 6) * (p.bx + 6) + 14 * pts
+                  + n * (7 * nz + 4) + 3 * n) + 8 * 7 * n * nz
+    b_ms, by = bound_ms(nbytes, KERNEL_OPS["lesstage"] * pts)
+    res["lesstage_halo"]["times"] = (ms, plain_ms, b_ms, by, dev)
+    log("  lesstage halo mode, a %dx%dx%d block n=%d: %.3f ms by CUDA "
+        "events, %.4f ms of device time; the whole-plane kernel on a "
+        "%dx%dx%d plane %.4f ms, on the whole %dx%dx%d plane %.4f ms (4 "
+        "blocks' worth); plain PyTorch on a plane of the block's size %.3f "
+        "ms; bound %.4f ms (%s), %.1f %% of the device time, on %s"
+        % (p.bx, p.by, nz, n, ms, dev, p.bx, p.by, nz, dev_small, nx, ny,
+           nz, dev_big, plain_ms, b_ms, by, 100 * b_ms / dev, card))
+
+    # kernels #2, #3: each block against its plain version on the same
+    # padded block and against the whole-plane kernel's block
+    for name, launch, plain, args_of, tol, _ in split_kernels():
+        if name == "advect":
+            continue
+        r = res[name + "_halo"] = dict(max_abs_err=0.0)
+        for inputs in (split_inputs, rough_split_inputs):
+            args = args_of(inputs(grid, n, 31), grid)
+            whole = launch(*args)
+            fr_k, fr_p = [], []
+            for q, pa in zip(planes, split_blocks(planes, name, args,
+                                                  lesstage.HALO)):
+                got = launch(*pa, halo=lesstage.HALO)
+                ref = plain(*pa, halo=lesstage.HALO)
+                cut = (q.block(whole) if torch.is_tensor(whole)
+                       else tuple(q.block(x) for x in whole))
+                fr_p += check_arrays(name + " halo vs plain", got, ref, tol)
+                fr_k += check_arrays(name + " halo vs whole-plane kernel",
+                                     got, cut, tol)
+                r["max_abs_err"] = max([r["max_abs_err"]] + [
+                    float((a - b).abs().max())
+                    for a, b in zip(output_arrays(got), output_arrays(ref))])
+            log("spatial (a) %s halo mode, %dx%dx%d n=%d in %dx%d blocks, "
+                "%s: ok, worst err / max|ref| per array vs plain %.2g, vs "
+                "the whole-plane kernel %.2g" % (
+                    name, nx, ny, nz, n, SPLIT[0], SPLIT[1],
+                    inputs.__name__, max(fr_p), max(fr_k)))
+        args = args_of(split_inputs(grid, n, 31), grid)
+        pa = split_blocks(planes, name, args, lesstage.HALO)[0]
+        blk = lambda: launch(*pa, halo=lesstage.HALO)
+        out = blk()
+        ms = cuda_ms(blk)
+        dev = device_ms(blk, DEVICE_KERNELS[name])
+        plain_ms = cuda_ms(lambda: plain(*pa, halo=lesstage.HALO))
+        dev_big = device_ms(lambda: launch(*args), DEVICE_KERNELS[name])
+        b_ms, by = bound_ms(tensor_bytes(pa, out),
+                            KERNEL_OPS[name] * n * nz * p.by * p.bx)
+        r["times"] = (ms, plain_ms, b_ms, by, dev)
+        log("  %s halo mode, a %dx%dx%d block n=%d: %.3f ms by CUDA "
+            "events, %.4f ms of device time (plain PyTorch on the padded "
+            "block %.3f ms); the whole-plane kernel on the whole plane "
+            "%.4f ms; bound %.4f ms (%s), %.1f %% of the device time, on "
+            "%s" % (name, p.bx, p.by, nz, n, ms, dev, plain_ms, dev_big,
+                    b_ms, by, 100 * b_ms / dev, card))
+    return res
+
+
+def one_instance(dev):
+    """tests/test_parallel.py's _one_instance on the port: one 64x64x160
+    instance (RICO profiles, the port's draws from a CPU generator) and
+    its forcing."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, state as lstate
+    grid = lgrid.LESGrid()
+    zf = grid.zf("cpu")
+    thl0 = 297.9 + torch.clamp_min(zf - 740.0, 0.0) * 19.1 / 3260.0
+    qt0 = 16e-3 * torch.exp(-zf / 2500.0)
+    u0 = -9.9 + 2e-3 * zf
+    v0 = torch.full_like(zf, -3.8)
+    st = lstate.init_state(grid, u0[None], v0[None], thl0[None], qt0[None],
+                           1.0e5, torch.Generator().manual_seed(42))
+    frc = lstate.LESForcing.zeros(1, grid.nz, device="cpu")
+    full = lambda v: torch.full((1,), v)
+    frc = frc._replace(wthl=full(0.012), wqt=full(4e-5))
+    to = lambda t: type(t)(*[x.to(dev) for x in t])
+    return grid, to(st), to(frc)
+
+
+def spatial_rank(odir, report):
+    """One rank of phase_spatial (``chip_smoke.py --spatial-rank ODIR
+    REPORT``, SPTPU_DIST_* set): (b) one_instance's evolve on 2 x 2
+    blocks, then (c) the bench case through the CLI with SPATIAL_ARGS and
+    the small Smagorinsky + nudge leg with SMAG_SPATIAL; writes
+    REPORT.<rank>.json (+ rank 0's fields and records, each rank's GCM
+    state)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh, plane as pplane
+    dev = torch.device("cuda")
+    try:
+        pmesh.init_distributed(dev)
+        rank = pmesh.rank()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        # (b)
+        grid, st, frc = one_instance(dev)
+        mesh = pmesh.make_mesh(1, 2, 2)
+        plane = pplane.for_mesh(mesh, grid.ny, grid.nx)
+        local = pmesh.shard_fleet(st, mesh, plane)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        out = lstep.evolve(grid, lstep.LESPhysics(), local, frc, EVOLVE_DT,
+                           EVOLVE_SUBSTEPS, plane=plane)
+        torch.cuda.synchronize()
+        ev = dict(wall=time.time() - t0, launches=read_launches())
+        whole = plane.gather_fields(out)
+        if rank == 0:
+            np.savez(report + ".evolve.npz",
+                     **{k: getattr(whole, k).cpu().numpy()
+                        for k in STAGE_NAMES})
+        # (c)
+        conf = os.path.join(odir, "mesh.json")
+        runner, walls, launches = cli_leg(
+            bench_argv(os.path.join(odir, "bench"), conf) + SPATIAL_ARGS,
+            MemoryWriter)
+        if runner.mesh is None or runner.fleet.plane is None:
+            raise AssertionError("rank %d: no spatial mesh" % rank)
+        pmesh.replicate(runner.gcm.state, runner.mesh)
+        np.savez("%s.%d.gcm.npz" % (report, rank), *gcm_leaves(runner))
+        if rank == 0:
+            times, groups = read_records(os.path.join(odir, "bench",
+                                                      "spifs.nc"))
+            np.savez(report + ".records.npz", Time=np.asarray(times),
+                     **{"%d/%s" % (c, v): a for c, g in groups.items()
+                        for v, a in g.items()})
+        pos = runner.fleet.positions
+        bench = dict(walls=walls, substeps=runner.substeps,
+                     launches=launches, positions=pos,
+                     block=list(runner.fleet.state.u.shape),
+                     own_substeps=int(sum(s[p] for s in runner.substeps
+                                          for p in pos)))
+        del runner
+        conf3 = os.path.join(odir, "small.json")
+        runner, walls, launches = cli_leg(
+            SMAG_ARGV + ["--conf", conf3, "--odir",
+                         os.path.join(odir, "small")] + SMAG_SPATIAL,
+            MemoryWriter)
+        pos = runner.fleet.positions
+        smag = dict(walls=walls, substeps=runner.substeps,
+                    launches=launches, positions=pos,
+                    block=list(runner.fleet.state.u.shape),
+                    own_substeps=int(sum(s[p] for s in runner.substeps
+                                         for p in pos)))
+        if rank == 0:
+            times, groups = read_records(os.path.join(odir, "small",
+                                                      "spifs.nc"))
+            smag["finite"] = all(np.all(np.isfinite(a))
+                                 for g in groups.values()
+                                 for a in g.values())
+            smag["n_rec"] = len(times)
+        rep = dict(rank=rank, device=str(dev), evolve=ev, bench=bench,
+                   smag=smag)
+    finally:
+        pmesh.shutdown()
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def run_spatial_ranks(odir, report, store):
+    """Start the SPATIAL_RANKS ranks of phase_spatial on this card (gloo,
+    the card shared); each must exit 0 within SPATIAL_TIMEOUT, else every
+    rank is killed and the phase fails. Their logs go to OUT_DIR."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for rank in range(SPATIAL_RANKS):
+        env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
+                   SPTPU_DIST_NPROCS=str(SPATIAL_RANKS),
+                   SPTPU_DIST_PROC_ID=str(rank), SPTPU_DIST_BACKEND="gloo",
+                   OMP_NUM_THREADS="2")
+        logs.append(open(os.path.join(OUT_DIR, "spatial_rank%d.log" % rank),
+                         "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--spatial-rank", odir, report], cwd=here, env=env,
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SPATIAL_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError("spatial: the ranks did not finish in %d s "
+                             "(logs in %s/spatial_rank*.log)"
+                             % (SPATIAL_TIMEOUT, OUT_DIR))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(OUT_DIR, "spatial_rank%d.log" % bad[0])) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError("spatial: rank(s) %s exited %s:\n%s"
+                             % (bad, [procs[r].returncode for r in bad],
+                                tail))
+    return time.time() - t0
+
+
+def record_diffs(ref_times, ref_groups, rec):
+    """{column/variable: largest over records t of max|got_t - ref_t| /
+    max|ref_t|} of rank 0's records rec (npz) against the single
+    process's; raises where a record lies beyond verify/parity.py's
+    PROFILE_TOL for its step (f_thl: plus F_ULPS float32 spacings of the
+    slab-mean thl over the record's dt)."""
+    from sp_coupler_tpu_torch.verify.parity import PROFILE_TOL
+    if not np.array_equal(rec["Time"], np.asarray(ref_times)):
+        raise AssertionError("spatial: record times %s, single %s"
+                             % (rec["Time"].tolist(), ref_times))
+    keys = {"%d/%s" % (c, v) for c, g in ref_groups.items() for v in g}
+    if keys != set(rec.files) - {"Time"}:
+        raise AssertionError("spatial: rank 0 wrote %s, the single process "
+                             "%s" % (sorted(rec.files), sorted(keys)))
+    out, bad = {}, []
+    for k in sorted(keys):
+        c, v = k.split("/", 1)
+        a = np.asarray(ref_groups[int(c)][v], np.float64)
+        b = np.asarray(rec[k], np.float64)
+        d = 0.0
+        for t in range(a.shape[0]):
+            scale = float(np.max(np.abs(a[t]))) + 1e-12
+            err = float(np.max(np.abs(b[t] - a[t])))
+            tol = PROFILE_TOL[min(t, len(PROFILE_TOL) - 1)] * scale
+            if v == "f_thl":
+                dt = ref_times[t] - (ref_times[t - 1] if t else 0.0)
+                thl = np.max(np.abs(ref_groups[int(c)]["thl"][t]))
+                tol += F_ULPS * float(np.spacing(np.float32(thl))) / dt
+            if err > tol:
+                bad.append((k, t, err / scale, err))
+            d = max(d, err / scale)
+        out[k] = d
+    if bad:
+        raise AssertionError("spatial: records beyond PROFILE_TOL: %s" % bad)
+    return out
+
+
+def phase_spatial(card, single):
+    """Intra-LES spatial decomposition on the card: (a) the halo-mode
+    kernels in this process; (b) one 64x64x160 instance evolved on 2 x 2
+    blocks by 4 ranks sharing the card against one process; (c) the bench
+    case through the CLI with --lesprocs 4 against phase_mesh's single
+    process (``single``), and a small Smagorinsky + nudge leg with
+    --mesh_les 2 --lesprocs 2 whose split-kernel launches are in halo
+    mode. Returns (kernels-line stats, the ranks' launch counts)."""
+    import tempfile
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    t_phase = time.time()
+    stats = spatial_kernels(card)
+    # (b)'s single process, on the card
+    grid, st, frc = one_instance(torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = lstep.evolve(grid, lstep.LESPhysics(), st, frc, EVOLVE_DT,
+                       EVOLVE_SUBSTEPS)
+    torch.cuda.synchronize()
+    ref_wall = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "mesh.json"), "w") as f:
+            json.dump(MESH_CONF, f)
+        with open(os.path.join(tmp, "small.json"), "w") as f:
+            json.dump(SMAG_CONF, f)
+        report = os.path.join(tmp, "rank")
+        ranks_wall = run_spatial_ranks(tmp, report,
+                                       os.path.join(tmp, "store"))
+        reps = []
+        for r in range(SPATIAL_RANKS):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+        got = np.load(report + ".evolve.npz")
+        errs = {}
+        for k in STAGE_NAMES:
+            a = getattr(ref, k).cpu().numpy()
+            b = got[k]
+            np.testing.assert_allclose(b, a, err_msg="spatial (b) " + k,
+                                       **EVOLVE_TOL)
+            errs[k] = float(np.max(np.abs(b - a)))
+        for rep in reps:
+            la = rep["evolve"]["launches"]
+            if la["lesstage_halo"] != 3 * EVOLVE_SUBSTEPS or la["lesstage"]:
+                raise AssertionError("spatial (b): rank %d launches %s, want "
+                                     "lesstage_halo %d" % (
+                                         rep["rank"], la,
+                                         3 * EVOLVE_SUBSTEPS))
+        log("spatial (b): one 64x64x160 instance, %d substeps of %g s on 2 x "
+            "2 blocks, 4 gloo ranks sharing the card, against one process: "
+            "max abs diff %s (atol/rtol 2e-3); rank walls %s s, one process "
+            "%.3f s (one shared card: not a scaling number) on %s"
+            % (EVOLVE_SUBSTEPS, EVOLVE_DT, {k: float("%.3g" % v)
+                                            for k, v in errs.items()},
+               ["%.3f" % r["evolve"]["wall"] for r in reps], ref_wall, card))
+
+        # (c) the bench case: substeps, records, the GCM, launches
+        gcms = [np.load("%s.%d.gcm.npz" % (report, r))
+                for r in range(SPATIAL_RANKS)]
+        gcms = [[g["arr_%d" % i] for i in range(len(g.files))] for g in gcms]
+        for r, g in enumerate(gcms[1:], 1):
+            if not all(np.array_equal(x, y) for x, y in zip(g, gcms[0])):
+                raise AssertionError("spatial: the GCM state of rank %d "
+                                     "differs from rank 0's" % r)
+        diffs = record_diffs(single["times"], single["groups"],
+                             np.load(report + ".records.npz"))
+        worst = max(diffs.items(), key=lambda kv: kv[1])
+        gcm_diff = max(float(np.max(np.abs(x - y)) / (np.max(np.abs(y))
+                                                      + 1e-30))
+                       for x, y in zip(gcms[0], single["gcm"]))
+        launches = []
+        for rep in reps:
+            for leg, kern in (("bench", "lesstage_halo"),
+                              ("smag", ("lesflat_halo", "lesmom_halo"))):
+                r = rep[leg]
+                if leg == "bench" and r["substeps"] != single["substeps"]:
+                    raise AssertionError(
+                        "spatial (c): rank %d substeps %s, single %s"
+                        % (rep["rank"], r["substeps"], single["substeps"]))
+                kern = kern if isinstance(kern, tuple) else (kern,)
+                for k, count in r["launches"].items():
+                    want = 3 * r["own_substeps"] if k in kern else 0
+                    if count != want or (k in kern and count == 0):
+                        raise AssertionError(
+                            "spatial (c) %s: rank %d launched %s %d times, "
+                            "want %d (3 x its %d substeps)" % (
+                                leg, rep["rank"], k, count, want,
+                                r["own_substeps"]))
+                launches.append(r["launches"])
+            launches.append(rep["evolve"]["launches"])
+        if not (reps[0]["smag"]["finite"] and reps[0]["smag"]["n_rec"] == 2):
+            raise AssertionError("spatial (c) smag: records %s"
+                                 % reps[0]["smag"])
+        b0 = reps[0]["bench"]
+        log("spatial (c): the bench case (T21/L19 + 2 x 64x64x160) through "
+            "the CLI with --lesprocs 4 on 4 gloo ranks sharing the card: "
+            "blocks %s, substeps %s == the single process's, rank 0's %d "
+            "records within PROFILE_TOL (largest: %s %.3g of max|ref|), the "
+            "GCM state the same on every rank (%.3g of max|ref| from the "
+            "single process's), lesstage halo launches %s = 3 x own "
+            "substeps %s; the Smagorinsky + nudge leg (T10/L8 + 2 x "
+            "16x16x32, --mesh_les 2 --lesprocs 2): blocks %s, lesflat/lesmom "
+            "halo launches %s on %s"
+            % (b0["block"], b0["substeps"], len(single["times"]), worst[0],
+               worst[1], gcm_diff,
+               [r["bench"]["launches"]["lesstage_halo"] for r in reps],
+               [r["bench"]["own_substeps"] for r in reps],
+               [r["smag"]["block"] for r in reps],
+               [(r["smag"]["launches"]["lesflat_halo"],
+                 r["smag"]["launches"]["lesmom_halo"]) for r in reps], card))
+        for i in range(len(single["walls"])):
+            log("spatial step %d walls (4 ranks sharing one card, gloo: not "
+                "a scaling number): ranks %s s; single process %.3f s"
+                % (i, ["%.3f" % r["bench"]["walls"][i] for r in reps],
+                   single["walls"][i]))
+        res = dict(card=card, kernels={k: v for k, v in stats.items()},
+                   evolve=dict(ref_wall=ref_wall, max_abs_diff=errs),
+                   ranks=reps, ranks_wall_s=ranks_wall,
+                   record_diffs=diffs, gcm_rel_diff=gcm_diff,
+                   single_walls=single["walls"],
+                   phase_s=time.time() - t_phase)
+    with open(os.path.join(OUT_DIR, "chip_smoke_spatial.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    log("spatial: the phase took %.1f s (the ranks %.1f s)"
+        % (res["phase_s"], ranks_wall))
+    return stats, launches
 
 
 # ---- the semi-Lagrangian GCM -------------------------------------------
@@ -1825,7 +2380,10 @@ def main():
     t159 = phase_t159(card)
     write_t159(gcm_sl, t159)
     runs.append(t159["launches"])
-    runs += phase_mesh(card)
+    mesh_runs, single = phase_mesh(card)
+    runs += mesh_runs
+    halo_stats, halo_runs = phase_spatial(card, single)
+    runs += halo_runs
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():
@@ -1835,6 +2393,15 @@ def main():
             launches=sum(r[name] for r in runs),
             max_abs_err=stats[name]["max_abs_err"], ms=ms, plain_ms=plain,
             bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=by,
+            library_ms=None, device_ms=dev_ms))
+    for name, whole in HALO_KERNELS.items():
+        source, replaces = KERNELS[whole]
+        ms, plain, b_ms, by, dev_ms = halo_stats[name]["times"]
+        record.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r[name] for r in runs),
+            max_abs_err=halo_stats[name]["max_abs_err"], ms=ms,
+            plain_ms=plain, bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=by,
             library_ms=None, device_ms=dev_ms))
     print(json.dumps({"kernels": record}))
     print(card)
@@ -1847,4 +2414,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        sys.exit(spatial_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -18,7 +18,14 @@ own block with its own adaptive loop (the JAX package's ``shard_map``
 over ``les``), and the LES side's rows (slab profiles with the cloud
 fraction by level, substep and clamp counts, the nudge's diagnostics)
 cross between ranks in one all_gather a step, so the tendencies, the
-GCM's phase B and the packed diag are the same on every rank.
+GCM's phase B and the packed diag are the same on every rank. Where the
+mesh also splits the LES plane (x, y; ``parallel/plane.py``) a rank holds
+its block of its slot's instances' planes: the ranks of a plane evolve
+them together (halo exchanges, plane reductions, the gathered
+projection), the slab profiles and the nudge reduce over the plane, so
+every rank of a plane holds its instances' profiles, and the rows cross
+over the les group (the ranks at the same block of every slot). The GCM
+stays replicated on every rank (``parallel.mesh.replicate`` checks it).
 """
 
 import time
@@ -30,22 +37,25 @@ from sp_coupler_tpu_torch import generator
 from . import convert, nudge
 from ..models.les import step as lstep, diag as ldiag
 from ..models.les.state import LESForcing
-from ..parallel import sharding as shd
+from ..parallel import plane as pplane, sharding as shd
 from ..utils import tree
 
 NUDGE_DIAG = ("qt_alpha", "qt_beta", "qt_std")
 
 
 def evolve_fleet(grid, phys, state, forcing, span, serial, n_substeps=0,
-                 dt_max=15.0, cfl=0.7, peclet=0.1, dt_min=0.2):
-    """Advance a fleet (under a mesh, a rank's block, on its own) by span
-    seconds: n_substeps fixed substeps of span / n_substeps, or with
-    n_substeps 0 CFL/Peclet-adaptive ones of at most dt_max. serial: each
-    instance its own loop (``step.map_fleet``). Returns (state, substeps
-    [n] int32, dt_min-clamped substeps [n] int32)."""
+                 dt_max=15.0, cfl=0.7, peclet=0.1, dt_min=0.2, plane=None):
+    """Advance a fleet (under a mesh, a rank's block, on its own, or with
+    the other ranks of its plane) by span seconds: n_substeps fixed
+    substeps of span / n_substeps, or with n_substeps 0 CFL/Peclet-adaptive
+    ones of at most dt_max. serial: each instance its own loop
+    (``step.map_fleet``). plane: the state is this rank's block of the
+    planes, or None. Returns (state, substeps [n] int32, dt_min-clamped
+    substeps [n] int32)."""
     if n_substeps > 0:
         def one(s, f):
-            s = lstep.evolve(grid, phys, s, f, span / n_substeps, n_substeps)
+            s = lstep.evolve(grid, phys, s, f, span / n_substeps, n_substeps,
+                             plane=plane)
             z = torch.zeros(s.u.shape[0], dtype=torch.int32,
                             device=s.u.device)
             return s, z + n_substeps, z
@@ -53,25 +63,24 @@ def evolve_fleet(grid, phys, state, forcing, span, serial, n_substeps=0,
         def one(s, f):
             return lstep.evolve_adaptive(
                 grid, phys, s, f, s.time + span, dt_max=dt_max, cfl=cfl,
-                peclet=peclet, dt_min=dt_min)
+                peclet=peclet, dt_min=dt_min, plane=plane)
     return lstep.map_fleet(one, state, forcing, serial)
 
 
 class CoupledStepFn:
     """Coupled step for a fixed configuration on the GCM core's device;
-    mesh: a les mesh whose slots divide the columns (the LES state is
-    this rank's block of the fleet) or None."""
+    mesh: a mesh whose les slots divide the columns and whose x, y divide
+    the LES plane (the LES state is this rank's block of the fleet and of
+    its planes) or None."""
 
     def __init__(self, gcm_core, les_grid, les_phys, sp_cols, dt_les,
                  n_substeps, les_forcing_factor=1.0, gcm_forcing_factor=1.0,
                  conservative=False, cplsurf=False, qt_variance=False,
                  constant_T=False, mesh=None, seed=42, evolve_chunks=1,
                  serial_evolve="auto", cfl=0.7, peclet=0.1, dt_min=0.2):
-        if shd.spatial_axes(mesh):
-            raise NotImplementedError(
-                "spatial (x, y) meshes are not ported yet (ROADMAP.md, "
-                "open items: spatial and GCM decomposition)")
-        self.mesh = mesh if mesh is not None and mesh.les > 1 else None
+        self.mesh = (mesh if mesh is not None
+                     and (mesh.les > 1 or shd.spatial_axes(mesh)) else None)
+        self.plane = pplane.for_mesh(self.mesh, les_grid.ny, les_grid.nx)
         self.core = gcm_core
         self.device = gcm_core.device
         self.grid = les_grid
@@ -153,11 +162,14 @@ class CoupledStepFn:
         CPU torch.Generator keyed by (seed + 1, step_idx), moved to the
         device: the same draws on every device (the JAX package folds
         step_idx into a jax.random key instead). Under a mesh every rank
-        draws the whole fleet's and keeps its block's, so a rank's
-        instances see the draws of a single process."""
+        draws the whole fleet's and keeps its block's (rows and plane), so
+        a rank's instances see the draws of a single process."""
         gen = generator(self.seed + 1, step_idx)
-        R = torch.randn((self.n, self.grid.ny, self.grid.nx), generator=gen)
-        return self._local(R).to(self.device)
+        R = self._local(torch.randn((self.n, self.grid.ny, self.grid.nx),
+                                    generator=gen))
+        if self.plane is not None:
+            R = self.plane.block(R)
+        return R.to(self.device)
 
     def _local(self, tree_):
         """This rank's rows of the whole fleet's tensors."""
@@ -183,8 +195,8 @@ class CoupledStepFn:
         prof = core.column_profiles(gcm_state, self.cols)
         conv = convert.convert_profiles(prof, self.zf)
         if first:
-            les_prof = self._gathered(ldiag.slab_profiles(self.grid,
-                                                          les_state))
+            les_prof = self._gathered(ldiag.slab_profiles(
+                self.grid, les_state, self.plane))
         else:
             les_prof = {k: torch.as_tensor(v, device=self.device)
                         for k, v in prev_prof.items()}
@@ -224,7 +236,7 @@ class CoupledStepFn:
                     fields["QT"], fields["THL"], fields["Qsat"],
                     forcing.ql_ref, les_state.pbf, dt,
                     R=self.nudge_noise(step_idx),
-                    constant_T=self.constant_T)
+                    constant_T=self.constant_T, plane=self.plane)
                 les_state = les_state._replace(qt=res.qt, thl=res.thl)
                 pre_diag.update(qt_alpha=res.alpha, qt_beta=res.beta,
                                 qt_std=res.qt_std)
@@ -245,7 +257,8 @@ class CoupledStepFn:
         return evolve_fleet(self.grid, self.phys, les_state, forcing,
                             dt_frac, serial, n_substeps=nn,
                             dt_max=self.dt_les, cfl=self.cfl,
-                            peclet=self.peclet, dt_min=self.dt_min)
+                            peclet=self.peclet, dt_min=self.dt_min,
+                            plane=self.plane)
 
     def _post(self, gcm_state, les_state, conv, prof, rain_last, n_sub,
               n_clamp, pre_diag, first):
@@ -258,7 +271,8 @@ class CoupledStepFn:
         core, grid = self.core, self.grid
         dt = core.cfg.dt
         rows = self._gathered(dict(
-            prof=ldiag.slab_profiles(grid, les_state), n_sub=n_sub,
+            prof=ldiag.slab_profiles(grid, les_state, self.plane),
+            n_sub=n_sub,
             n_clamp=n_clamp,
             **{k: pre_diag[k] for k in NUDGE_DIAG if k in pre_diag}))
         prof_les = rows.pop("prof")

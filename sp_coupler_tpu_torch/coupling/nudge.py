@@ -13,6 +13,12 @@ The noise R is one standard-normal horizontal field per instance, shared
 by its levels. The caller draws it (from a torch.Generator: the JAX
 package draws from jax.random keys, so the draws differ) or passes the
 JAX package's draw.
+
+On spatial blocks (``plane``, a ``parallel.plane.Plane``) the fields and
+R are this rank's block of the planes: every plane mean, each step of the
+root searches among them, is the plane's (an all_reduce over its ranks),
+the most saturated cell is the whole plane's, and the standard deviation
+is taken in two passes over the plane mean.
 """
 
 from typing import NamedTuple
@@ -20,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from sp_coupler_tpu_torch import constants as c
+from ..parallel.plane import reducer
 from ..utils import thermo
 
 BETA_MAX = 5.0
@@ -46,10 +53,11 @@ def _bisect(f, lo, hi, n=N_BISECT):
 
 
 def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
-                      constant_T=False, ql_significant=1e-9):
+                      constant_T=False, ql_significant=1e-9, plane=None):
     """qt/thl/qsat: [n, nz, ny, nx]; ql_ref/p: [n, nz]. R: the noise
     [n, ny, nx], or None to draw it from ``generator`` (on the
-    generator's device, then moved to qt's).
+    generator's device, then moved to qt's). plane: the fields and R are
+    this rank's block of the planes, or None.
 
     Level cases (spcpl.py:658-729):
     1. ql_ref significant -> bisect beta in [0, BETA_MAX] so that
@@ -64,9 +72,10 @@ def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
     if R is None:
         R = torch.randn((n, ny, nx), generator=generator,
                         device=generator.device, dtype=qt.dtype).to(qt.device)
-    R = (R - torch.mean(R, dim=(1, 2), keepdim=True))[:, None]
+    red = reducer(plane)
+    R = (R - red.mean(R, keepdim=True))[:, None]
     lev = lambda x: x[..., None, None]
-    mean = lambda x: torch.mean(x, dim=(2, 3))
+    mean = red.mean
     qt_mean = mean(qt)                                          # [n, nz]
     ql_mean = mean(torch.clamp_min(qt - qsat, 0.0))
     dqt = qt - lev(qt_mean)
@@ -84,10 +93,7 @@ def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
     beta_root = _bisect(f_mult, zeros, zeros + BETA_MAX)
     beta1 = torch.where(bracketed, beta_root, BETA_MAX)
 
-    flat = (qt - qsat).reshape(n, nz, -1)
-    imax = torch.argmax(flat, dim=-1, keepdim=True)
-    qt_max = torch.gather(qt.reshape(n, nz, -1), -1, imax)[..., 0]
-    qs_at_max = torch.gather(qsat.reshape(n, nz, -1), -1, imax)[..., 0]
+    qt_max, qs_at_max = red.argmax_take(qt - qsat, qt, qsat)
     denom = qt_max - qt_mean
     beta2 = (qs_at_max - qt_mean) / torch.where(torch.abs(denom) > 1e-12,
                                                 denom, 1e-12)
@@ -112,6 +118,6 @@ def variability_nudge(qt, thl, qsat, ql_ref, p, dt, R=None, generator=None,
     else:
         thl_new = thl
     alpha = torch.log(torch.clamp_min(beta, 1e-6)) / dt
-    qt_std = torch.std(qt_new, dim=(2, 3), unbiased=False)
+    qt_std = red.std(qt_new)
     return NudgeResult(qt=qt_new, thl=thl_new, beta=beta, alpha=alpha,
                        qt_std=qt_std)

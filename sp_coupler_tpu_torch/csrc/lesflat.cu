@@ -18,6 +18,13 @@
 // through the outer faces is zero; 1 / (rhobf dz) as the vertical factor.
 // The prescribed surface flux is not included: the caller adds it on plane 0.
 //
+// Halo mode (halo = h > 0, for a rank's block of a plane split over ranks):
+// u, v, w, K and s are the block padded with h >= 3 points a side by its
+// neighbours' values (parallel/plane.py), [.., ny + 2h, nx + 2h]; the
+// launch covers the block's ny x nx columns and out is unpadded. Only the
+// row/column tables change (stencil::plane_index); with halo 0 the kernel
+// is the whole-plane one, periodic in x and y.
+//
 // The bound: bytes. At 64x64x160 and n = 1 a field is 2.62 MB; with S = 4
 // the kernel reads 11 fields (u, v, w, 4 K, 4 s) and writes 4, 39.3 MB,
 // 11.7 us at 3.35 TB/s; ~140 float operations a point and scalar
@@ -69,8 +76,8 @@ using stencil::cp_async_commit;
 using stencil::cp_async_f32;
 using stencil::cp_async_wait_all;
 using stencil::face5;
+using stencil::plane_index;
 using stencil::ring;
-using stencil::wrapmod;
 
 constexpr int TX = 32, TY = 8;  // the tile of columns, ops/lesflat.py TX, TY
 constexpr int NT = TX * TY;     // one thread per column of the tile
@@ -99,11 +106,12 @@ struct Tile {
 };
 
 struct Flat {
-  // u, v [n, nz, P]; w [n, nz+1, P]; K, s [n, S, nz, P]; rhobf [n, nz];
-  // rhobh [n, nz+1]; out [n, S, nz, P]; P = ny * nx
+  // u, v [n, nz, PP]; w [n, nz+1, PP]; K, s [n, S, nz, PP]; rhobf [n, nz];
+  // rhobh [n, nz+1]; out [n, S, nz, P]; P = ny * nx, PP = (ny + 2 halo) x
+  // (nx + 2 halo)
   const float *u, *v, *w, *K, *s, *rhobf, *rhobh;
   float* out;
-  int S, nz, ny, nx, tz;
+  int S, nz, ny, nx, tz, halo;
   float dx, dy, dz;
 };
 
@@ -114,11 +122,12 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
   extern __shared__ float smem[];
   float* const fld = smem;             // [NSLOT][SLOT]
   float* const flx = fld + L::FLD;     // [SMAX][NFLUX][FL]
-  int* const rowoff = reinterpret_cast<int*>(flx + L::FLX);  // [SH] y*nx
+  int* const rowoff = reinterpret_cast<int*>(flx + L::FLX);  // [SH] y*pnx
   int* const colx = rowoff + L::SH;                          // [SW] x
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int S = a.S, nz = a.nz, ny = a.ny, nx = a.nx, P = ny * nx;
+  const int h = a.halo, pnx = nx + 2 * h, PP = (ny + 2 * h) * pnx;
   const int tiles_x = (nx + TX - 1) / TX;
   const int x0 = (blockIdx.x % tiles_x) * TX, y0 = (blockIdx.x / tiles_x) * TY;
   const int k0 = blockIdx.y * a.tz, k1 = min(nz, k0 + a.tz);
@@ -131,14 +140,16 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
   const int ck = (ty + 1) * KW + tx + 1;        // ... in a K, u, v, w plane
 
   for (int i = tid; i < L::SH; i += NT)
-    rowoff[i] = wrapmod(y0 + i - HALO, ny) * nx;
-  for (int i = tid; i < SW; i += NT) colx[i] = wrapmod(x0 + i - HALO, nx);
+    rowoff[i] = plane_index(y0 + i - HALO, ny, h) * pnx;
+  for (int i = tid; i < SW; i += NT) colx[i] = plane_index(x0 + i - HALO, nx, h);
   __syncthreads();
 
-  const size_t off = (size_t)b * nz * P;
-  const size_t offw = (size_t)b * (nz + 1) * P;
-  const size_t offs = ((size_t)b * S + j0) * nz * P;  // scalar j0 of b
-  const size_t NZP = (size_t)nz * P;                  // one scalar's field
+  const size_t off = (size_t)b * nz * PP;
+  const size_t offw = (size_t)b * (nz + 1) * PP;
+  const size_t offs = ((size_t)b * S + j0) * nz * PP;  // scalar j0 of b
+  const size_t NZP = (size_t)nz * PP;                  // one scalar's field
+  const size_t offo = ((size_t)b * S + j0) * nz * P;   // ... in out
+  const size_t NZPO = (size_t)nz * P;
   const float* const rhobf = a.rhobf + b * nz;
   const float* const rhobh = a.rhobh + b * (nz + 1);
   const float dz = a.dz;
@@ -151,9 +162,9 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
   auto load = [&](int j) {
     float* const dst = slot(j);
     const int lc = clampz(j, nz);
-    const size_t c = off + (size_t)lc * P;
-    const size_t cs_ = offs + (size_t)lc * P;
-    const size_t cw = offw + (size_t)clampz(j, nz + 1) * P;
+    const size_t c = off + (size_t)lc * PP;
+    const size_t cs_ = offs + (size_t)lc * PP;
+    const size_t cw = offw + (size_t)clampz(j, nz + 1) * PP;
     for (int i = tid; i < SPL; i += NT) {
       const int r = i / SW, q = i - r * SW;
       const int o = rowoff[r] + colx[q];
@@ -208,7 +219,7 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
   load(k0 + 1);
   float s_0[SMAX], K_0[SMAX], Fa[SMAX], Fd[SMAX];
   {
-    const size_t cm = offs + (size_t)clampz(k0 - 1, nz) * P +
+    const size_t cm = offs + (size_t)clampz(k0 - 1, nz) * PP +
                       rowoff[ty + HALO] + colx[tx + HALO];
     float s_m[SMAX], K_m[SMAX];
 #pragma unroll
@@ -248,7 +259,7 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
     const float irfdz = 1.0f / (rhobf[g] * dz);
     const float wr_hi = sp[L::W_OFF + ck] * rh_hi;
     float* const out =
-        a.out + offs + (size_t)g * P + (own ? (size_t)gy * nx + gx : 0);
+        a.out + offo + (size_t)g * P + (own ? (size_t)gy * nx + gx : 0);
 #pragma unroll
     for (int js = 0; js < SMAX; ++js) {
       if (js >= ns) break;
@@ -265,7 +276,7 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
       tend = tend - (F(X_D, 0, 1) - F(X_D, 0, 0)) * rdx;
       tend = tend - (F(Y_D, 1, 0) - F(Y_D, 0, 0)) * rdy;
       tend = tend - (Fd_hi - Fd[js]) * irfdz;
-      if (own) out[js * NZP] = tend;
+      if (own) out[js * NZPO] = tend;
       s_0[js] = s_p;
       K_0[js] = K_p;
       Fa[js] = Fa_hi;
@@ -275,7 +286,8 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_scalars(Flat a) {
 }
 
 int launch(const Flat& a, int n, int smem, cudaStream_t stream) {
-  if (a.tz < 1 || a.S < 1 || smem < Tile::BYTES)
+  if (a.tz < 1 || a.S < 1 || smem < Tile::BYTES ||
+      (a.halo != 0 && a.halo < HALO))
     return (int)cudaErrorInvalidValue;
   static int allowed[stencil::MAX_DEVICES] = {};
   const cudaError_t e = stencil::allow_shared(k_scalars, smem, allowed);
@@ -293,20 +305,20 @@ extern "C" {
 int lesflat_tend(const float* u, const float* v, const float* w,
                  const float* K, const float* s, const float* rhobf,
                  const float* rhobh, float* out, int n, int S, int nz, int ny,
-                 int nx, int tz, int smem, float dx, float dy, float dz,
-                 cudaStream_t stream) {
-  return launch(Flat{u, v, w, K, s, rhobf, rhobh, out, S, nz, ny, nx, tz, dx,
-                     dy, dz},
+                 int nx, int tz, int smem, int halo, float dx, float dy,
+                 float dz, cudaStream_t stream) {
+  return launch(Flat{u, v, w, K, s, rhobf, rhobh, out, S, nz, ny, nx, tz,
+                     halo, dx, dy, dz},
                 n, smem, stream);
 }
 
 int advect_tend(const float* u, const float* v, const float* w,
                 const float* K, const float* s, const float* rhobf,
                 const float* rhobh, float* out, int n, int S, int nz, int ny,
-                int nx, int tz, int smem, float dx, float dy, float dz,
-                cudaStream_t stream) {
-  return launch(Flat{u, v, w, K, s, rhobf, rhobh, out, S, nz, ny, nx, tz, dx,
-                     dy, dz},
+                int nx, int tz, int smem, int halo, float dx, float dy,
+                float dz, cudaStream_t stream) {
+  return launch(Flat{u, v, w, K, s, rhobf, rhobh, out, S, nz, ny, nx, tz,
+                     halo, dx, dy, dz},
                 n, smem, stream);
 }
 

@@ -16,6 +16,13 @@
 // vertical diffusive flux zeroed at cells 0 and nz-1 (masks fm, fm_m1);
 // dw at face 0 zeroed (mask m0) and dw at face nz written as 0.
 //
+// Halo mode (halo = h > 0, for a rank's block of a plane split over ranks):
+// u, v, w and Km are the block padded with h >= 3 points a side by its
+// neighbours' values (parallel/plane.py), [.., ny + 2h, nx + 2h]; the
+// launch covers the block's ny x nx columns and du, dv, dw are unpadded.
+// Only the row/column tables change (stencil::plane_index); with halo 0
+// the kernel is the whole-plane one, periodic in x and y.
+//
 // The bound: bytes. At 64x64x160 and n = 1 a field is 2.62 MB; the kernel
 // reads 4 fields (u, v, w, Km) and writes 3, 18.4 MB, 5.5 us at 3.35 TB/s;
 // ~230 float operations a point (chip_smoke.py, KERNEL_OPS) take 4.5 us
@@ -66,8 +73,8 @@ using stencil::clampz;
 using stencil::cp_async_commit;
 using stencil::cp_async_f32;
 using stencil::cp_async_wait_all;
+using stencil::plane_index;
 using stencil::ring;
-using stencil::wrapmod;
 
 constexpr int TX = 32, TY = 8;  // the tile of columns, ops/lesmom.py TX, TY
 constexpr int NT = TX * TY;     // one thread per column of the tile
@@ -97,11 +104,12 @@ struct Tile {
 static_assert(Tile::BYTES <= 48 * 1024, "beyond the default allowance");
 
 struct Mom {
-  // u, v, Km [n, nz, P]; w [n, nz+1, P]; rhobf [n, nz]; rhobh [n, nz+1];
-  // du, dv [n, nz, P]; dw [n, nz+1, P]; P = ny * nx
+  // u, v, Km [n, nz, PP]; w [n, nz+1, PP]; rhobf [n, nz]; rhobh [n, nz+1];
+  // du, dv [n, nz, P]; dw [n, nz+1, P]; P = ny * nx, PP = (ny + 2 halo) x
+  // (nx + 2 halo)
   const float *u, *v, *w, *Km, *rhobf, *rhobh;
   float *du, *dv, *dw;
-  int nz, ny, nx, tz;
+  int nz, ny, nx, tz, halo;
   float dx, dy, dz;
 };
 
@@ -112,11 +120,12 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
   float* const fld = smem;            // [NSLOT][NF][PL]
   float* const kfr = fld + L::FLD;    // [2][PL]
   float* const flx = kfr + L::KF;     // [NFLUX][FL]
-  int* const rowoff = reinterpret_cast<int*>(flx + L::FLX);  // [H] y*nx
+  int* const rowoff = reinterpret_cast<int*>(flx + L::FLX);  // [H] y*pnx
   int* const colx = rowoff + L::H;                           // [W] x
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int nz = a.nz, ny = a.ny, nx = a.nx, P = ny * nx;
+  const int h = a.halo, pnx = nx + 2 * h, PP = (ny + 2 * h) * pnx;
   const int tiles_x = (nx + TX - 1) / TX;
   const int x0 = (blockIdx.x % tiles_x) * TX, y0 = (blockIdx.x / tiles_x) * TY;
   const int k0 = blockIdx.y * a.tz, k1 = min(nz, k0 + a.tz);
@@ -125,12 +134,13 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
   const bool own = gx < nx && gy < ny;  // the column is on the grid
   const int ci = (ty + 1) * W + tx + 1;  // the column in a plane
 
-  for (int i = tid; i < L::H; i += NT) rowoff[i] = wrapmod(y0 + i - 1, ny) * nx;
-  for (int i = tid; i < W; i += NT) colx[i] = wrapmod(x0 + i - 1, nx);
+  for (int i = tid; i < L::H; i += NT)
+    rowoff[i] = plane_index(y0 + i - 1, ny, h) * pnx;
+  for (int i = tid; i < W; i += NT) colx[i] = plane_index(x0 + i - 1, nx, h);
   __syncthreads();
 
-  const size_t off = (size_t)b * nz * P;
-  const size_t offw = (size_t)b * (nz + 1) * P;
+  const size_t off = (size_t)b * nz * PP;
+  const size_t offw = (size_t)b * (nz + 1) * PP;
   const float* const rhobf = a.rhobf + b * nz;
   const float* const rhobh = a.rhobh + b * (nz + 1);
   const float dz = a.dz;
@@ -142,8 +152,8 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
   // [0, nz]
   auto load = [&](int j) {
     float* const dst = plane(j);
-    const size_t c = off + (size_t)clampz(j, nz) * P;
-    const size_t cw = offw + (size_t)clampz(j, nz + 1) * P;
+    const size_t c = off + (size_t)clampz(j, nz) * PP;
+    const size_t cw = offw + (size_t)clampz(j, nz + 1) * PP;
     for (int i = tid; i < PL; i += NT) {
       const int r = i / W, q = i - r * W;
       const int o = rowoff[r] + colx[q];
@@ -204,7 +214,7 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
   load(k0 - 1);
   load(k0);
   load(k0 + 1);
-  const float K_mm = a.Km[off + (size_t)clampz(k0 - 2, nz) * P + rowoff[ty + 1] +
+  const float K_mm = a.Km[off + (size_t)clampz(k0 - 2, nz) * PP + rowoff[ty + 1] +
                           colx[tx + 1]];
   cp_async_wait_all();
   __syncthreads();
@@ -296,8 +306,9 @@ __global__ void __launch_bounds__(NT, RESIDENT) k_momentum(Mom a) {
     dw = m0 * dw;
 
     if (own) {
-      const size_t o = off + (size_t)g * P + (size_t)gy * nx + gx;
-      const size_t ow = offw + (size_t)g * P + (size_t)gy * nx + gx;
+      const size_t o = (size_t)b * nz * P + (size_t)g * P + (size_t)gy * nx + gx;
+      const size_t ow =
+          (size_t)b * (nz + 1) * P + (size_t)g * P + (size_t)gy * nx + gx;
       a.du[o] = du;
       a.dv[o] = dv;
       a.dw[ow] = dw;
@@ -323,10 +334,12 @@ extern "C" int lesmom_tend(const float* u, const float* v, const float* w,
                            const float* Km, const float* rhobf,
                            const float* rhobh, float* du, float* dv, float* dw,
                            int n, int nz, int ny, int nx, int tz, int smem,
-                           float dx, float dy, float dz, cudaStream_t stream) {
-  if (tz < 1 || smem < Tile::BYTES || smem > 48 * 1024)
+                           int halo, float dx, float dy, float dz,
+                           cudaStream_t stream) {
+  if (tz < 1 || smem < Tile::BYTES || smem > 48 * 1024 ||
+      (halo != 0 && halo < 3))
     return (int)cudaErrorInvalidValue;
-  const Mom a{u, v, w, Km, rhobf, rhobh, du, dv, dw, nz, ny, nx, tz,
+  const Mom a{u, v, w, Km, rhobf, rhobh, du, dv, dw, nz, ny, nx, tz, halo,
               dx, dy, dz};
   const dim3 grid(((nx + TX - 1) / TX) * ((ny + TY - 1) / TY),
                   (nz + tz - 1) / tz, n);

@@ -59,8 +59,23 @@
 // value, log(0) = -inf -> exp(b * -inf) = 0 in the fall speed (b > 0 is
 // checked by the wrapper), and the clips of the axpy.
 //
-// Plain C interface for ctypes: lesstage_stage(const StageArgs*, stream)
-// returns the first CUDA error of the two launches (0 if none).
+// Halo mode (StageArgs.halo = h > 0, for a rank's block of a plane split
+// over ranks): the current fields are the block padded with h >= 3 points a
+// side by its neighbours' values (parallel/plane.py), [.., ny + 2h, nx + 2h];
+// the base fields, the outputs and the launch are the block's ny x nx
+// columns. The row/column tables of k_stage address the padded block
+// (stencil::plane_index) instead of wrapping; kmax takes the block's
+// points. k_means sums over the block and, with StageArgs.sums set, writes
+// its float64 sums (slots 0-4 per level; <u*^2> and the rain flux in slots
+// 5 and 6 of level 0) instead of the means: the wrapper sums them over the
+// plane's ranks, divides by the whole plane's points, fills means and aux,
+// and only then launches k_stage. The Exner slots 5-6 of means are a
+// level's own and are written by k_means in both modes.
+//
+// Plain C interface for ctypes, each returning the first CUDA error of its
+// launches (0 if none): lesstage_stage(const StageArgs*, stream) runs both
+// launches (the whole plane); lesstage_means and lesstage_apply run
+// k_means and k_stage alone (halo mode, with the reduction between them).
 
 #include <cuda_runtime.h>
 
@@ -75,7 +90,7 @@ using stencil::cp_async_wait_all;
 using stencil::face5;
 using stencil::ring;
 using stencil::wrap;
-using stencil::wrapmod;
+using stencil::plane_index;
 
 // physical constants, sp_coupler_tpu/constants.py (double, rounded once)
 constexpr double D_PREF0 = 1.0e5, D_RD = 287.04, D_RV = 461.5, D_CP = 1004.0;
@@ -113,14 +128,16 @@ extern "C" {
 struct StageArgs {
   int n, nz, ny, nx, qt_mode, n_sat_iter;
   // launch geometry (ops/lesstage.py::stage_geometry): tile, levels per
-  // z-chunk, dynamic shared-memory bytes of a k_stage block
-  int tx, ty, tz, smem;
+  // z-chunk, dynamic shared-memory bytes of a k_stage block; the halo of
+  // the current fields (0: the whole periodic plane)
+  int tx, ty, tz, smem, halo;
   float dx, dy, dz, fdt, f_cor, sponge_depth, sponge_tau, zs, delta;
   float nc_fac, auto_k, accr_k, evap_tau, sed_a, sed_b, ice_tau, ice_qi0;
   float sed_ai, sed_bi;
-  // current state: [n, nz, P] cells, w [n, nz+1, P] faces
+  // current state: [n, nz, PP] cells, w [n, nz+1, PP] faces; PP = P =
+  // ny * nx, or (ny + 2 halo) * (nx + 2 halo) in halo mode
   const float *u, *v, *w, *thl, *qt, *qr, *e12;
-  // base state of the RK update, same layouts
+  // base state of the RK update: [n, nz, P] cells, w [n, nz+1, P]
   const float *ub, *vb, *wb, *thlb, *qtb, *qrb, *e12b;
   // profiles [n, nz] (rhobh [n, nz+1]) and per-instance scalars [n]
   const float *pbf, *rhobf, *rhobh, *f_u, *f_v, *f_thl, *f_qt;
@@ -130,6 +147,8 @@ struct StageArgs {
   // scratch [n, 7, nz]: plane means of thv, thl, qt, u, v; then
   // ex = (p/p0)^(Rd/cp) and iex = (p/p0)^(-Rd/cp) of each level
   float *means;
+  // halo mode: k_means's float64 sums [n, 7, nz] (null: it writes means)
+  double *sums;
 };
 
 }  // extern "C"
@@ -210,8 +229,9 @@ __device__ __forceinline__ void block_sum(double (&v)[NV], double* sh) {
 __global__ void __launch_bounds__(NT_MEANS) k_means(StageArgs a) {
   __shared__ double sh[7 * 32];
   const int k = blockIdx.x, b = blockIdx.y;
-  const int nz = a.nz, nx = a.nx, P = a.ny * a.nx;
-  const size_t base = ((size_t)b * nz + k) * P;
+  const int nz = a.nz, nx = a.nx, P = a.ny * a.nx, h = a.halo;
+  const int pnx = nx + 2 * h;
+  const size_t base = ((size_t)b * nz + k) * ((size_t)(a.ny + 2 * h) * pnx);
   const float p = a.pbf[b * nz + k];
   const float rf = a.rhobf[b * nz + k];
   const float ex = powf(p / PREF0, RD_CP), iex = powf(p / PREF0, MRD_CP);
@@ -222,20 +242,24 @@ __global__ void __launch_bounds__(NT_MEANS) k_means(StageArgs a) {
   }
   double s[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (int i = threadIdx.x; i < P; i += NT_MEANS) {
-    const float thl = a.thl[base + i], qt = a.qt[base + i];
-    const float qr = a.qr[base + i];
+    const int y = i / nx, x = i - y * nx;
+    // the point, and its neighbours at x + 1 and y + 1: in the padded
+    // block's halo, or the periodic plane's own
+    const size_t o = h ? base + (size_t)(y + h) * pnx + x + h : base + i;
+    const size_t ox = h ? o + 1 : base + y * nx + wrap(x + 1, nx);
+    const size_t oy = h ? o + pnx : base + wrap(y + 1, a.ny) * nx + x;
+    const float thl = a.thl[o], qt = a.qt[o];
+    const float qr = a.qr[o];
     float T, ql, qs;
     sat_adjust(thl, qt, p, ex, a.n_sat_iter, T, ql, qs);
     s[0] += T * iex * (1.0f + EPS_I * (qt - ql) - ql - qr);
     s[1] += thl;
     s[2] += qt;
-    s[3] += a.u[base + i];
-    s[4] += a.v[base + i];
+    s[3] += a.u[o];
+    s[4] += a.v[o];
     if (k == 0) {
-      const int y = i / nx, x = i - y * nx;
-      const float u1 = 0.5f * (a.u[base + i] + a.u[base + y * nx + wrap(x + 1, nx)]);
-      const float v1 = 0.5f * (a.v[base + i] +
-                               a.v[base + wrap(y + 1, a.ny) * nx + x]);
+      const float u1 = 0.5f * (a.u[o] + a.u[ox]);
+      const float v1 = 0.5f * (a.v[o] + a.v[oy]);
       const float U1 = sqrtf(u1 * u1 + v1 * v1 + 1e-4f);
       s[5] += cd * (U1 * U1);
       s[6] += sed_flux(a, rf, qr, T);
@@ -244,10 +268,20 @@ __global__ void __launch_bounds__(NT_MEANS) k_means(StageArgs a) {
   block_sum<7>(s, sh);
   if (threadIdx.x == 0) {
     float* const m = a.means + (size_t)b * 7 * nz + k;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) m[j * nz] = (float)(s[j] / P);
     m[5 * nz] = ex;
     m[6 * nz] = iex;
+    if (a.sums) {  // halo mode: the block's sums, reduced by the wrapper
+      double* const d = a.sums + (size_t)b * 7 * nz + k;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) d[j * nz] = s[j];
+      if (k == 0) {
+        d[5 * nz] = s[5];
+        d[6 * nz] = s[6];
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 5; ++j) m[j * nz] = (float)(s[j] / P);
     if (k == 0) {
       a.aux[b * 3 + 1] = (float)(s[5] / P);
       a.aux[b * 3 + 2] = (float)(s[6] / P);
@@ -287,11 +321,12 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
   extern __shared__ float smem[];
   float* const fld = smem;                  // [NSLOT][NF][PL]
   float* const clo = smem + L::FLD;         // [NCSLOT][3][CPL]
-  int* const rowoff = reinterpret_cast<int*>(clo + L::CLO);  // [H] y*nx
+  int* const rowoff = reinterpret_cast<int*>(clo + L::CLO);  // [H] y*pnx
   int* const colx = rowoff + L::H;                           // [W] x
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int nz = a.nz, ny = a.ny, nx = a.nx, P = ny * nx;
+  const int h = a.halo, pnx = nx + 2 * h, PP = (ny + 2 * h) * pnx;
   const int tiles_x = (nx + TX - 1) / TX;
   const int x0 = (blockIdx.x % tiles_x) * TX, y0 = (blockIdx.x / tiles_x) * TY;
   const int k0 = blockIdx.y * a.tz, k1 = min(nz, k0 + a.tz);
@@ -301,12 +336,15 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
   const int ci = (ty + HALO) * W + tx + HALO;  // the column in a field plane
   const int cc = (ty + 1) * CW + tx + 1;       // ... in a closure plane
 
-  for (int i = tid; i < L::H; i += NT) rowoff[i] = wrapmod(y0 + i - HALO, ny) * nx;
-  for (int i = tid; i < W; i += NT) colx[i] = wrapmod(x0 + i - HALO, nx);
+  for (int i = tid; i < L::H; i += NT)
+    rowoff[i] = plane_index(y0 + i - HALO, ny, h) * pnx;
+  for (int i = tid; i < W; i += NT) colx[i] = plane_index(x0 + i - HALO, nx, h);
   __syncthreads();
 
-  const size_t off = (size_t)b * nz * P;
-  const size_t offw = (size_t)b * (nz + 1) * P;
+  const size_t off = (size_t)b * nz * PP;        // current fields (padded)
+  const size_t offw = (size_t)b * (nz + 1) * PP;
+  const size_t offo = (size_t)b * nz * P;        // base fields and outputs
+  const size_t offwo = (size_t)b * (nz + 1) * P;
   const float* const pbf = a.pbf + b * nz;
   const float* const rhobf = a.rhobf + b * nz;
   const float* const rhobh = a.rhobh + b * (nz + 1);
@@ -320,9 +358,9 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
   // are face 0, faces at and above nz are zero (rigid lid)
   auto load = [&](int j) {
     float* const dst = fld + ring(j, NSLOT) * NF * PL;
-    const size_t c = off + (size_t)clampz(j, nz) * P;
+    const size_t c = off + (size_t)clampz(j, nz) * PP;
     const bool wzero = j >= nz;
-    const size_t cw = offw + (size_t)(j < 0 ? 0 : j) * P;
+    const size_t cw = offw + (size_t)(j < 0 ? 0 : j) * PP;
     for (int i = tid; i < PL; i += NT) {
       const int r = i / W, q = i - r * W;
       const int o = rowoff[r] + colx[q];
@@ -688,8 +726,8 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
 
     // ---- RK axpy + clips ----
     if (own) {
-      const size_t o = off + (size_t)g * P + (size_t)gy * nx + gx;
-      const size_t ow = offw + (size_t)g * P + (size_t)gy * nx + gx;
+      const size_t o = offo + (size_t)g * P + (size_t)gy * nx + gx;
+      const size_t ow = offwo + (size_t)g * P + (size_t)gy * nx + gx;
       a.un[o] = a.ub[o] + fstep * du;
       a.vn[o] = a.vb[o] + fstep * dv;
       a.wn[o] = a.wb[ow] + fstep * dw;
@@ -709,7 +747,8 @@ __global__ void __launch_bounds__(TX * TY, 2) k_stage(StageArgs a) {
 }
 
 cudaError_t launch_stage(const StageArgs& a, cudaStream_t stream) {
-  if (a.tx != TX || a.ty != TY || a.smem < Tile::BYTES || a.tz < 1)
+  if (a.tx != TX || a.ty != TY || a.smem < Tile::BYTES || a.tz < 1 ||
+      (a.halo != 0 && a.halo < HALO))
     return cudaErrorInvalidValue;
   static int allowed[stencil::MAX_DEVICES] = {};
   const cudaError_t e = stencil::allow_shared(k_stage, a.smem, allowed);
@@ -720,12 +759,26 @@ cudaError_t launch_stage(const StageArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_means(const StageArgs& a, cudaStream_t stream) {
+  if (a.halo != 0 && a.halo < HALO) return cudaErrorInvalidValue;
+  k_means<<<dim3(a.nz, a.n), NT_MEANS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lesstage_stage(const StageArgs* args, cudaStream_t stream) {
-  const StageArgs a = *args;
-  k_means<<<dim3(a.nz, a.n), NT_MEANS, 0, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
+  StageArgs a = *args;
+  a.sums = nullptr;
+  const cudaError_t e = launch_means(a, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_stage(a, stream);
+}
+
+extern "C" int lesstage_means(const StageArgs* args, cudaStream_t stream) {
+  return (int)launch_means(*args, stream);
+}
+
+extern "C" int lesstage_apply(const StageArgs* args, cudaStream_t stream) {
+  return (int)launch_stage(*args, stream);
 }

@@ -24,6 +24,17 @@ __device__ __forceinline__ int clampz(int k, int n) {
   return k < 0 ? 0 : (k >= n ? n - 1 : k);
 }
 
+// index of row or column i of the plane (i may lie off it): on the whole
+// periodic plane of n points (halo 0), its periodic image; on a block
+// padded with a halo of h >= 3 points a side by its neighbours' values
+// (the halo mode), its place in the padded array of n + 2h points,
+// clamped to it. A point of the block reads at most 3 points off it, so
+// only the columns of a tile beyond the block read clamped values, and no
+// output is written from them
+__device__ __forceinline__ int plane_index(int i, int n, int h) {
+  return h == 0 ? wrapmod(i, n) : clampz(i + h, n + 2 * h);
+}
+
 // slot of level j >= -m in a ring of m z-planes
 __device__ __forceinline__ int ring(int j, int m) { return (j + m) % m; }
 

@@ -10,9 +10,10 @@ package loads into the other. Resume reopens spifs.nc in append mode (the
 driver writes nothing on the first restarted step, splib.py:272-274).
 
 In a multi-process run the file holds the whole fleet: ``save`` gathers
-every rank's block (a collective: every rank calls it) and rank 0 writes;
-``load`` reads the file on every rank and keeps the rank's block. So a
-checkpoint resumes on any number of ranks.
+every rank's block (the planes over each plane's ranks, then the rows over
+the les slots; a collective: every rank calls it) and rank 0 writes;
+``load`` reads the file on every rank and keeps the rank's block of rows
+and planes. So a checkpoint resumes under any decomposition.
 """
 
 import json
@@ -38,15 +39,20 @@ def _flatten(tag, state):
             for i, x in enumerate(leaves)}
 
 
-def _unflatten(tag, data, template, rows=None):
+def _unflatten(tag, data, template, rows=None, plane=None):
     """template's tree with its leaves replaced by data's (their rows
-    rows, where given), in order: a tensor leaf becomes a tensor on its
-    device, others stay numpy."""
+    rows, where given, and of a leaf of 4 dims [n, nz(+1), ny, nx] the
+    block of plane, where given), in order: a tensor leaf becomes a tensor
+    on its device, others stay numpy."""
     leaves, spec = tree.flatten(template)
     new = []
     for i, leaf in enumerate(leaves):
         arr = data["%s_%d" % (tag, i)]
-        arr = np.array(arr if rows is None else arr[rows])
+        arr = arr if rows is None else arr[rows]
+        if plane is not None and arr.ndim == 4:
+            arr = arr[..., plane.y0:plane.y0 + plane.by,
+                      plane.x0:plane.x0 + plane.bx]
+        arr = np.array(arr)
         new.append(torch.as_tensor(arr, device=leaf.device)
                    if isinstance(leaf, torch.Tensor) else arr)
     return tree.unflatten(spec, iter(new))
@@ -71,8 +77,11 @@ def save(runner):
     if hasattr(runner.gcm, "state"):
         out.update(_flatten("gcm", runner.gcm.state))
     if getattr(runner.fleet, "state", None) is not None:
+        state = runner.fleet.state
+        if getattr(runner.fleet, "plane", None) is not None:
+            state = runner.fleet.plane.gather_fields(state)
         out.update(_flatten("les", shd.gather_rows(
-            runner.fleet.state, getattr(runner.fleet, "mesh", None),
+            state, getattr(runner.fleet, "mesh", None),
             getattr(runner.fleet, "n", 0))))
     if pmesh.rank() != 0:
         return      # the gather above is collective; rank 0 owns the file
@@ -95,9 +104,10 @@ def load(runner):
             runner.gcm.state = _unflatten("gcm", data, runner.gcm.state)
             runner.gcm._first = False
             runner.gcm.step_count = int(meta.get("gcm_step", 0))
+        plane = getattr(runner.fleet, "plane", None)
         if getattr(runner.fleet, "state", None) is not None:
             runner.fleet.state = _unflatten("les", data, runner.fleet.state,
-                                            _fleet_rows(runner.fleet))
+                                            _fleet_rows(runner.fleet), plane)
         elif hasattr(runner.fleet, "init_states") and any(
                 k.startswith("les_") for k in data.files):
             # the checkpoint holds a fleet state the fleet does not have
@@ -107,7 +117,7 @@ def load(runner):
             runner.fleet.init_states(z, z, z + 300.0, z + 1e-3,
                                      np.full(runner.fleet.n, 1e5, np.float32))
             runner.fleet.state = _unflatten("les", data, runner.fleet.state,
-                                            _fleet_rows(runner.fleet))
+                                            _fleet_rows(runner.fleet), plane)
         runner.fleet.time = meta["fleet_time"]
         if meta.get("has_profiles") and runner.prev_profiles is None:
             runner.prev_profiles = _unflatten(

@@ -8,6 +8,7 @@ fleet at once.
 import torch
 
 from sp_coupler_tpu_torch import constants as c
+from ...parallel.plane import reducer
 from ...utils import interp as _interp
 from . import micro, step as _step
 from .advect import sp, col, X, Y
@@ -15,12 +16,21 @@ from .advect import sp, col, X, Y
 QL_CLOUD_THRESHOLD = 1e-8  # kg/kg; a cell with more condensate is "cloudy"
 
 
-def slab_profiles(grid, state):
-    """Dict of [n, nz] slab-mean profiles + [n] scalars."""
+def slab_profiles(grid, state, plane=None):
+    """Dict of [n, nz] slab-mean profiles + [n] scalars; plane: this
+    rank's block of the planes (``parallel.plane.Plane``), whose means
+    and standard deviation are over the whole plane, or None."""
+    red = reducer(plane)
     T, ql, qs, thv = _step.thermodynamics(state)
-    mean = lambda f: torch.mean(f, dim=(Y, X))
-    uc = 0.5 * (state.u + sp(state.u, X))
-    vc = 0.5 * (state.v + sp(state.v, Y))
+    mean = red.mean
+    if plane is None:
+        uc = 0.5 * (state.u + sp(state.u, X))
+        vc = 0.5 * (state.v + sp(state.v, Y))
+    else:   # the centred winds need the next block's u and v
+        pad = plane.padded(1)
+        u, v = plane.halo([state.u, state.v], 1)
+        uc = pad.crop(0.5 * (u + sp(u, X)))
+        vc = pad.crop(0.5 * (v + sp(v, Y)))
     ql_w, ql_i = micro.ice_split(T, ql)
     Tv = T * (1.0 + (c.rv / c.rd - 1.0) * (state.qt - ql) - ql)
     rhof = mean(col(state.pbf) / (c.rd * Tv))
@@ -40,7 +50,7 @@ def slab_profiles(grid, state):
         "PS": state.ps,
         "Rain": state.rain,
         "cloudfrac_z": mean((ql > QL_CLOUD_THRESHOLD).to(state.qt.dtype)),
-        "qt_std": torch.std(state.qt, dim=(Y, X), unbiased=False),
+        "qt_std": red.std(state.qt),
     }
 
 

@@ -10,6 +10,7 @@ from typing import NamedTuple
 import torch
 
 from sp_coupler_tpu_torch import constants as c
+from ...parallel.plane import reducer
 from ...utils import thermo
 
 
@@ -26,11 +27,13 @@ class MicroParams(NamedTuple):
     sed_bi: float = 0.16     # snow fall speed exponent
 
 
-def rain_tendencies(grid, params, rhobf, T, p, qv, ql, qr, dt):
+def rain_tendencies(grid, params, rhobf, T, p, qv, ql, qr, dt, red=None):
     """(dqt/dt, dqr/dt, dthl/dt, surface_rain_flux [n]).
 
     ``dt`` is the substep length, [n, 1, 1, 1] or a scalar; ``p`` and
-    ``rhobf`` broadcast against the fields.
+    ``rhobf`` broadcast against the fields. ``red``: the plane's
+    reductions (``parallel.plane``) for the surface mean; None: the whole
+    plane in these tensors.
     """
     nc_cm3 = params.nc0 * 1e-6
     fi = thermo.ice_fraction(T)
@@ -58,7 +61,7 @@ def rain_tendencies(grid, params, rhobf, T, p, qv, ql, qr, dt):
                            dim=1)
     dqr_sed = (flux_above - flux) / (rho * grid.dz)
     dqr_total = torch.maximum(dqr + dqr_sed, -torch.clamp_min(qr, 0.0) / dt)
-    surf_flux = torch.mean(flux[:, 0], dim=(1, 2))
+    surf_flux = reducer(red).mean(flux[:, 0])
     return dqt, dqr_total, dthl, surf_flux
 
 

@@ -3,10 +3,13 @@
 Port of ``sp_coupler_tpu/models/les/model.py``. The fleet is one LESState
 with a leading instance axis on one device; evolve, profiles and fields
 run on the whole fleet at once (big instances are stepped one after the
-other, ``step.map_fleet``). With a les mesh (``shard``) the state is this
-rank's block of the fleet: evolve runs on the block, and the profile,
-field and cloud-fraction getters gather the whole fleet's rows on every
-rank (collectives: every rank calls them in the same order). LESInstance is the reference's per-instance
+other, ``step.map_fleet``). With a mesh (``shard``) the state is this
+rank's block of the fleet: its les slot's instances and, where the mesh
+splits the plane (x, y), its block of their planes (``plane``). Evolve
+runs on the block, the ranks of a plane together; the profile, field and
+cloud-fraction getters gather the whole fleet's rows (and the fields'
+whole planes) on every rank (collectives: every rank calls them in the
+same order). LESInstance is the reference's per-instance
 duck-typed API (get_profile_U, get_cloudfraction, ... — spcpl.py:274-385,
 747-767) over the fleet, on host numpy copies.
 """
@@ -20,7 +23,7 @@ from sp_coupler_tpu_torch import default_device, generator
 from ...interop import to_numpy
 from . import state as lstate, step as lstep, diag as ldiag
 from .state import LESForcing
-from ...parallel import sharding as shd
+from ...parallel import plane as pplane, sharding as shd
 
 log = logging.getLogger(__name__)
 
@@ -47,14 +50,20 @@ class LESFleet:
         self.state = None              # fleet LESState after init_states
         self.time = 0.0        # fleet clock (s); all instances share it
         self.mesh = None       # les mesh: state holds this rank's block
+        self.plane = None      # this rank's block of the planes, or None
         self.positions = list(range(n_les))   # the instances state holds
 
     def shard(self, mesh):
         """Hold this rank's block of the fleet from now on (the state's
-        too, where there is one already)."""
+        too, where there is one already): its slot's rows and its block of
+        their planes. Raises ValueError where the mesh does not divide the
+        plane."""
+        plane = pplane.for_mesh(mesh, self.grid.ny, self.grid.nx)
         if self.state is not None:
             self.state = shd.local_rows(self.state, mesh, self.n)
-        self.mesh = mesh
+            if plane is not None:
+                self.state = plane.block_fields(self.state)
+        self.mesh, self.plane = mesh, plane
         self.positions = (list(range(self.n)) if mesh is None
                           else mesh.positions(self.n))
 
@@ -99,8 +108,9 @@ class LESFleet:
         package folds i into a jax.random key; the draws differ). The
         state is built on the CPU and moved to the device once, so a seed
         gives bitwise the same start on every device. Under a mesh only
-        this rank's instances are built: their rows equal a single
-        process's.
+        this rank's instances are built, each drawn for its whole plane
+        and cut to this rank's block: a seed gives the same start under
+        any decomposition.
         """
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
         u, v, thl, qt = t(u), t(v), t(thl), t(qt)
@@ -111,6 +121,8 @@ class LESFleet:
                  for i in self.positions]
         self.state = lstate.LESState(*[torch.cat(f, dim=0).to(self.device)
                                        for f in zip(*parts)])
+        if self.plane is not None:
+            self.state = self.plane.block_fields(self.state)
         self.time = float(start_time)
         self.state = self.state._replace(time=torch.full(
             (len(self.positions),), start_time, dtype=torch.float32,
@@ -127,9 +139,10 @@ class LESFleet:
         forcing = shd.local_rows(forcing, self.mesh, self.n)
         te = torch.full((len(self.positions),), float(t_end),
                         dtype=torch.float32, device=self.device)
+        pl = self.plane
         if nn:
             def one(s, f):
-                s = lstep.evolve(g, p, s, f, span / nn, nn)
+                s = lstep.evolve(g, p, s, f, span / nn, nn, plane=pl)
                 z = torch.zeros(s.u.shape[0], dtype=torch.int32,
                                 device=s.u.device)
                 return s, z + nn, z
@@ -137,7 +150,8 @@ class LESFleet:
             def one(s, f):
                 return lstep.evolve_adaptive(
                     g, p, s, f, te[:s.u.shape[0]], dt_max=self.dt,
-                    cfl=self.cfl, peclet=self.peclet, dt_min=self.dt_min)
+                    cfl=self.cfl, peclet=self.peclet, dt_min=self.dt_min,
+                    plane=pl)
         self.state, n_sub, n_clamp = lstep.map_fleet(one, self.state, forcing,
                                                      self.serial)
         counts = shd.gather_rows(dict(n=n_sub, c=n_clamp), self.mesh, self.n)
@@ -153,14 +167,21 @@ class LESFleet:
 
     def get_profiles(self):
         """Slab means: dict of [n, nz] tensors (+ scalars [n])."""
-        return shd.gather_rows(ldiag.slab_profiles(self.grid, self.state),
+        return shd.gather_rows(ldiag.slab_profiles(self.grid, self.state,
+                                                   self.plane),
                                self.mesh, self.n)
+
+    def whole_planes(self, tree_):
+        """tree_ of this rank's fields with their whole planes (gathered
+        over the plane's ranks where the mesh splits it)."""
+        return tree_ if self.plane is None else \
+            self.plane.gather_fields(tree_)
 
     def get_fields(self):
         """3-D diagnostic fields [n, nz, ny, nx] for the variability
-        nudge."""
-        return shd.gather_rows(ldiag.fields_3d(self.state), self.mesh,
-                               self.n)
+        nudge, whole planes of the whole fleet."""
+        return shd.gather_rows(self.whole_planes(ldiag.fields_3d(
+            self.state)), self.mesh, self.n)
 
     def cloud_fractions(self, gcm_Zh):
         """A_d on GCM layers for every instance; gcm_Zh [n, L+1]
@@ -174,8 +195,10 @@ class LESFleet:
     def set_qt_thl(self, qt, thl):
         """Write back the whole fleet's 3-D fields (variability nudge,
         spcpl.py:732-734); a rank keeps its block's."""
-        self.state = self.state._replace(**shd.local_rows(
-            dict(qt=qt, thl=thl), self.mesh, self.n))
+        new = shd.local_rows(dict(qt=qt, thl=thl), self.mesh, self.n)
+        if self.plane is not None:
+            new = self.plane.block_fields(new)
+        self.state = self.state._replace(**new)
 
     def write_restart(self):
         pass  # the driver's io.restart checkpoints the fleet state

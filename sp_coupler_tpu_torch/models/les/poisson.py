@@ -8,6 +8,15 @@ matmuls; the vertical operator is symmetrized and eigen-factorized once
 per evolve call (``torch.linalg.eigh``); one iterative-refinement pass
 polishes the float32 residual.
 
+On spatial blocks (``project(..., plane=)``, a ``parallel.plane.Plane``)
+each rank computes its block of the divergence (one exchange of u and v
+for their next block's edge), the ranks of the plane gather it, and every
+rank solves the whole plane with the same solver, so the sums are those
+of one process on the same right-hand side; a rank keeps its block of phi
+plus one point of halo for the gradient. The solve is repeated on every
+rank of a plane (a transposed, pencil DFT that splits the modes over
+ranks is later work).
+
 The JAX package needs float32-accurate products here (its TPU default,
 bf16, leaves an unusable residual). The port keeps TF32 off for the same
 reason (set in ``sp_coupler_tpu_torch/__init__.py``); the products stay
@@ -165,21 +174,37 @@ def solve_pressure_thomas(grid, rhobf, rhobh, rhs):
     return torch.fft.irfft2(phat, s=(grid.ny, grid.nx), dim=(Y, X))
 
 
-def project(grid, rhobf, rhobh, u, v, w, dt, solver=None, method="eigen"):
+def project(grid, rhobf, rhobh, u, v, w, dt, solver=None, method="eigen",
+            plane=None):
     """Project (u, v, w) onto the divergence-free subspace.
 
     ``dt``: the stage length, a python float or [n, 1, 1, 1] tensor.
     ``method``: "eigen" (the all-matmul solve, ``solver`` prebuilt on the
-    hot path) or "thomas" (the rfft2 + Thomas reference).
-    Returns corrected velocities and the pressure potential phi.
+    hot path) or "thomas" (the rfft2 + Thomas reference). ``plane``: the
+    velocities are this rank's block of the planes (the solve runs on the
+    gathered whole plane), or None.
+    Returns corrected velocities and the pressure potential phi (the
+    block's, with a plane).
     """
-    div = divergence(grid, rhobf, rhobh, u, v, w) / dt
+    if plane is None:
+        div = divergence(grid, rhobf, rhobh, u, v, w) / dt
+    else:
+        pu, pv = plane.halo([u, v], 1)
+        pw = torch.nn.functional.pad(w, (1, 1, 1, 1))
+        div = plane.gather(plane.padded(1).crop(
+            divergence(grid, rhobf, rhobh, pu, pv, pw)) / dt)
     if method == "thomas":
         phi = solve_pressure_thomas(grid, rhobf, rhobh, div)
     else:
         phi = solve_pressure(grid, rhobf, rhobh, div, solver=solver)
-    u = u - dt * (phi - torch.roll(phi, 1, X)) / grid.dx
-    v = v - dt * (phi - torch.roll(phi, 1, Y)) / grid.dy
+    if plane is None:
+        phi_m_x, phi_m_y = torch.roll(phi, 1, X), torch.roll(phi, 1, Y)
+    else:       # the block of phi, and phi one point back in x and y
+        ph = plane.block(phi, 1)
+        phi = ph[..., 1:-1, 1:-1]
+        phi_m_x, phi_m_y = ph[..., 1:-1, :-2], ph[..., :-2, 1:-1]
+    u = u - dt * (phi - phi_m_x) / grid.dx
+    v = v - dt * (phi - phi_m_y) / grid.dy
     dphidz = (phi[:, 1:] - phi[:, :-1]) / grid.dz
     zero = torch.zeros_like(w[:, :1])
     w = w - dt * torch.cat([zero, dphidz, zero], dim=Z)

@@ -10,6 +10,7 @@ surface drag law. Fields are [n, nz, ny, nx].
 import torch
 
 from sp_coupler_tpu_torch import constants as c
+from ...parallel.plane import reducer
 from .advect import sp, sm, col, X, Y, Z
 
 KAPPA = 0.4          # von Karman
@@ -70,10 +71,11 @@ def strain_and_stability(grid, state, thv, thv_m=None):
     return S2, N2.expand(S2.shape)
 
 
-def eddy_viscosity(grid, state, thv):
+def eddy_viscosity(grid, state, thv, thv_m=None):
     """Smagorinsky-Lilly (Km, Kh) with the Richardson stability factor and
-    the wall-limited mixing length; takes its own slab mean of thv."""
-    S2, N2 = strain_and_stability(grid, state, thv)
+    the wall-limited mixing length; takes its own slab mean of thv where
+    thv_m is None."""
+    S2, N2 = strain_and_stability(grid, state, thv, thv_m)
     Ri = N2 / torch.clamp_min(S2, 1e-12)
     fstab = torch.sqrt(torch.clamp(1.0 - Ri / RI_C, 0.0, 1.0))
     delta = _delta(grid)
@@ -134,8 +136,9 @@ def diffuse_scalar(grid, rhobf, rhobh, K, s, surf_flux=None):
     return tend - (Fz[:, 1:] - Fz[:, :-1]) / (col(rhobf) * dz)
 
 
-def surface_drag(grid, state, z0m):
-    """Neutral drag law: (ustar [n], flux_u, flux_v [n, ny, nx])."""
+def surface_drag(grid, state, z0m, red=None):
+    """Neutral drag law: (ustar [n], flux_u, flux_v [n, ny, nx]); red: the
+    plane's reductions for <u*^2> (None: the whole plane)."""
     z1 = 0.5 * grid.dz
     u1 = 0.5 * (state.u[:, 0] + sp(state.u[:, 0], X - 1))
     v1 = 0.5 * (state.v[:, 0] + sp(state.v[:, 0], Y - 1))
@@ -144,12 +147,12 @@ def surface_drag(grid, state, z0m):
     ustar2 = cd[:, None, None] * U1 ** 2
     flux_u = -ustar2 * u1 / U1
     flux_v = -ustar2 * v1 / U1
-    return torch.sqrt(torch.mean(ustar2, dim=(1, 2))), flux_u, flux_v
+    return torch.sqrt(reducer(red).mean(ustar2)), flux_u, flux_v
 
 
-def surface_momentum_fluxes(grid, state, z0m):
+def surface_momentum_fluxes(grid, state, z0m, red=None):
     """(ustar, fu, fv): drag-law stress interpolated to the u/v points."""
-    ustar, flux_u_sfc, flux_v_sfc = surface_drag(grid, state, z0m)
+    ustar, flux_u_sfc, flux_v_sfc = surface_drag(grid, state, z0m, red)
     fu = 0.5 * (sm(flux_u_sfc, X - 1) + flux_u_sfc)
     fv = 0.5 * (sm(flux_v_sfc, Y - 1) + flux_v_sfc)
     return ustar, fu, fv
@@ -165,9 +168,9 @@ def diffuse_w(grid, rhobf, rhobh, Km, w):
     return torch.cat([zero, tw_int, zero], dim=Z)
 
 
-def diffuse_momentum(grid, rhobf, rhobh, Km, state, z0m):
+def diffuse_momentum(grid, rhobf, rhobh, Km, state, z0m, red=None):
     """Diffusion tendencies for (u, v, w) plus the surface drag stress."""
-    ustar, fu, fv = surface_momentum_fluxes(grid, state, z0m)
+    ustar, fu, fv = surface_momentum_fluxes(grid, state, z0m, red)
     tu = diffuse_scalar(grid, rhobf, rhobh, Km, state.u, surf_flux=fu)
     tv = diffuse_scalar(grid, rhobf, rhobh, Km, state.v, surf_flux=fv)
     return tu, tv, diffuse_w(grid, rhobf, rhobh, Km, state.w), ustar

@@ -12,6 +12,12 @@ traffic; the note at the top of the CUDA source says what its design (a
 block per tile of columns and the whole stack, marching up a z-chunk,
 each face flux computed once) does about that. ``scalar_geometry`` is its
 launch geometry.
+
+Halo mode (``halo=h``, h >= 3): the inputs are a rank's block of the
+planes padded with h points from its neighbours (``parallel.plane``),
+[.., ny + 2h, nx + 2h], and the output is the block's [.., ny, nx]; the
+launch geometry is the block's. The plain version then computes on the
+padded block and keeps its interior.
 """
 
 import ctypes
@@ -22,11 +28,12 @@ import torch
 from . import _build, tiling
 from ..models.les import advect, subgrid
 
-launches = 0   # kernel launches made by advect_diffuse_scalars
+launches = 0        # kernel launches made by advect_diffuse_scalars
+halo_launches = 0   # ... of them in halo mode
 
 LANE = 128     # the TPU kernel's lane width, for supported()
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 # csrc/lesflat.cu: its tile of TX x TY columns; a block takes up to SMAX
@@ -73,66 +80,88 @@ def supported(grid):
     return (grid.ny * grid.nx) % LANE == 0 and grid.nz % 16 == 0
 
 
+def interior(f, halo):
+    """The block of f [..., ny + 2 halo, nx + 2 halo] without its halo."""
+    return f if halo == 0 else f[..., halo:-halo, halo:-halo]
+
+
 def advect_diffuse_scalars_reference(u, v, w, Ks, scalars, rhobf, rhobh,
-                                     dx, dy, dz):
+                                     dx, dy, dz, halo=0):
     """Plain PyTorch version: hybrid52 ``advect_scalar`` plus
     ``diffuse_scalar`` without a surface flux, for each scalar of the
-    stack. Same signature and output as ``advect_diffuse_scalars``."""
+    stack (on the padded block, keeping its interior, in halo mode). Same
+    signature and output as ``advect_diffuse_scalars``."""
     g = SimpleNamespace(dx=dx, dy=dy, dz=dz)
-    return torch.stack([
+    return interior(torch.stack([
         advect.advect_scalar(g, rhobf, rhobh, u, v, w, scalars[:, i],
                              "hybrid52")
         + subgrid.diffuse_scalar(g, rhobf, rhobh, Ks[:, i], scalars[:, i])
-        for i in range(scalars.shape[1])], dim=1)
+        for i in range(scalars.shape[1])], dim=1), halo).contiguous()
+
+
+def _check_halo(halo, name):
+    if halo != 0 and halo < HALO:
+        raise ValueError("the %s kernel's halo mode needs a halo of at "
+                         "least %d points, got %d" % (name, HALO, halo))
 
 
 def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz,
-                   tz=None):
+                   tz=None, halo=0):
     """Launch csrc/lesflat.cu through its C entry ``entry`` on CUDA
     tensors (counted by the caller), at the launch geometry
-    ``scalar_geometry(n, S, nz, ny, nx, tz)``; returns the [n, S, nz, ny,
-    nx] tendency."""
-    n, S, nz, ny, nx = scalars.shape
+    ``scalar_geometry(n, S, nz, ny, nx, tz)`` of the (interior) block;
+    returns the [n, S, nz, ny, nx] tendency. halo: the inputs' halo."""
+    _check_halo(halo, "scalar")
+    n, S, nz, pny, pnx = scalars.shape
+    ny, nx = pny - 2 * halo, pnx - 2 * halo
     if nx < 4 or ny < 4:
         raise ValueError("the scalar kernel needs nx, ny >= 4, got %d, %d"
                          % (nx, ny))
     chk = _build.check_cuda
-    fld, face = (n, nz, ny, nx), (n, nz + 1, ny, nx)
+    fld, face = (n, nz, pny, pnx), (n, nz + 1, pny, pnx)
     ptrs = (chk(u, fld, "u"), chk(v, fld, "v"), chk(w, face, "w"),
             chk(Ks, scalars.shape, "Ks"),
-            chk(scalars, (n, S, nz, ny, nx), "scalars"),
+            chk(scalars, (n, S, nz, pny, pnx), "scalars"),
             chk(rhobf, (n, nz), "rhobf"), chk(rhobh, (n, nz + 1), "rhobh"))
     geom = scalar_geometry(n, S, nz, ny, nx, tz)
-    out = torch.empty_like(scalars)
+    out = torch.empty((n, S, nz, ny, nx), dtype=scalars.dtype,
+                      device=scalars.device)
     fn = _build.function("lesflat", entry, _ARGTYPES)
     _build.raise_on_error(
         fn(*ptrs, out.data_ptr(), n, S, nz, ny, nx, geom.tz, geom.smem,
-           dx, dy, dz, torch.cuda.current_stream(u.device).cuda_stream),
+           halo, dx, dy, dz,
+           torch.cuda.current_stream(u.device).cuda_stream),
         entry)
     return out
 
 
 def advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
-                                dx, dy, dz, tz=None):
+                                dx, dy, dz, tz=None, halo=0):
     """Launch the Hopper kernel on CUDA tensors (tz: levels per z-chunk,
-    ``scalar_geometry``)."""
-    global launches
+    ``scalar_geometry``; halo: the inputs' halo)."""
+    global launches, halo_launches
     out = launch_scalars("lesflat_tend", u, v, w, Ks, scalars, rhobf, rhobh,
-                         dx, dy, dz, tz)
-    launches += 1
+                         dx, dy, dz, tz, halo)
+    if halo:
+        halo_launches += 1
+    else:
+        launches += 1
     return out
 
 
-def advect_diffuse_scalars(u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz):
+def advect_diffuse_scalars(u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz,
+                           halo=0):
     """Advection + diffusion tendencies of a scalar stack, whole fleet.
 
     u, v: [n, nz, ny, nx]; w: [n, nz+1, ny, nx]; Ks, scalars: [n, S, nz,
     ny, nx]; rhobf: [n, nz]; rhobh: [n, nz+1]. Returns [n, S, nz, ny, nx]
-    (surface flux excluded: the caller adds it on plane 0). CUDA tensors
-    go to the kernel, CPU tensors to the plain version.
+    (surface flux excluded: the caller adds it on plane 0). halo: the
+    inputs are a block padded with halo points (the output is the
+    block's). CUDA tensors go to the kernel, CPU tensors to the plain
+    version.
     """
     if scalars.device.type != "cuda":
         return advect_diffuse_scalars_reference(u, v, w, Ks, scalars, rhobf,
-                                                rhobh, dx, dy, dz)
+                                                rhobh, dx, dy, dz, halo)
     return advect_diffuse_scalars_cuda(u, v, w, Ks, scalars, rhobf, rhobh,
-                                       dx, dy, dz)
+                                       dx, dy, dz, halo=halo)

@@ -11,6 +11,12 @@ raises if the launch fails; on CPU tensors it runs
 traffic; the note at the top of the CUDA source says what its design (a
 block per tile of columns marching up a z-chunk, each face flux computed
 once) does about that. ``momentum_geometry`` is its launch geometry.
+
+Halo mode (``halo=h``, h >= 3): the inputs are a rank's block of the
+planes padded with h points from its neighbours (``parallel.plane``),
+[.., ny + 2h, nx + 2h], and the outputs are the block's [.., ny, nx]; the
+launch geometry is the block's. The plain version then computes on the
+padded block and keeps its interior.
 """
 
 import ctypes
@@ -19,11 +25,13 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, tiling
+from .lesflat import HALO, interior
 from ..models.les import advect, subgrid
 
-launches = 0   # kernel launches made by momentum_tendencies
+launches = 0        # kernel launches made by momentum_tendencies
+halo_launches = 0   # ... of them in halo mode
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 # csrc/lesmom.cu: its tile of TX x TY columns, its shared-memory ring of
@@ -60,9 +68,11 @@ def momentum_geometry(n, nz, ny, nx, tz=None):
                                 tz)
 
 
-def momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
+def momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh, dx, dy, dz,
+                                  halo=0):
     """Plain PyTorch version: ``advect_u/v/w`` plus ``diffuse_momentum``
-    without the surface stress. Same signature and outputs as
+    without the surface stress (on the padded block, keeping its interior,
+    in halo mode). Same signature and outputs as
     ``momentum_tendencies``."""
     g = SimpleNamespace(dx=dx, dy=dy, dz=dz)
     du = (advect.advect_u(g, rhobf, rhobh, u, v, w)
@@ -71,46 +81,59 @@ def momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
           + subgrid.diffuse_scalar(g, rhobf, rhobh, Km, v))
     dw = (advect.advect_w(g, rhobf, rhobh, u, v, w)
           + subgrid.diffuse_w(g, rhobf, rhobh, Km, w))
-    return du, dv, dw
+    if halo == 0:
+        return du, dv, dw
+    return tuple(interior(t, halo).contiguous() for t in (du, dv, dw))
 
 
 def momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz,
-                             tz=None):
+                             tz=None, halo=0):
     """Launch the Hopper kernel on CUDA tensors, at the launch geometry
-    ``momentum_geometry(n, nz, ny, nx, tz)``."""
-    global launches
-    n, nz, ny, nx = u.shape
+    ``momentum_geometry(n, nz, ny, nx, tz)`` of the (interior) block;
+    halo: the inputs' halo."""
+    global launches, halo_launches
+    if halo != 0 and halo < HALO:
+        raise ValueError("the momentum kernel's halo mode needs a halo of "
+                         "at least %d points, got %d" % (HALO, halo))
+    n, nz, pny, pnx = u.shape
+    ny, nx = pny - 2 * halo, pnx - 2 * halo
     if nx < 4 or ny < 4:
         raise ValueError("the momentum kernel needs nx, ny >= 4, got %d, %d"
                          % (nx, ny))
     chk = _build.check_cuda
-    fld, face = (n, nz, ny, nx), (n, nz + 1, ny, nx)
+    fld, face = (n, nz, pny, pnx), (n, nz + 1, pny, pnx)
     ptrs = (chk(u, fld, "u"), chk(v, fld, "v"), chk(w, face, "w"),
             chk(Km, fld, "Km"), chk(rhobf, (n, nz), "rhobf"),
             chk(rhobh, (n, nz + 1), "rhobh"))
     geom = momentum_geometry(n, nz, ny, nx, tz)
-    du, dv = torch.empty_like(u), torch.empty_like(u)
-    dw = torch.empty_like(w)
+    emp = lambda k: torch.empty((n, k, ny, nx), dtype=u.dtype,
+                                device=u.device)
+    du, dv, dw = emp(nz), emp(nz), emp(nz + 1)
     fn = _build.function("lesmom", "lesmom_tend", _ARGTYPES)
     _build.raise_on_error(
         fn(*ptrs, du.data_ptr(), dv.data_ptr(), dw.data_ptr(), n, nz, ny, nx,
-           geom.tz, geom.smem, dx, dy, dz,
+           geom.tz, geom.smem, halo, dx, dy, dz,
            torch.cuda.current_stream(u.device).cuda_stream),
         "lesmom")
-    launches += 1
+    if halo:
+        halo_launches += 1
+    else:
+        launches += 1
     return du, dv, dw
 
 
-def momentum_tendencies(u, v, w, Km, rhobf, rhobh, dx, dy, dz):
+def momentum_tendencies(u, v, w, Km, rhobf, rhobh, dx, dy, dz, halo=0):
     """Momentum advection + diffusion tendencies, whole fleet.
 
     u, v, Km: [n, nz, ny, nx]; w: [n, nz+1, ny, nx]; rhobf: [n, nz];
     rhobh: [n, nz+1]. Returns (du, dv [n, nz, ny, nx], dw [n, nz+1, ny,
     nx]) with dw zero on faces 0 and nz (surface stress excluded: the
-    caller adds it on plane 0). CUDA tensors go to the kernel, CPU tensors
-    to the plain version.
+    caller adds it on plane 0). halo: the inputs are a block padded with
+    halo points (the outputs are the block's). CUDA tensors go to the
+    kernel, CPU tensors to the plain version.
     """
     if u.device.type != "cuda":
         return momentum_tendencies_reference(u, v, w, Km, rhobf, rhobh,
-                                             dx, dy, dz)
-    return momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz)
+                                             dx, dy, dz, halo)
+    return momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz,
+                                    halo=halo)

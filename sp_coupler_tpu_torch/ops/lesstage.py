@@ -13,6 +13,15 @@ any other.
 The note at the top of the CUDA source gives the kernel's bound and what
 its two-launch design does about it. ``stage_geometry`` is its launch
 geometry: tile, levels per z-chunk and shared-memory bytes of a block.
+
+Halo mode, for a rank's block of planes split over ranks (``stage_fused(
+..., plane=)``): the current fields are padded with HALO points from the
+neighbouring blocks (one exchange, ``parallel.plane``); ``stage_sums``
+launches the plane-means kernel on the block, the ranks sum its float64
+sums, and ``stage_apply`` fills the means from the whole plane's sums and
+launches the stage kernel over the block; kmax is then the plane's
+maximum. The all_reduce between the two launches is a host collective in
+every stage.
 """
 
 import ctypes
@@ -22,7 +31,8 @@ import torch
 from . import _build, tiling
 from ..models.les import step as lstep, subgrid
 
-launches = 0   # stage calls that launched the kernel (CUDA tensors)
+launches = 0        # stage calls that launched the kernel on a whole plane
+halo_launches = 0   # ... in halo mode, on a padded block (stage_apply)
 
 # csrc/lesstage.cu: its tile of TX x TY columns (measured fastest at
 # 64x64x160, PERF.md Findings; a tile wider than the plane wraps), and its
@@ -68,7 +78,7 @@ class _StageArgs(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_int) for k in
          ("n", "nz", "ny", "nx", "qt_mode", "n_sat_iter",
-          "tx", "ty", "tz", "smem")]
+          "tx", "ty", "tz", "smem", "halo")]
         + [(k, ctypes.c_float) for k in
            ("dx", "dy", "dz", "fdt", "f_cor", "sponge_depth", "sponge_tau",
             "zs", "delta", "nc_fac", "auto_k", "accr_k", "evap_tau",
@@ -79,7 +89,7 @@ class _StageArgs(ctypes.Structure):
             "pbf", "rhobf", "rhobh", "f_u", "f_v", "f_thl", "f_qt",
             "dt", "wthl", "wqt", "z0m",
             "un", "vn", "wn", "thln", "qtn", "qrn", "e12n", "aux",
-            "means")])
+            "means", "sums")])
 
 
 def supported(phys):
@@ -95,13 +105,14 @@ def _check_supported(phys):
                          % (phys.subgrid, phys.scheme))
 
 
-def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt):
+def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt,
+                          plane=None):
     """Plain PyTorch version: split tendencies(cur) -> base + frac*dt*tend,
     with the clips of the kernel. Same signature and outputs as
     ``stage_fused``. The tendencies take their own plain path
     (use_kernel=False), so no other kernel runs inside it."""
     t = lstep.tendencies(grid, phys._replace(use_kernel=False), cur,
-                         forcing, dt)
+                         forcing, dt, plane)
     f = (frac_dt * dt)[:, None, None, None]
     return (base.u + f * t["u"], base.v + f * t["v"],
             (base.w + f * t["w"])[:, :-1],
@@ -112,20 +123,34 @@ def stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt):
             t["kmax"], t["ustar"] ** 2, t["surf_rain"])
 
 
-def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
-    """Launch the Hopper kernel for one fused stage on CUDA tensors, at the
-    launch geometry ``stage_geometry(n, nz, ny, nx, tz)``."""
-    global launches
+class PendingStage:
+    """A stage whose plane-means kernel ran on a padded block
+    (``stage_sums``): its arguments, its buffers (kept alive until the
+    stage kernel is launched) and its float64 sums [n, 7, nz]."""
+
+    def __init__(self, args, outs, aux, means, sums, keep):
+        self.args, self.outs, self.aux = args, outs, aux
+        self.means, self.sums, self.keep = means, sums, keep
+
+
+def _stage_args(grid, phys, cur, base, forcing, frac_dt, dt, tz, halo):
+    """(StageArgs, outputs, aux, means, kept tensors) of one stage on CUDA
+    tensors; cur carries halo points a side."""
     _check_supported(phys)
     mp = phys.mphys
     if not (mp.sed_b > 0.0 and mp.sed_bi > 0.0):
         raise ValueError("the fused stage needs fall-speed exponents > 0 "
                          "(sed_b=%r, sed_bi=%r)" % (mp.sed_b, mp.sed_bi))
-    if grid.nx < 4 or grid.ny < 4:
+    if halo != 0 and halo < HALO:
+        raise ValueError("the stage kernel's halo mode needs a halo of at "
+                         "least %d points, got %d" % (HALO, halo))
+    n, nz, pny, pnx = cur.thl.shape
+    ny, nx = pny - 2 * halo, pnx - 2 * halo
+    if nx < 4 or ny < 4:
         raise ValueError("the fused stage needs nx, ny >= 4")
-    n, nz, ny, nx = cur.thl.shape
     dev = cur.thl.device
     fld, face = (n, nz, ny, nx), (n, nz + 1, ny, nx)
+    pfld, pface = (n, nz, pny, pnx), (n, nz + 1, pny, pnx)
     emp = lambda shp: torch.empty(shp, dtype=torch.float32, device=dev)
     outs = [emp(fld) for _ in range(7)]
     aux = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -136,7 +161,8 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
     a = _StageArgs(
         n=n, nz=nz, ny=ny, nx=nx, qt_mode=int(phys.qt_forcing),
         n_sat_iter=int(phys.n_sat_iter), tx=geom.tx, ty=geom.ty,
-        tz=geom.tz, smem=geom.smem, dx=grid.dx, dy=grid.dy, dz=grid.dz,
+        tz=geom.tz, smem=geom.smem, halo=halo, dx=grid.dx, dy=grid.dy,
+        dz=grid.dz,
         fdt=float(frac_dt), f_cor=float(phys.f_coriolis),
         sponge_depth=phys.sponge_depth, sponge_tau=phys.sponge_tau,
         zs=grid.zsize - phys.sponge_depth,
@@ -147,9 +173,9 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
         sed_ai=mp.sed_ai, sed_bi=mp.sed_bi)
     _check = _build.check_cuda
     for k in ("u", "v", "thl", "qt", "qr", "e12"):
-        setattr(a, k, _check(getattr(cur, k), fld, "cur." + k))
+        setattr(a, k, _check(getattr(cur, k), pfld, "cur." + k))
         setattr(a, k + "b", _check(getattr(base, k), fld, "base." + k))
-    a.w = _check(cur.w, face, "cur.w")
+    a.w = _check(cur.w, pface, "cur.w")
     a.wb = _check(base.w, face, "base.w")
     for k in ("pbf", "rhobf"):
         setattr(a, k, _check(getattr(cur, k), (n, nz), "cur." + k))
@@ -162,29 +188,84 @@ def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
     for k, o in zip(("un", "vn", "wn", "thln", "qtn", "qrn", "e12n"), outs):
         setattr(a, k, o.data_ptr())
     a.aux, a.means = aux.data_ptr(), means.data_ptr()
+    return a, outs, aux, means, (cur, base, forcing, dt)
 
-    fn = _build.function("lesstage", "lesstage_stage",
+
+def _launch(entry, a, dev):
+    fn = _build.function("lesstage", entry,
                          [ctypes.c_void_p, ctypes.c_void_p])
     _build.raise_on_error(
         fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream),
         "lesstage")
-    launches += 1
+
+
+def _result(outs, aux):
     un, vn, wn, thl, qt, qr, e12 = outs
     return un, vn, wn, thl, qt, qr, e12, aux[:, 0], aux[:, 1], aux[:, 2]
 
 
-def stage_fused(grid, phys, cur, base, forcing, frac_dt, dt):
+def stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt, tz=None):
+    """Launch the Hopper kernel for one fused stage on CUDA tensors (the
+    whole plane), at the launch geometry ``stage_geometry(n, nz, ny, nx,
+    tz)``."""
+    global launches
+    a, outs, aux, _, keep = _stage_args(grid, phys, cur, base, forcing,
+                                        frac_dt, dt, tz, 0)
+    _launch("lesstage_stage", a, cur.thl.device)
+    launches += 1
+    return _result(outs, aux)
+
+
+def stage_sums(grid, phys, cur, base, forcing, frac_dt, dt, halo=HALO,
+               tz=None):
+    """Halo mode, first launch: the plane-means kernel on a block whose
+    current fields cur carry halo points a side (base: the unpadded
+    block). Returns a PendingStage whose ``sums`` [n, 7, nz] float64 are
+    the block's: sum them over the plane's blocks, then ``stage_apply``."""
+    a, outs, aux, means, keep = _stage_args(grid, phys, cur, base, forcing,
+                                            frac_dt, dt, tz, halo)
+    n, nz = means.shape[0], means.shape[2]
+    sums = torch.zeros((n, 7, nz), dtype=torch.float64,
+                       device=cur.thl.device)
+    a.sums = sums.data_ptr()
+    _launch("lesstage_means", a, cur.thl.device)
+    return PendingStage(a, outs, aux, means, sums, keep)
+
+
+def stage_apply(pending, sums, points):
+    """Halo mode, second launch: fill the means from the whole plane's
+    summed sums [n, 7, nz] over its ``points`` (slots 0-4; <u*^2> and the
+    rain flux from slots 5-6 of level 0), then launch the stage kernel over
+    the block. Returns what ``stage_fused`` returns, kmax the block's."""
+    global halo_launches
+    p = pending
+    p.means[:, :5] = (sums[:, :5] / points).to(torch.float32)
+    p.aux[:, 1:] = (sums[:, 5:, 0] / points).to(torch.float32)
+    _launch("lesstage_apply", p.args, p.means.device)
+    halo_launches += 1
+    return _result(p.outs, p.aux)
+
+
+def stage_fused(grid, phys, cur, base, forcing, frac_dt, dt, plane=None):
     """One fused RK stage: tendencies(cur) -> base + frac_dt*dt*tend.
 
     cur, base: fleet LESState ([n, ...]); forcing: LESForcing; frac_dt: the
     RK fraction (python float); dt: substep lengths [n]. Returns (u, v,
     w[faces 0..nz-1], thl, qt, qr, e12, kmax [n], <u*^2> [n], surface rain
     flux [n]) — velocities before the projection; the caller projects and
-    appends w face nz (= 0). CUDA tensors go to the kernel, CPU tensors to
-    the plain version; physics outside ``supported`` raises ValueError on
-    either.
+    appends w face nz (= 0). plane: cur and base are this rank's block of
+    the planes (``parallel.plane.Plane``), the kernel runs in its halo
+    mode and the means, <u*^2>, rain and kmax are the whole plane's. CUDA
+    tensors go to the kernel, CPU tensors to the plain version; physics
+    outside ``supported`` raises ValueError on either.
     """
     _check_supported(phys)
-    if cur.thl.device.type == "cuda":
+    if cur.thl.device.type != "cuda":
+        return stage_fused_reference(grid, phys, cur, base, forcing, frac_dt,
+                                     dt, plane)
+    if plane is None:
         return stage_fused_cuda(grid, phys, cur, base, forcing, frac_dt, dt)
-    return stage_fused_reference(grid, phys, cur, base, forcing, frac_dt, dt)
+    _, pcur = lstep.padded(plane, cur, HALO)
+    pending = stage_sums(grid, phys, pcur, base, forcing, frac_dt, dt)
+    out = stage_apply(pending, plane.sum_(pending.sums), plane.points)
+    return out[:7] + (plane.max_(out[7].contiguous()),) + out[8:]

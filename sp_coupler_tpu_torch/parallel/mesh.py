@@ -1,14 +1,18 @@
-"""The ``les`` mesh axis over torch.distributed ranks.
+"""The ``(les, x, y)`` mesh over torch.distributed ranks.
 
-Port of ``sp_coupler_tpu/parallel/mesh.py`` for instance parallelism
-(the reference's P1: one process per LES instance, the coupler gathering
-their profiles). Each rank is one slot of the ``les`` axis and owns one
-device; it holds the block of LES instances the JAX package's GSPMD
-layout gives that slot, ``ceil(n / L)`` instances a slot, and runs the
-small GCM replicated, as the JAX package's default does. Intra-LES
-spatial decomposition (``x``/``y``, --lesprocs) and the GCM's latitude
-bands (--gcmprocs) are not ported (ROADMAP.md, open items: spatial and
-GCM decomposition).
+Port of ``sp_coupler_tpu/parallel/mesh.py``: instance parallelism (the
+``les`` axis, the reference's P1: one process per LES instance, the
+coupler gathering their profiles) and intra-LES spatial decomposition
+(the ``x`` and ``y`` axes, the reference's P2: --lesprocs, DALES's
+nprocx x nprocy). Each rank owns one device. The ranks are laid out as
+the JAX package's ``make_mesh`` lays out its devices,
+``reshape(les, x, y)``: rank = slot * x * y + ix * y + iy. A rank holds,
+for the instances of its les slot (``ceil(n / L)`` a slot, GSPMD's block
+rule), its block of their horizontal plane: y split over the ``y`` axis
+and x over ``x``, as ``P("les", None, "y", "x")`` does
+(``parallel/plane.py``). Every rank runs the small GCM replicated, as the
+JAX package's default does. The GCM's latitude bands (--gcmprocs) are not
+ported (ROADMAP.md, open items: spatial and GCM decomposition).
 
 Bring-up (``init_distributed``): the JAX package's own variables
 ``SPTPU_DIST_COORD`` (``host:port``, or an ``init_method`` URL such as
@@ -107,15 +111,28 @@ def world_size():
 
 
 class LesMesh:
-    """The ``les`` axis: ``les`` slots, one a rank of ``group`` (None: the
-    whole world), this process at slot ``rank``. ``shape`` has the JAX
-    mesh's axis names, x and y of extent 1."""
+    """The mesh ``(les, x, y)`` seen from one rank: ``les`` slots of ``x
+    * y`` ranks each, this process at mesh rank ``rank`` (slot ``rank //
+    (x * y)``, then ``ix``, ``iy``). ``group``: the les group, the ranks
+    at this rank's (ix, iy) in every slot (None: the whole world), over
+    which the fleet's rows cross (``sharding.gather_rows``);
+    ``plane_group``: the ranks of this rank's slot (None: the whole world),
+    which share the planes of its instances (``plane.Plane``). ``shape``
+    has the JAX mesh's axis names."""
 
-    def __init__(self, les, rank, group=None):
-        self.les = int(les)
+    def __init__(self, les, rank, group=None, x=1, y=1, plane_group=None):
+        self.les, self.x, self.y = int(les), int(x), int(y)
         self.rank = int(rank)
+        self.slot, within = divmod(self.rank, self.x * self.y)
+        self.ix, self.iy = divmod(within, self.y)
         self.group = group
-        self.shape = {"les": self.les, "x": 1, "y": 1}
+        self.plane_group = plane_group
+        self.shape = {"les": self.les, "x": self.x, "y": self.y}
+
+    def plane_ranks(self):
+        """The mesh ranks of this rank's slot, by ix * y + iy."""
+        first = self.slot * self.x * self.y
+        return list(range(first, first + self.x * self.y))
 
     def per_slot(self, n):
         """Instances a slot holds: GSPMD's block rule, ceil(n / L)."""
@@ -124,53 +141,76 @@ class LesMesh:
     def block(self, n):
         """slice of the fleet positions this rank's slot holds."""
         per = self.per_slot(n)
-        return slice(min(self.rank * per, n), min((self.rank + 1) * per, n))
+        return slice(min(self.slot * per, n), min((self.slot + 1) * per, n))
 
     def positions(self, n):
         b = self.block(n)
         return list(range(b.start, b.stop))
 
 
-def make_mesh(n_les=None):
-    """The les axis over the world's ranks; n_les must be the world's
-    size (one slot a rank)."""
-    n_les = world_size() if n_les is None else int(n_les)
-    if n_les != world_size():
-        raise ValueError("a les axis of %d slots on %d ranks (one slot a "
-                         "rank)" % (n_les, world_size()))
-    return LesMesh(n_les, rank())
+def make_mesh(n_les=None, n_x=1, n_y=1):
+    """The mesh (les, x, y) over the world's ranks, in the JAX package's
+    order (rank = slot * x * y + ix * y + iy); n_les * n_x * n_y must be
+    the world's size (n_les None: the world over x * y). Builds the les
+    groups and the plane groups: ``dist.new_group`` is a collective, so
+    every rank builds every group, in the same order."""
+    world = world_size()
+    n_x, n_y = int(n_x), int(n_y)
+    n_les = world // (n_x * n_y) if n_les is None else int(n_les)
+    if n_les * n_x * n_y != world:
+        raise ValueError("a mesh (les=%d, x=%d, y=%d) on %d ranks (one "
+                         "rank a mesh point)" % (n_les, n_x, n_y, world))
+    xy = n_x * n_y
+    me = rank()
+    group = plane_group = None
+    if xy > 1 and n_les > 1:
+        for j in range(xy):
+            g = dist.new_group([s * xy + j for s in range(n_les)])
+            if j == me % xy:
+                group = g
+        for s in range(n_les):
+            g = dist.new_group([s * xy + j for j in range(xy)])
+            if s == me // xy:
+                plane_group = g
+    return LesMesh(n_les, me, group, n_x, n_y, plane_group)
 
 
 def local_les_positions(mesh, n_les):
-    """Fleet positions this rank owns (all of them without a mesh)."""
+    """Fleet positions this rank owns, the instances of its les slot,
+    whose planes it shares with the other ranks of the slot (all of them
+    without a mesh)."""
     return list(range(n_les)) if mesh is None else mesh.positions(n_les)
 
 
-def shard_fleet(state, mesh):
+def shard_fleet(state, mesh, plane=None):
     """This rank's block of a whole fleet state (LESState or any tree of
-    tensors with the fleet axis first)."""
+    tensors with the fleet axis first): its slot's rows and, with a plane
+    (``plane.Plane``), its block of their fields [n, nz(+1), ny, nx]."""
     from . import sharding
     from ..utils import tree as tree_util
     n = tree_util.flatten(state)[0][0].shape[0]
-    return sharding.local_rows(state, mesh, n)
+    state = sharding.local_rows(state, mesh, n)
+    return state if plane is None else plane.block_fields(state)
 
 
 def replicate(tree, mesh):
     """Check that every tensor of tree is the same on every rank of the
     mesh, bit for bit (the replicated GCM state); raises naming the first
     leaf that differs. Returns tree."""
-    if mesh is None or mesh.les == 1:
+    if mesh is None or mesh.les * mesh.x * mesh.y == 1:
         return tree
     from . import sharding
     from ..utils import tree as tree_util
+    whole = LesMesh(mesh.les * mesh.x * mesh.y, mesh.rank)   # every rank
+    what = "slot" if mesh.x * mesh.y == 1 else "rank"
     leaves, _ = tree_util.flatten(tree)
     for i, leaf in enumerate(leaves):
         if not torch.is_tensor(leaf):
             continue
-        rows = sharding.all_rows(leaf.reshape(1, -1), mesh)
-        for slot in range(1, mesh.les):
-            if not torch.equal(rows[slot], rows[0]):
+        rows = sharding.all_rows(leaf.reshape(1, -1), whole)
+        for r in range(1, whole.les):
+            if not torch.equal(rows[r], rows[0]):
                 raise RuntimeError(
-                    "replicated leaf %d (shape %s) differs between slot 0 "
-                    "and slot %d" % (i, tuple(leaf.shape), slot))
+                    "replicated leaf %d (shape %s) differs between %s 0 "
+                    "and %s %d" % (i, tuple(leaf.shape), what, what, r))
     return tree

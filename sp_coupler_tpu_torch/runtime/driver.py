@@ -19,16 +19,18 @@ take the generic path; ``les_cross`` writes each instance's cross
 sections (``io/crossio.py``); ``les_evolve_chunks`` > 1 splits the evolve
 of a fused step. The GCM takes hybrid levels (``gcm_hybrid``) and
 semi-Lagrangian advection (``gcm_advection`` "sl", or "auto" at T63 and
-above). Settings of the JAX driver that are not ported (--lesprocs,
---gcmprocs, mesh x/y) raise NotImplementedError naming their ROADMAP.md
-entry.
+above). The setting of the JAX driver that is not ported (--gcmprocs)
+raises NotImplementedError naming its ROADMAP.md entry.
 
-Multi-process runs (``--mesh_les`` L under torchrun or ``SPTPU_DIST_*``,
-``parallel/mesh.py``): each rank is one slot of the les axis and holds
-its block of the LES fleet; every rank runs the GCM and the coupling math
-and calls the same collectives in the same order. Rank 0 alone writes
-spifs.nc, timing.txt and the restart; each rank writes the cross.nc of
-the instances it holds.
+Multi-process runs (``--mesh_les`` L and ``--lesprocs`` N or ``mesh_x``/
+``mesh_y`` under torchrun or ``SPTPU_DIST_*``, ``parallel/mesh.py``): the
+ranks form the mesh (les, x, y); a rank holds its les slot's instances
+and, with x * y > 1, its block of their planes (``parallel/plane.py``);
+every rank runs the GCM and the coupling math and calls the same
+collectives in the same order. Rank 0 alone writes spifs.nc, timing.txt
+and the restart (the checkpoint gathers the whole fleet); the first rank
+of each plane writes the cross.nc of its slot's instances, from their
+gathered planes.
 """
 
 import datetime
@@ -252,10 +254,14 @@ class SPRunner:
         # cross-section netCDFs per work dir, reference README.md:108-111)
         if (cfg.les_cross and isinstance(self.fleet, les_model.LESFleet)
                 and n > 0):
-            # a rank writes the instances it holds (JAX driver.py:207-228);
-            # an unsharded fleet's files are rank 0's
+            # a rank writes the instances it holds (JAX driver.py:207-228),
+            # and of a split plane the plane's first rank; an unsharded
+            # fleet's files are rank 0's
+            first = self.mesh is not None and (self.fleet.plane is None or (
+                self.mesh.ix, self.mesh.iy) == (0, 0))
             positions = (self.fleet.positions
-                         if self.mesh is not None or self.io_proc else [])
+                         if first or (self.mesh is None and self.io_proc)
+                         else [])
             if self.mesh is not None:
                 log.info("les_cross shard-local: rank %d owns instances %s",
                          pmesh.rank(), positions)
@@ -335,14 +341,14 @@ class SPRunner:
         return self
 
     def _check_settings(self):
-        """Refuse the settings this port leaves out; log the reference's
-        no-op knobs (--queue, --channel, work dirs, redirects)."""
+        """Refuse the setting this port leaves out (--gcmprocs); log the
+        reference's no-op knobs (--queue, --channel, work dirs,
+        redirects)."""
         cfg = self.cfg
-        if (cfg.mesh_x * cfg.mesh_y > 1 or cfg.les_num_procs > 1
-                or cfg.gcm_num_procs > 1):
+        if cfg.gcm_num_procs > 1:
             raise NotImplementedError(
-                "spatial and GCM decomposition (--lesprocs, --gcmprocs, "
-                "mesh x/y) is not ported yet (%s)" % _SPATIAL)
+                "spatial and GCM decomposition: the GCM's latitude bands "
+                "(--gcmprocs) are not ported yet (%s)" % _SPATIAL)
         if cfg.les_queue_threads > 0:
             log.info("--queue %d accepted (no-op: the LES fleet is one "
                      "batched device computation)", cfg.les_queue_threads)
@@ -360,9 +366,12 @@ class SPRunner:
                          "processes)", knob, val)
 
     def _build_mesh(self):
-        """The les mesh of --mesh_les over the torch.distributed ranks, or
-        None (JAX driver.py:304-349). A mesh larger than the world runs
-        unsharded, with the JAX driver's warning."""
+        """The mesh (les, x, y) of --mesh_les and --lesprocs (or mesh_x,
+        mesh_y) over the torch.distributed ranks, or None (JAX
+        driver.py:304-349): --lesprocs N splits each plane into n_x * n_y
+        = N blocks, n_x the largest divisor of N up to sqrt(N). A mesh of
+        another size than the world runs unsharded, with the JAX driver's
+        warning."""
         cfg = self.cfg
         if pmesh.init_distributed(self.device):
             if self.device.type == "cuda":
@@ -370,25 +379,29 @@ class SPRunner:
                                            torch.cuda.current_device())
             log.info("multi-process run: rank %d of %d on %s",
                      pmesh.rank(), pmesh.world_size(), self.device)
-        if cfg.mesh_les <= 1:
+        n_x, n_y = cfg.mesh_x, cfg.mesh_y
+        if cfg.les_num_procs > 1 and n_x * n_y == 1:
+            n_x = int(np.sqrt(cfg.les_num_procs))
+            while cfg.les_num_procs % n_x:
+                n_x -= 1
+            n_y = cfg.les_num_procs // n_x
+        total = cfg.mesh_les * n_x * n_y
+        if total <= 1:
             return None
         world = pmesh.world_size()
-        if cfg.mesh_les > world:
+        if total != world:
             log.warning("mesh (les=%d, x=%d, y=%d) does not fit %d devices; "
-                        "running unsharded", cfg.mesh_les, cfg.mesh_x,
-                        cfg.mesh_y, world)
+                        "running unsharded", cfg.mesh_les, n_x, n_y, world)
             return None
-        if cfg.mesh_les < world:
-            raise ValueError("--mesh_les %d on %d ranks: launch one rank for "
-                             "each les slot" % (cfg.mesh_les, world))
-        log.info("device mesh: les=%d, x=1, y=1", cfg.mesh_les)
-        return pmesh.make_mesh(cfg.mesh_les)
+        log.info("device mesh: les=%d, x=%d, y=%d", cfg.mesh_les, n_x, n_y)
+        return pmesh.make_mesh(cfg.mesh_les, n_x, n_y)
 
     def _shard_fleet_state(self):
         """Lay the LES fleet out over the mesh: this rank holds its block
-        (JAX driver.py:351-375). A fleet whose size the mesh does not
-        divide stays whole on every rank, with the JAX driver's warning,
-        and the run goes on without a mesh."""
+        of the fleet and of its planes (JAX driver.py:351-375). A fleet
+        whose size the les axis does not divide stays whole on every
+        rank, with the JAX driver's warning, and the run goes on without a
+        mesh; a plane the x, y axes do not divide raises ValueError."""
         if self.mesh is None:
             return
         if not isinstance(self.fleet, les_model.LESFleet):
@@ -648,14 +661,23 @@ class SPRunner:
 
     def _write_cross(self, t):
         """Per-instance cross-section record at the dtav cadence, from the
-        instances this process holds (no collective); the serialization
-        runs on the native writer's worker thread, off the step loop."""
+        instances this process holds (no collective; of a split plane, the
+        whole planes gathered over the plane's ranks, a collective of
+        theirs); the serialization runs on the native writer's worker
+        thread, off the step loop."""
         if self.crossio is None or t + 1e-6 < self._cross_next:
             return
-        if self.crossio.writers:
-            ql = ldiag.fields_3d(self.fleet.state)["QL"]
-            self.crossio.write(self.fleet.state, ql, t,
-                               held=self.fleet.positions)
+        if self.crossio.writers or self.fleet.plane is not None:
+            state = self.fleet.state
+            ql = ldiag.fields_3d(state)["QL"]
+            if self.fleet.plane is not None:
+                from types import SimpleNamespace
+                whole = self.fleet.whole_planes(dict(
+                    thl=state.thl, qt=state.qt, w=state.w, qr=state.qr,
+                    ql=ql))
+                ql = whole.pop("ql")
+                state = SimpleNamespace(rhobf=state.rhobf, **whole)
+            self.crossio.write(state, ql, t, held=self.fleet.positions)
         self._cross_next = t + max(self.cfg.les_cross_dtav, 1.0)
 
     def _flush_pending(self):

@@ -8,8 +8,6 @@ functions agree within rtol 1e-5, atol 1e-6 max|ref| (both sides are
 float32 on the CPU and differ only in the order of operations).
 """
 
-from types import SimpleNamespace
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -265,14 +263,20 @@ def test_coupled_diag_matches(coupled, step):
 
 
 def test_unported_coupler_settings_raise():
+    """A spatial mesh is ported: the coupled step takes this rank's block
+    of the planes (tests/test_torch_spatial.py steps it on 4 ranks), and
+    refuses a plane the mesh does not divide."""
     core = tmodel.GCMCore(tmodel.GCMConfig(trunc=TRUNC, nlev=NLEV, dt=DT),
                           device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, open items: spatial and GCM "
-                             "decomposition"):
+    fn = TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0,
+                 mesh=pmesh.LesMesh(1, 1, x=2, y=1))
+    assert fn.mesh is not None and fn.mesh.shape == {"les": 1, "x": 2,
+                                                     "y": 1}
+    assert (fn.plane.y0, fn.plane.by, fn.plane.x0, fn.plane.bx) == (
+        0, 16, 8, 8)
+    with pytest.raises(ValueError, match="does not split into 1 x 3"):
         TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0,
-                mesh=SimpleNamespace(les=1, shape={"les": 1, "x": 2,
-                                                   "y": 1}))
+                mesh=pmesh.LesMesh(1, 0, x=3, y=1))
     # the surface coupling, the nudge, the phased step, the chunked
     # evolve and a les mesh of one slot (no mesh) are ported
     assert TStepFn(core, TG, tstep.LESPhysics(), COLS, 15.0, 0,

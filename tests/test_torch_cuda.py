@@ -252,3 +252,52 @@ def test_scalar_kernel_takes_any_stack_on_card(dev, kernel, S):
     torch.cuda.synchronize()
     assert got.shape[1] == S
     cs.check_arrays(name, got, ref, tol)
+
+
+# ---- the halo mode (a rank's block of a plane split over ranks) ----------
+
+HALO_SHAPES = [((32, 32, 32), 2), ((24, 16, 20), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, n", HALO_SHAPES)
+def test_halo_stage_matches_whole_plane_on_card(dev, shape, n):
+    """The stage kernel on 2 x 2 padded blocks (the plane-means kernel's
+    sums added across them) against the whole-plane kernel: the
+    increments at chip_smoke.py's INC_FRAC of max|increment|, kmax at
+    KMAX_RTOL (blocks of 16x16 and of 12x8: tiles wider than the block)."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    cur, base, frc, dt = _inputs(grid, n, dev)
+    args = (grid, lstep.LESPhysics(), cur, base, frc, 0.5, dt)
+    got = cs.stage_blocks(cs.split_planes(ny, nx), *args)
+    ref = lesstage.stage_fused_cuda(*args)
+    for k, a, b in zip(NAMES, got[:7], ref[:7]):
+        b_k = base.w[:, :-1] if k == "w" else getattr(base, k)
+        cs.check_increment(k, a, b, b_k, cs.INC_FRAC, cs.INC_RTOL)
+    cs.check_close("kmax", got[7], ref[7], 0.0, cs.KMAX_RTOL)
+    cs.check_close("ustar2", got[8], ref[8], 0.0, cs.USTAR2_RTOL)
+    cs.check_close("rain", got[9], ref[9], **cs.RAIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, n", HALO_SHAPES)
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom"])
+def test_halo_split_kernel_matches_plain_on_card(dev, kernel, shape, n):
+    """The scalar and momentum kernels on each padded block against their
+    plain versions on the same block and against the whole-plane
+    kernel's block, at chip_smoke.py's tolerances."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    name, launch, plain, args_of, tol, _ = next(
+        k for k in cs.split_kernels() if k[0] == kernel)
+    args = args_of(cs.split_inputs(grid, n, 11, dev="cuda"), grid)
+    whole = launch(*args)
+    planes = cs.split_planes(ny, nx)
+    for q, pa in zip(planes, cs.split_blocks(planes, name, args,
+                                             lesstage.HALO)):
+        got = launch(*pa, halo=lesstage.HALO)
+        cs.check_arrays(name, got, plain(*pa, halo=lesstage.HALO), tol)
+        cut = (q.block(whole) if torch.is_tensor(whole)
+               else tuple(q.block(x) for x in whole))
+        cs.check_arrays(name + " vs whole", got, cut, tol)

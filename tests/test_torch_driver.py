@@ -249,13 +249,26 @@ def test_device_defaults_to_the_card(tmp_path):
     (dict(les_num_procs=4), "spatial and GCM decomposition"),
     (dict(gcm_num_procs=2), "spatial and GCM decomposition"),
 ])
-def test_unported_settings_raise(tmp_path, kw, entry):
+def test_unported_settings_raise(tmp_path, kw, entry, caplog):
+    """--gcmprocs still raises, naming its ROADMAP.md entry. mesh_x and
+    --lesprocs are ported (tests/test_torch_spatial.py runs them on 4
+    ranks): in one process their mesh does not fit, so the run warns as
+    the JAX driver does and takes a coupled step unsharded."""
     base = dict(SMALL, output_dir=str(tmp_path / "out"))
     base.update(kw)
     r = SPRunner(SPConfig(**base), [geometry.Point(POINT)], device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, open items: " + entry):
+    if "gcm_num_procs" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, open items: " + entry):
+            r.initialize()
+        return
+    with caplog.at_level("WARNING"):
         r.initialize()
+    assert "does not fit 1 devices; running unsharded" in caplog.text
+    assert r.mesh is None
+    r.run(1)
+    r.finalize()
+    assert len(r.substeps) == 1 and r.fleet.state.u.shape[-2:] == (16, 16)
 
 
 @pytest.mark.parametrize("kw, advection", [

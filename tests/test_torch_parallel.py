@@ -326,20 +326,37 @@ def test_spinup_nudge_generic_on_two_ranks(tmp_path, gcm):
 # ---- refusals, warnings, the backend rule ----------------------------------
 
 @pytest.mark.parametrize("flags", [["--lesprocs", "4"], ["--gcmprocs", "2"]])
-def test_cli_spatial_flags_raise(tmp_path, flags):
+def test_cli_spatial_flags_raise(tmp_path, flags, caplog):
+    """--gcmprocs still raises, naming its ROADMAP.md entry; --lesprocs is
+    ported (tests/test_torch_spatial.py runs it on 4 ranks): in one
+    process its mesh does not fit, so the CLI warns and runs unsharded."""
     runner = spmaster.build_runner(
         ARGS + ["--odir", str(tmp_path / "out")] + flags)
-    with pytest.raises(NotImplementedError, match=SPATIAL):
+    if "--gcmprocs" in flags:
+        with pytest.raises(NotImplementedError, match=SPATIAL):
+            runner.initialize()
+        assert not os.path.exists(str(tmp_path / "out"))
+        return
+    with caplog.at_level(logging.WARNING):
         runner.initialize()
-    assert not os.path.exists(str(tmp_path / "out"))
+    assert ("mesh (les=1, x=2, y=2) does not fit 1 devices; running "
+            "unsharded") in caplog.text
+    assert runner.mesh is None and runner.fleet.plane is None
+    assert runner.fleet.state.u.shape[0] == 2
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_x=2), dict(mesh_y=2)])
-def test_spatial_mesh_raises(tmp_path, kw):
+def test_spatial_mesh_raises(tmp_path, kw, caplog):
+    """mesh_x and mesh_y are ported: in one process a mesh of 2 ranks
+    does not fit, so the run warns and goes on unsharded."""
     r = SPRunner(SPConfig(output_dir=str(tmp_path / "out"), **kw),
                  [geometry.Point((300.0, 15.0))], device="cpu")
-    with pytest.raises(NotImplementedError, match=SPATIAL):
+    with caplog.at_level(logging.WARNING):
         r.initialize()
+    assert ("mesh (les=1, x=%d, y=%d) does not fit 1 devices; running "
+            "unsharded" % (kw.get("mesh_x", 1), kw.get("mesh_y", 1))
+            in caplog.text)
+    assert r.mesh is None
 
 
 @pytest.mark.parametrize("args, want", [

@@ -1,4 +1,5 @@
-"""One rank of the port's multi-process tests (tests/test_torch_parallel.py).
+"""One rank of the port's multi-process tests (tests/test_torch_parallel.py,
+tests/test_torch_spatial.py).
 
 Launched as ``python tests/torch_mp_worker.py MODE ARGS...``, once a rank,
 with SPTPU_DIST_COORD (a file:// store), SPTPU_DIST_NPROCS and
@@ -16,6 +17,13 @@ Modes:
   misc ODIR REPORT        scalebench.measure(sizes=[1, 2]) and a driver run
                           of 3 instances with --mesh_les 2 (unsharded);
                           each rank writes REPORT.<rank>.json
+  spatial IN.npz OUT      on 4 ranks: the Plane's halo, reductions and
+                          gathers on the meshes (les, x, y) = (1, 2, 2) and
+                          (1, 4, 1), the projection on 2 x 2 blocks, IN's
+                          fleet evolved on (1, 2, 2) and (2, 2, 1), and
+                          IN's coupled case (T10 + one instance) stepped
+                          on (1, 2, 2); rank 0 writes OUT.npz, each rank
+                          OUT.<rank>.json
 """
 
 import json
@@ -75,6 +83,8 @@ def cli(report, argv):
             timing_header=runner._timing_header_done,
             positions=fleet.positions, sp_cols=runner.sp_cols,
             held=int(fleet.state.u.shape[0]),
+            shape=list(fleet.state.u.shape),
+            mesh_shape=runner.mesh.shape if runner.mesh is not None else None,
             cross=sorted(runner.crossio.writers) if runner.crossio else [],
             substeps=runner.substeps, gcm_replicated=True)
     finally:
@@ -127,6 +137,116 @@ def misc(odir, report):
         json.dump(rep, f)
 
 
+def _plane_checks(mesh, gen_seed=5):
+    """The Plane of mesh on a 16 x 16 plane against the whole plane: halo
+    (h = 3, two fields of different depths in one exchange), gather, mean,
+    amax, std and argmax_take."""
+    from sp_coupler_tpu_torch.parallel import plane as pplane
+    gen = torch.Generator().manual_seed(gen_seed)
+    x = torch.randn((2, 5, 16, 16), generator=gen)
+    x2 = torch.randn((2, 6, 16, 16), generator=gen)
+    pl = pplane.for_mesh(mesh, 16, 16)
+    b, b2 = pl.block(x), pl.block(x2)
+    h, h2 = pl.halo([b, b2], 3)
+    want = x.double().mean(dim=(2, 3)).float()
+    key = torch.randn((2, 5, 16, 16), generator=gen)
+    got_take = pl.argmax_take(pl.block(key), b, b2[:, :5])
+    want_take = pplane.WHOLE.argmax_take(key, x, x2[:, :5])
+    return dict(
+        block=[pl.y0, pl.by, pl.x0, pl.bx],
+        halo=bool(torch.equal(h, pl.block(x, 3))
+                  and torch.equal(h2, pl.block(x2, 3))),
+        gather=bool(torch.equal(pl.gather(b), x)),
+        mean_err=float((pl.mean(b) - want).abs().max()),
+        amax=bool(torch.equal(pl.amax(b), torch.amax(x, dim=(1, 2, 3)))),
+        std_err=float((pl.std(b) - torch.std(x, dim=(2, 3), unbiased=False))
+                      .abs().max()),
+        argmax=all(bool(torch.equal(g, w))
+                   for g, w in zip(got_take, want_take)))
+
+
+def spatial(inp, out):
+    from sp_coupler_tpu_torch.coupling.coupler import (CoupledStepFn,
+                                                       evolve_fleet)
+    from sp_coupler_tpu_torch.models.gcm import model as gcm_model
+    from sp_coupler_tpu_torch.models.les import (grid as lgrid,
+                                                 step as lstep, poisson,
+                                                 diag as ldiag)
+    from sp_coupler_tpu_torch.models.les.state import LESState, LESForcing
+    from sp_coupler_tpu_torch.parallel import plane as pplane, sharding
+    pmesh.init_distributed("cpu")
+    rank = pmesh.rank()
+    data = np.load(inp)
+    rep = {"rank": rank}
+    m22 = pmesh.make_mesh(1, 2, 2)
+    rep["plane_2x2"] = _plane_checks(m22)
+    rep["plane_4x1"] = _plane_checks(pmesh.make_mesh(1, 4, 1))
+    res = {}
+
+    # the projection on 2 x 2 blocks against the whole plane's
+    grid = lgrid.LESGrid(*[int(x) for x in data["grid_n"]],
+                         *[float(x) for x in data["grid_d"]])
+    state = LESState(*[torch.as_tensor(data["s_" + k])
+                       for k in LESState._fields])
+    forcing = LESForcing(*[torch.as_tensor(data["f_" + k])
+                           for k in LESForcing._fields])
+    pl = pplane.for_mesh(m22, grid.ny, grid.nx)
+    gen = torch.Generator().manual_seed(9)
+    u, v, w = (torch.randn(f.shape, generator=gen)
+               for f in (state.u, state.v, state.w))
+    w[:, 0] = w[:, -1] = 0.0
+    solver = poisson.build_solver(grid, state.rhobf, state.rhobh)
+    whole = poisson.project(grid, state.rhobf, state.rhobh, u, v, w, 2.0,
+                            solver=solver)
+    blk = poisson.project(grid, state.rhobf, state.rhobh, pl.block(u),
+                          pl.block(v), pl.block(w), 2.0, solver=solver,
+                          plane=pl)
+    got = [pl.gather(x) for x in blk]
+    rep["project_bitwise"] = all(bool(torch.equal(a, b))
+                                 for a, b in zip(got, whole))
+    rep["project_err"] = max(float((a - b).abs().max())
+                             for a, b in zip(got, whole))
+
+    # the evolve of the fleet on (1, 2, 2) and (2, 2, 1)
+    phys = lstep.LESPhysics()
+    n = state.u.shape[0]
+    for name, mesh in (("evolve_122", m22),
+                       ("evolve_221", pmesh.make_mesh(2, 2, 1))):
+        p = pplane.for_mesh(mesh, grid.ny, grid.nx)
+        local = pmesh.shard_fleet(state, mesh, p)
+        got, nsub, _ = evolve_fleet(
+            grid, phys, local, sharding.local_rows(forcing, mesh, n), 20.0,
+            True, dt_max=5.0, plane=p)
+        whole = sharding.gather_rows(dict(state=p.gather_fields(got),
+                                          nsub=nsub), mesh, n)
+        for k, x in zip(LESState._fields, whole["state"]):
+            res["%s_%s" % (name, k)] = x.numpy()
+        res[name + "_nsub"] = whole["nsub"].numpy()
+
+    # the fused coupled step on (1, 2, 2)
+    cg = lgrid.LESGrid(*[int(x) for x in data["c_grid_n"]],
+                       *[float(x) for x in data["c_grid_d"]])
+    cst = LESState(*[torch.as_tensor(data["c_" + k])
+                     for k in LESState._fields])
+    core = gcm_model.GCMCore(gcm_model.GCMConfig(trunc=10, nlev=8, dt=60.0),
+                             device="cpu")
+    gs = core.initial_state(seed=0)
+    fn = CoupledStepFn(core, cg, phys, [100], 15.0, 0, mesh=m22)
+    prof0 = ldiag.slab_profiles(cg, cst)
+    cp = fn.plane
+    gs, les, prof, _, diag = fn(gs, cp.block_fields(cst), prof0,
+                                np.zeros(1, np.float32), 0, first=True)
+    pmesh.replicate(gs, m22)
+    res["coupled_THL"] = prof["THL"].numpy()
+    res["coupled_thl"] = cp.gather(les.thl).numpy()
+    res["coupled_nsub"] = fn.unpack_diag(diag)["n_substeps"]
+    if rank == 0:
+        np.savez(out + ".npz", **res)
+    pmesh.shutdown()
+    with open("%s.%d.json" % (out, rank), "w") as f:
+        json.dump(rep, f)
+
+
 def main():
     mode, args = sys.argv[1], sys.argv[2:]
     if mode == "evolve":
@@ -135,6 +255,8 @@ def main():
         return cli(args[0], args[1:])
     if mode == "misc":
         return misc(*args)
+    if mode == "spatial":
+        return spatial(*args)
     raise SystemExit("unknown mode %s" % mode)
 
 
