@@ -9,8 +9,9 @@ tendency path) through the scalar and momentum kernels; then the
 semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
 64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel;
 then the main path's case on 2 ranks sharing the card (instance
-parallelism over torch.distributed), and on 4 ranks each holding a block
-of every plane (--lesprocs 4: the kernels in their halo mode).
+parallelism over torch.distributed), on 4 ranks each holding a block
+of every plane (--lesprocs 4: the kernels in their halo mode), and the
+GCM on latitude bands (--gcmprocs) with the T159 case on 4 ranks.
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
@@ -104,6 +105,24 @@ Phases (any failure raises and exits non-zero):
      + nudge leg with --mesh_les 2 --lesprocs 2, whose lesflat/lesmom
      launches are in halo mode; writes chip_smoke_spatial.json and the
      ranks' logs spatial_rank<r>.log.
+  15. the GCM's latitude bands (phase_gcm_bands, --gcmprocs): (a) the
+     T159/L19 SL GCM on hybrid levels on 4 bands of 60 rows (4 gloo
+     ranks sharing the card), 3 steps from a CPU-built start against one
+     process on the card: spectral vort, div, T, q at atol 2e-4 / rtol
+     1e-3 and grid T at 5e-3 / 1e-4 (tests/test_parallel.py:116-128), the
+     spectral state the same on every rank bit for bit, each step's
+     CUDA-event time beside one process's, the all_reduces a step and
+     their bytes; (c) one coupled step of the T159 regional case with
+     les = 4 (16 instances a rank) and the GCM on 4 bands, from phase
+     12's start, against phase 12's first step: the per-instance
+     substeps, the profiles within PROFILE_TOL[0], each rank's lesstage
+     3 x its batched loop's substeps, wall and peak memory; (b) the bench
+     case through the CLI with --mesh_les 2 --gcmprocs 2 on 2 ranks
+     against phase 13's single process: step 1's substeps, rank 0's
+     records within PROFILE_TOL, the spectral state the same on both
+     ranks, lesstage 3 x each rank's substeps. Every rank's grid must
+     hold nlat / P rows. Writes chip_smoke_bands.json and the ranks' logs
+     bands_rank<r>.log, bands_cli_rank<r>.log.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1322,30 +1341,34 @@ def mesh_rank(odir, conf, report):
     return 0
 
 
-def run_ranks(odir, conf, report, store):
-    """Start the MESH_RANKS ranks of phase_mesh on this card (gloo, the
-    card shared); each must exit 0 within MESH_TIMEOUT, else every rank
-    is killed and the phase fails. Their logs go to OUT_DIR."""
+def run_rank_set(tag, n, timeout, argv, store, threads=None):
+    """Start n ranks of this script (``chip_smoke.py ARGV``, SPTPU_DIST_*
+    set) on this card, gloo (the card shared), meeting through the file
+    store; each must exit 0 within timeout s, else every rank is killed
+    and the phase fails. Their logs go to OUT_DIR/<tag>_rank<r>.log.
+    Returns the seconds they took."""
     os.makedirs(OUT_DIR, exist_ok=True)
     here = os.path.dirname(os.path.abspath(__file__))
     procs, logs = [], []
-    for rank in range(MESH_RANKS):
+    for rank in range(n):
         env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
-                   SPTPU_DIST_NPROCS=str(MESH_RANKS),
-                   SPTPU_DIST_PROC_ID=str(rank), SPTPU_DIST_BACKEND="gloo")
-        logs.append(open(os.path.join(OUT_DIR, "mesh_rank%d.log" % rank),
+                   SPTPU_DIST_NPROCS=str(n), SPTPU_DIST_PROC_ID=str(rank),
+                   SPTPU_DIST_BACKEND="gloo")
+        if threads:
+            env["OMP_NUM_THREADS"] = str(threads)
+        logs.append(open(os.path.join(OUT_DIR, "%s_rank%d.log" % (tag, rank)),
                          "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py"),
-             "--mesh-rank", odir, conf, report], cwd=here, env=env,
-            stdout=logs[-1], stderr=subprocess.STDOUT))
+            [sys.executable, os.path.join(here, "chip_smoke.py")]
+            + [str(a) for a in argv], cwd=here, env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
     t0 = time.time()
     try:
         for p in procs:
-            p.wait(timeout=max(1.0, MESH_TIMEOUT - (time.time() - t0)))
+            p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
     except subprocess.TimeoutExpired:
-        raise AssertionError("mesh: the ranks did not finish in %d s (logs "
-                             "in %s/mesh_rank*.log)" % (MESH_TIMEOUT, OUT_DIR))
+        raise AssertionError("%s: the ranks did not finish in %d s (logs in "
+                             "%s/%s_rank*.log)" % (tag, timeout, OUT_DIR, tag))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1355,10 +1378,11 @@ def run_ranks(odir, conf, report, store):
             f.close()
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        with open(os.path.join(OUT_DIR, "mesh_rank%d.log" % bad[0])) as f:
+        with open(os.path.join(OUT_DIR, "%s_rank%d.log" % (tag, bad[0]))) as f:
             tail = f.read()[-3000:]
-        raise AssertionError("mesh: rank(s) %s exited %s:\n%s"
-                             % (bad, [procs[r].returncode for r in bad], tail))
+        raise AssertionError("%s: rank(s) %s exited %s:\n%s"
+                             % (tag, bad, [procs[r].returncode for r in bad],
+                                tail))
     return time.time() - t0
 
 
@@ -1399,8 +1423,10 @@ def phase_mesh(card):
         torch.cuda.empty_cache()
 
         report = os.path.join(tmp, "rank")
-        ranks_wall = run_ranks(os.path.join(tmp, "mesh"), conf, report,
-                               os.path.join(tmp, "store"))
+        ranks_wall = run_rank_set(
+            "mesh", MESH_RANKS, MESH_TIMEOUT,
+            ["--mesh-rank", os.path.join(tmp, "mesh"), conf, report],
+            os.path.join(tmp, "store"))
         reps = []
         for r in range(MESH_RANKS):
             with open("%s.%d.json" % (report, r)) as f:
@@ -1802,48 +1828,6 @@ def spatial_rank(odir, report):
     return 0
 
 
-def run_spatial_ranks(odir, report, store):
-    """Start the SPATIAL_RANKS ranks of phase_spatial on this card (gloo,
-    the card shared); each must exit 0 within SPATIAL_TIMEOUT, else every
-    rank is killed and the phase fails. Their logs go to OUT_DIR."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs, logs = [], []
-    for rank in range(SPATIAL_RANKS):
-        env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
-                   SPTPU_DIST_NPROCS=str(SPATIAL_RANKS),
-                   SPTPU_DIST_PROC_ID=str(rank), SPTPU_DIST_BACKEND="gloo",
-                   OMP_NUM_THREADS="2")
-        logs.append(open(os.path.join(OUT_DIR, "spatial_rank%d.log" % rank),
-                         "w"))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py"),
-             "--spatial-rank", odir, report], cwd=here, env=env,
-            stdout=logs[-1], stderr=subprocess.STDOUT))
-    t0 = time.time()
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, SPATIAL_TIMEOUT - (time.time() - t0)))
-    except subprocess.TimeoutExpired:
-        raise AssertionError("spatial: the ranks did not finish in %d s "
-                             "(logs in %s/spatial_rank*.log)"
-                             % (SPATIAL_TIMEOUT, OUT_DIR))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        with open(os.path.join(OUT_DIR, "spatial_rank%d.log" % bad[0])) as f:
-            tail = f.read()[-3000:]
-        raise AssertionError("spatial: rank(s) %s exited %s:\n%s"
-                             % (bad, [procs[r].returncode for r in bad],
-                                tail))
-    return time.time() - t0
-
-
 def record_diffs(ref_times, ref_groups, rec):
     """{column/variable: largest over records t of max|got_t - ref_t| /
     max|ref_t|} of rank 0's records rec (npz) against the single
@@ -1907,8 +1891,10 @@ def phase_spatial(card, single):
         with open(os.path.join(tmp, "small.json"), "w") as f:
             json.dump(SMAG_CONF, f)
         report = os.path.join(tmp, "rank")
-        ranks_wall = run_spatial_ranks(tmp, report,
-                                       os.path.join(tmp, "store"))
+        ranks_wall = run_rank_set(
+            "spatial", SPATIAL_RANKS, SPATIAL_TIMEOUT,
+            ["--spatial-rank", tmp, report], os.path.join(tmp, "store"),
+            threads=2)
         reps = []
         for r in range(SPATIAL_RANKS):
             with open("%s.%d.json" % (report, r)) as f:
@@ -2284,7 +2270,8 @@ def phase_t159(card):
     dt_les 15 s, evolve_chunks 8, the batched fleet, 2 coupled steps.
     The stage kernel launches 3 x the substeps of the batched loop (the
     substep calls, each over the instances still running). Returns its
-    record."""
+    record and the first step's per-instance substeps and profiles
+    (phase_gcm_bands' reference)."""
     from sp_coupler_tpu_torch.models.les import step as lstep
     rec = dict(card=card, gcm_vs_cpu=t159_gcm_vs_cpu(card))
     torch.cuda.reset_peak_memory_stats()
@@ -2310,6 +2297,9 @@ def phase_t159(card):
             torch.cuda.synchronize()
             wall = time.time() - t0
             nsub = [int(x) for x in fn.unpack_diag(diag)["n_substeps"]]
+            if first:
+                first_step = dict(nsub=nsub, prof={
+                    k: v.cpu().numpy() for k, v in prof.items()})
             for k in ("THL", "QT", "U"):
                 if not bool(torch.isfinite(prof[k]).all()):
                     raise AssertionError("t159: non-finite %s after step %d"
@@ -2352,7 +2342,438 @@ def phase_t159(card):
         "substeps of the batched loop, peak memory %.2f GiB on %s"
         % (core.nlat, core.nlon, T159_LES, grid.nx, grid.ny, grid.nz,
            launches, loop, peak, card))
-    return rec
+    return rec, first_step
+
+
+# ---- the GCM's latitude bands (--gcmprocs) ------------------------------
+
+# ranks sharing this card (gloo), each a subprocess of this script:
+# BANDS_RANKS for (a) and (c), MESH_RANKS for (b), each set within its
+# timeout (a hung collective fails the phase)
+BANDS_RANKS, BANDS_TIMEOUT = 4, 600
+BANDS_CLI_TIMEOUT = 300
+# (a) the T159/L19 SL GCM on hybrid levels alone, BANDS_STEPS steps from
+# a start built on the CPU (as t159_gcm_vs_cpu's), on 4 bands of 60 rows
+# against one process on the card, at tests/test_parallel.py:121-128's
+# tolerances
+BANDS_GCM = dict(trunc=159, nlev=19, dt=900.0, advection="sl", hybrid=True)
+BANDS_STEPS = 3
+SPEC_TOL = dict(atol=2e-4, rtol=1e-3)
+GRID_TOL = dict(atol=5e-3, rtol=1e-4)
+# (b) the bench case through the CLI with --mesh_les 2 --gcmprocs 2
+BANDS_CLI_ARGS = ["--gcmprocs", str(MESH_RANKS)]
+# (c) the T159 regional case (t159_case: T159/L19 SL, 64 x 64x64x160,
+# dt_les 15 s, evolve_chunks 8, batched) on les = 4 ranks of 16 instances
+# with 4 GCM bands of 60 rows, one coupled step from phase_t159's start.
+# A rank's batched loop runs 16 instances where phase_t159's runs 64, and
+# cuBLAS rounds the projection's batched products by the batch, so
+# the trajectories part at rounding level and an instance's adaptive
+# substep count may move by C_SUBSTEP_SLACK (measured: 2 of 64 instances
+# by one substep, NVIDIA H100 80GB HBM3, 700 W)
+C_SUBSTEP_SLACK = 1
+
+
+def bands_core(dev, mesh, **kw):
+    """A banded GCMCore over the mesh's ranks whose bands' all_reduce
+    counts its calls and bytes (core.bands.sums: [bytes, ...])."""
+    from sp_coupler_tpu_torch.models.gcm import model as gcm_model, spharm
+    from sp_coupler_tpu_torch.parallel import bands as pbands
+    bands = pbands.for_mesh(mesh, spharm.GRID_FOR_TRUNC[kw["trunc"]][1])
+    sums, sum_ = [], bands.sum_
+
+    def counting_sum(t):
+        sums.append(t.numel() * t.element_size())
+        return sum_(t)
+
+    bands.sum_, bands.sums = counting_sum, sums
+    core = gcm_model.GCMCore(gcm_model.GCMConfig(**kw), device=dev,
+                             bands=bands)
+    if core.device.type != "cuda":
+        raise AssertionError("GCMCore took %s, not the card" % core.device)
+    return core
+
+
+def cuda_event_ms(fn):
+    """(fn's result, its CUDA-event milliseconds, the host's between a
+    synchronize before and after)."""
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), 1e3 * (time.time() - t0)
+
+
+def bands_rank(odir, report):
+    """One rank of phase_gcm_bands (``chip_smoke.py --bands-rank ODIR
+    REPORT``, SPTPU_DIST_* set, BANDS_RANKS ranks): (a) the T159 SL GCM
+    on 4 bands from ODIR/t159_start.pt, BANDS_STEPS steps, then (c) one
+    coupled step of the T159 regional case with les = 4 and the GCM on 4
+    bands; writes REPORT.<rank>.json and .npz (the replicated spectral
+    state, of rank 0 the gathered grid T and the LES profiles)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch import interop
+    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+    from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
+                                                 diag as ldiag)
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    from sp_coupler_tpu_torch.utils import tree
+    try:
+        pmesh.init_distributed(torch.device("cuda"))
+        rank = pmesh.rank()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = pmesh.make_mesh(BANDS_RANKS)
+        arrays = {}
+        # (a)
+        core = bands_core(dev, mesh, **BANDS_GCM)
+        start = torch.load(os.path.join(odir, "t159_start.pt"),
+                           weights_only=False)
+        s = core.band_state(interop.gcm_state(interop.to_numpy(start), dev))
+        steps = []
+        for i in range(BANDS_STEPS):
+            n0 = len(core.bands.sums)
+            s, ev_ms, host_ms = cuda_event_ms(
+                lambda: core.step(s, first=i == 0))
+            steps.append(dict(cuda_ms=ev_ms, host_ms=host_ms,
+                              sums=len(core.bands.sums) - n0,
+                              sum_bytes=sum(core.bands.sums[n0:])))
+        rows = int(s.grid.T.shape[-2])
+        for i, leaf in enumerate(tree.flatten(core.replicated(s))[0]):
+            arrays["spec_%d" % i] = leaf.cpu().numpy()
+        gridT = core.whole_state(s).grid.T
+        if rank == 0:
+            arrays["gridT"] = gridT.cpu().numpy()
+        gcm = dict(steps=steps, rows=rows,
+                   band=[core.bands.r0, core.bands.r1])
+        del core, s, start, gridT
+        torch.cuda.empty_cache()
+        # (c) phase_t159's start (t159_case), the fleet in les blocks
+        whole = gcm_core(dev, trunc=159, nlev=19, dt=900.0, advection="sl")
+        grid = lgrid.LESGrid()
+        cols = t159_columns(whole)
+        gs = whole.initial_state(seed=0)
+        les = seed_les(whole, gs, grid, cols)
+        prof = ldiag.slab_profiles(grid, les)
+        del whole
+        core = bands_core(dev, mesh, trunc=159, nlev=19, dt=900.0,
+                          advection="sl")
+        gs = core.band_state(gs)
+        # the rank's instances, apart from the whole fleet's storage
+        les = type(les)(*[x.clone() for x in pmesh.shard_fleet(les, mesh)])
+        fn = CoupledStepFn(core, grid, lstep.LESPhysics(), cols, dt_les=15.0,
+                           n_substeps=0, evolve_chunks=8,
+                           serial_evolve="batched", mesh=mesh)
+        calls = [0]
+        substep = lstep.substep
+
+        def counting_substep(*a, **kw):
+            calls[0] += 1
+            return substep(*a, **kw)
+
+        lstep.substep = counting_substep
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_launches()
+            out, ev_ms, host_ms = cuda_event_ms(lambda: fn(
+                gs, les, prof, torch.zeros(len(cols), device=dev), 0,
+                first=True))
+            launches = read_launches()
+        finally:
+            lstep.substep = substep
+        gs, les, prof, _, diag = out
+        for k, v in prof.items():
+            if rank == 0:
+                arrays["prof_" + k] = v.cpu().numpy()
+        regional = dict(
+            wall_s=host_ms / 1e3, cuda_ms=ev_ms, loop_substeps=calls[0],
+            launches=launches, positions=mesh.positions(len(cols)),
+            nsub=[int(x) for x in fn.unpack_diag(diag)["n_substeps"]],
+            held=int(les.u.shape[0]), rows=int(gs.grid.T.shape[-2]),
+            sums=len(core.bands.sums), sum_bytes=sum(core.bands.sums),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        for i, leaf in enumerate(tree.flatten(core.replicated(gs))[0]):
+            arrays["t159_spec_%d" % i] = leaf.cpu().numpy()
+        rep = dict(rank=rank, device=str(dev), gcm=gcm, regional=regional)
+    finally:
+        pmesh.shutdown()
+    np.savez("%s.%d.npz" % (report, rank), **arrays)
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def bands_cli_rank(odir, conf, report):
+    """One rank of phase_gcm_bands (b) (``chip_smoke.py --bands-cli-rank
+    ODIR CONF REPORT``, MESH_RANKS ranks): the bench case through the CLI
+    with --mesh_les 2 --gcmprocs 2; writes REPORT.<rank>.json and .npz
+    (the replicated spectral state), rank 0 REPORT.records.npz."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    from sp_coupler_tpu_torch.utils import tree
+    try:
+        runner, walls, launches = cli_leg(
+            bench_argv(odir, conf, MESH_RANKS) + BANDS_CLI_ARGS,
+            MemoryWriter)
+        rank = pmesh.rank()
+        core = runner.gcm.core
+        if runner.mesh is None or core.bands is None:
+            raise AssertionError("rank %d: mesh %s, GCM bands %s"
+                                 % (rank, runner.mesh, core.bands))
+        arrays = {"spec_%d" % i: leaf.cpu().numpy() for i, leaf in
+                  enumerate(tree.flatten(core.replicated(
+                      runner.gcm.state))[0])}
+        if rank == 0:
+            times, groups = read_records(os.path.join(odir, "spifs.nc"))
+            np.savez(report + ".records.npz", Time=np.asarray(times),
+                     **{"%d/%s" % (c, v): a for c, g in groups.items()
+                        for v, a in g.items()})
+        pos = runner.fleet.positions
+        rep = dict(rank=rank, positions=pos, walls=walls,
+                   substeps=runner.substeps, launches=launches,
+                   own_substeps=int(sum(s[p] for s in runner.substeps
+                                        for p in pos)),
+                   rows=int(runner.gcm.state.grid.T.shape[-2]),
+                   band=[core.bands.r0, core.bands.r1])
+    finally:
+        pmesh.shutdown()
+    np.savez("%s.%d.npz" % (report, rank), **arrays)
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def same_on_ranks(arrays, prefix):
+    """The array keys starting with prefix that differ from rank 0's on
+    some rank, as "key (rank r)" (empty: the same everywhere, bit for
+    bit)."""
+    return ["%s (rank %d)" % (k, r) for r, a in enumerate(arrays[1:], 1)
+            for k in arrays[0] if k.startswith(prefix)
+            and not np.array_equal(a[k], arrays[0][k])]
+
+
+def spectral_now(arrays, prefix):
+    """{field: array} of the replicated state's ``now`` a rank kept (the
+    flattened leaves of {new, now, prev, time}: now's 8 fields second)."""
+    names = ("vort", "div", "T", "lnps", "q", "ql", "qi", "a")
+    return {k: arrays["%s_%d" % (prefix, 8 + i)] for i, k in enumerate(names)}
+
+
+def beyond(got, ref, atol, rtol):
+    """max |got - ref| and whether any point lies beyond atol + rtol |ref|
+    (np.testing.assert_allclose's rule)."""
+    err = np.abs(got - ref)
+    return float(np.max(err)), bool(np.any(err > atol + rtol * np.abs(ref)))
+
+
+def phase_gcm_bands(card, single, t159_first):
+    """The GCM on latitude bands (--gcmprocs) on the card, ranks sharing
+    it over gloo (not a scaling number): (a) the T159/L19 SL GCM on hybrid
+    levels, 4 bands of 60 rows, BANDS_STEPS steps against one process
+    here: spectral vort, div, T, q and grid T at the JAX tests'
+    tolerances, the spectral state the same on every rank, the step's
+    CUDA-event walls beside one process's, the collectives a step and
+    their bytes; (c) one coupled step of the T159 regional case with
+    les = 4 (16 instances a rank) and 4 GCM bands against phase_t159's
+    first step (``t159_first``): the per-instance substeps within
+    C_SUBSTEP_SLACK, the profiles within PROFILE_TOL[0], each rank's
+    lesstage 3 x its batched loop's substeps, its wall and peak memory;
+    (b) the bench case through the CLI with --mesh_les 2 --gcmprocs 2
+    against phase_mesh's single process (``single``): step 1's substeps,
+    rank 0's records within PROFILE_TOL (f_thl with F_ULPS, as
+    phase_spatial), each rank lesstage 3 x its own substeps. Every rank's
+    grid T must hold nlat / P rows. Every leg runs and is reported; any
+    failed check fails the phase after chip_smoke_bands.json is written.
+    Returns the ranks' launch counts."""
+    import tempfile
+    from sp_coupler_tpu_torch import interop
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    from sp_coupler_tpu_torch.verify.parity import PROFILE_TOL
+    t_phase = time.time()
+    res, fails, launches = dict(card=card), [], []
+
+    def check_launches(leg, rank, counts, substeps):
+        for k, count in counts.items():
+            want = 3 * substeps if k == "lesstage" else 0
+            if count != want or (k == "lesstage" and count == 0):
+                fails.append("bands (%s): rank %d launched %s %d times, want "
+                             "%d (3 x its %d substeps)"
+                             % (leg, rank, k, count, want, substeps))
+        launches.append(counts)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)'s start on the CPU, and one process's steps on the card
+        start = gcm_core("cpu", **BANDS_GCM).initial_state(seed=0)
+        torch.save(start, os.path.join(tmp, "t159_start.pt"))
+        core = gcm_core("cuda", **BANDS_GCM)
+        s = interop.gcm_state(interop.to_numpy(start), "cuda")
+        one_ms = []
+        for i in range(BANDS_STEPS):
+            s, ev_ms, _ = cuda_event_ms(lambda: core.step(s, first=i == 0))
+            one_ms.append(ev_ms)
+        ref_now = {k: getattr(s.now, k).cpu().numpy()
+                   for k in ("vort", "div", "T", "q")}
+        ref_T = s.grid.T.cpu().numpy()
+        nlat = core.nlat
+        del core, s, start
+        torch.cuda.empty_cache()
+
+        report = os.path.join(tmp, "bands")
+        ranks_wall = run_rank_set(
+            "bands", BANDS_RANKS, BANDS_TIMEOUT,
+            ["--bands-rank", tmp, report], os.path.join(tmp, "store"))
+        reps, arrays = [], []
+        for r in range(BANDS_RANKS):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+            arrays.append(dict(np.load("%s.%d.npz" % (report, r))))
+        nb = nlat // BANDS_RANKS
+        for rep in reps:
+            for leg in ("gcm", "regional"):
+                if rep[leg]["rows"] != nb:
+                    fails.append("bands (%s): rank %d's grid has %d rows, "
+                                 "want %d" % (leg, rep["rank"],
+                                              rep[leg]["rows"], nb))
+        # (a)
+        fails += ["bands (a): %s differs" % d
+                  for d in same_on_ranks(arrays, "spec_")]
+        got = spectral_now(arrays[0], "spec")
+        pairs = [(k, got[k], ref, SPEC_TOL) for k, ref in ref_now.items()]
+        pairs.append(("grid_T", arrays[0]["gridT"], ref_T, GRID_TOL))
+        errs = {}
+        for k, g, ref, tol in pairs:
+            errs[k], bad = beyond(g, ref, **tol)
+            if bad:
+                fails.append("bands (a): %s beyond atol %g / rtol %g (max "
+                             "abs err %.3g)" % (k, tol["atol"], tol["rtol"],
+                                                errs[k]))
+        steps = [r["gcm"]["steps"] for r in reps]
+        log("bands (a): T159/L19 SL hybrid GCM on %d bands of %d rows (4 "
+            "gloo ranks sharing the card), %d steps from the CPU-built "
+            "start, against one process: max abs err %s; spectral state "
+            "the same on every rank: %s; %s all_reduces a step moving %s "
+            "B; step CUDA-event ms: ranks %s, one process %s (one shared "
+            "card: not a scaling number) on %s"
+            % (BANDS_RANKS, nb, BANDS_STEPS,
+               {k: float("%.3g" % v) for k, v in errs.items()},
+               not same_on_ranks(arrays, "spec_"),
+               [st["sums"] for st in steps[0]],
+               [st["sum_bytes"] for st in steps[0]],
+               [["%.1f" % st["cuda_ms"] for st in rs] for rs in steps],
+               ["%.1f" % x for x in one_ms], card))
+        res["a"] = dict(errors=errs, one_process_ms=one_ms, ranks=[
+            dict(band=r["gcm"]["band"], steps=r["gcm"]["steps"])
+            for r in reps])
+
+        # (c)
+        fails += ["bands (c): %s differs" % d
+                  for d in same_on_ranks(arrays, "t159_spec_")]
+        reg = [r["regional"] for r in reps]
+        want = np.asarray(t159_first["nsub"])
+        dsub = np.asarray(reg[0]["nsub"]) - want
+        if np.any(np.abs(dsub) > C_SUBSTEP_SLACK) or any(
+                r["nsub"] != reg[0]["nsub"] for r in reg):
+            fails.append("bands (c): substeps %s, phase_t159's %s"
+                         % ([r["nsub"] for r in reg], want.tolist()))
+        for rep in reps:
+            r = rep["regional"]
+            check_launches("c", rep["rank"], r["launches"],
+                           r["loop_substeps"])
+        prof_err = {}
+        for k, ref in t159_first["prof"].items():
+            g = arrays[0]["prof_" + k]
+            scale = float(np.max(np.abs(ref))) + 1e-12
+            prof_err[k] = float(np.max(np.abs(g - ref))) / scale
+            if prof_err[k] > PROFILE_TOL[0]:
+                fails.append("bands (c): profile %s at %.3g of max|ref|, "
+                             "beyond PROFILE_TOL %g"
+                             % (k, prof_err[k], PROFILE_TOL[0]))
+        worst = max(prof_err.items(), key=lambda kv: kv[1])
+        log("bands (c): the T159 regional case (T159/L19 SL + 64 x "
+            "64x64x160), les = 4 ranks x 16 instances, the GCM on 4 bands "
+            "of %d rows, one coupled step: per-instance substeps against "
+            "phase_t159's first step's: %d of 64 differ (by %s), %d in "
+            "all against %d; profiles: largest %s %.3g of max|ref| "
+            "(PROFILE_TOL[0] %g); ranks' batched-loop substeps %s, lesstage "
+            "%s; walls %s s, peak memory %s GiB, %s all_reduces moving %s B "
+            "(one shared card: not a scaling number) on %s"
+            % (nb, int(np.count_nonzero(dsub)),
+               sorted(set(dsub[dsub != 0].tolist())),
+               int(np.sum(reg[0]["nsub"])), int(np.sum(want)), worst[0],
+               worst[1], PROFILE_TOL[0],
+               [r["loop_substeps"] for r in reg],
+               [r["launches"]["lesstage"] for r in reg],
+               ["%.2f" % r["wall_s"] for r in reg],
+               ["%.2f" % r["peak_memory_gib"] for r in reg],
+               [r["sums"] for r in reg], [r["sum_bytes"] for r in reg],
+               card))
+        res["c"] = dict(profile_rel_err=prof_err, ranks=reg,
+                        substep_diff=dsub.tolist())
+
+        # (b)
+        conf = os.path.join(tmp, "mesh.json")
+        with open(conf, "w") as f:
+            json.dump(MESH_CONF, f)
+        report = os.path.join(tmp, "cli")
+        cli_wall = run_rank_set(
+            "bands_cli", MESH_RANKS, BANDS_CLI_TIMEOUT,
+            ["--bands-cli-rank", os.path.join(tmp, "cli_out"), conf, report],
+            os.path.join(tmp, "store_cli"))
+        reps, arrays = [], []
+        for r in range(MESH_RANKS):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+            arrays.append(dict(np.load("%s.%d.npz" % (report, r))))
+        fails += ["bands (b): %s differs" % d
+                  for d in same_on_ranks(arrays, "spec_")]
+        want_rows = spharm.GRID_FOR_TRUNC[21][1] // MESH_RANKS
+        for rep in reps:
+            if rep["rows"] != want_rows:
+                fails.append("bands (b): rank %d's grid has %d rows, want %d"
+                             % (rep["rank"], rep["rows"], want_rows))
+            if rep["substeps"][0] != single["substeps"][0]:
+                fails.append("bands (b): rank %d's step 1 substeps %s, "
+                             "single %s" % (rep["rank"], rep["substeps"][0],
+                                            single["substeps"][0]))
+            check_launches("b", rep["rank"], rep["launches"],
+                           rep["own_substeps"])
+        try:
+            diffs = record_diffs(single["times"], single["groups"],
+                                 np.load(report + ".records.npz"))
+            worst = max(diffs.items(), key=lambda kv: kv[1])
+        except AssertionError as e:
+            diffs, worst = {}, ("(failed)", float("nan"))
+            fails.append("bands (b): %s" % e)
+        log("bands (b): the bench case (T21/L19 + 2 x 64x64x160) through the "
+            "CLI with --mesh_les 2 --gcmprocs 2 on 2 gloo ranks sharing the "
+            "card, bands %s: substeps %s (single %s), rank 0's %d records: "
+            "largest difference %s %.3g of max|ref|; spectral state the same "
+            "on both ranks: %s; lesstage %s, own substeps %s; step walls %s "
+            "s, single %s s (not a scaling number) on %s"
+            % ([r["band"] for r in reps], reps[0]["substeps"],
+               single["substeps"], len(single["times"]), worst[0], worst[1],
+               not same_on_ranks(arrays, "spec_"),
+               [r["launches"]["lesstage"] for r in reps],
+               [r["own_substeps"] for r in reps],
+               [["%.3f" % w for w in r["walls"]] for r in reps],
+               ["%.3f" % w for w in single["walls"]], card))
+        res["b"] = dict(record_diffs=diffs, ranks=reps,
+                        single_walls=single["walls"])
+        res.update(ranks_wall_s=ranks_wall, cli_wall_s=cli_wall,
+                   phase_s=time.time() - t_phase, fails=fails)
+    with open(os.path.join(OUT_DIR, "chip_smoke_bands.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    log("bands: the phase took %.1f s (the 4 ranks %.1f s, the CLI ranks "
+        "%.1f s)" % (res["phase_s"], ranks_wall, cli_wall))
+    if fails:
+        raise AssertionError("bands: %d check(s) failed: %s"
+                             % (len(fails), "; ".join(fails)))
+    return launches
 
 
 def write_t159(gcm_sl, t159):
@@ -2377,13 +2798,14 @@ def main():
     runs.append(phase_parity(card))
     runs.append(phase_chunked(card))
     gcm_sl = phase_gcm_sl(card)
-    t159 = phase_t159(card)
+    t159, t159_first = phase_t159(card)
     write_t159(gcm_sl, t159)
     runs.append(t159["launches"])
     mesh_runs, single = phase_mesh(card)
     runs += mesh_runs
     halo_stats, halo_runs = phase_spatial(card, single)
     runs += halo_runs
+    runs += phase_gcm_bands(card, single, t159_first)
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():
@@ -2416,4 +2838,8 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--spatial-rank"]:
         sys.exit(spatial_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--bands-rank"]:
+        sys.exit(bands_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--bands-cli-rank"]:
+        sys.exit(bands_cli_rank(*sys.argv[2:5]))
     sys.exit(main())

@@ -25,7 +25,12 @@ them together (halo exchanges, plane reductions, the gathered
 projection), the slab profiles and the nudge reduce over the plane, so
 every rank of a plane holds its instances' profiles, and the rows cross
 over the les group (the ranks at the same block of every slot). The GCM
-stays replicated on every rank (``parallel.mesh.replicate`` checks it).
+stays replicated on every rank (``parallel.mesh.replicate`` checks it),
+or with a banded core (--gcmprocs, ``parallel/bands.py``) its spectral
+state does, each rank holding its latitude band of the grid: the column
+profiles then come from the bands that hold them, the same on every
+rank, and a rank scatters the tendencies of its band's columns; the
+cloud fraction on GCM levels still follows the gather.
 """
 
 import time

@@ -11,9 +11,10 @@ driver writes nothing on the first restarted step, splib.py:272-274).
 
 In a multi-process run the file holds the whole fleet: ``save`` gathers
 every rank's block (the planes over each plane's ranks, then the rows over
-the les slots; a collective: every rank calls it) and rank 0 writes;
-``load`` reads the file on every rank and keeps the rank's block of rows
-and planes. So a checkpoint resumes under any decomposition.
+the les slots, and a banded GCM's grid space over its latitude bands; a
+collective: every rank calls it) and rank 0 writes; ``load`` reads the
+file on every rank and keeps the rank's block of rows and planes and its
+GCM band. So a checkpoint resumes under any decomposition.
 """
 
 import json
@@ -75,7 +76,10 @@ def save(runner):
         "gcm_step": int(getattr(runner.gcm, "step_count", 0)),
     }
     if hasattr(runner.gcm, "state"):
-        out.update(_flatten("gcm", runner.gcm.state))
+        core = getattr(runner.gcm, "core", None)
+        state = runner.gcm.state
+        out.update(_flatten("gcm", state if core is None
+                            else core.whole_state(state)))
     if getattr(runner.fleet, "state", None) is not None:
         state = runner.fleet.state
         if getattr(runner.fleet, "plane", None) is not None:
@@ -101,7 +105,10 @@ def load(runner):
         meta = json.load(f)
     with np.load(path) as data:
         if hasattr(runner.gcm, "state"):
-            runner.gcm.state = _unflatten("gcm", data, runner.gcm.state)
+            state = _unflatten("gcm", data, runner.gcm.state)
+            core = getattr(runner.gcm, "core", None)
+            runner.gcm.state = (state if core is None
+                                else core.band_state(state))
             runner.gcm._first = False
             runner.gcm.step_count = int(meta.get("gcm_step", 0))
         plane = getattr(runner.fleet, "plane", None)

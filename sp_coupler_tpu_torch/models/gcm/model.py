@@ -1,15 +1,26 @@
 """GCM model core: phase-split stepping + the column API of the coupler.
 
-Port of ``sp_coupler_tpu/models/gcm/model.py::GCMCore`` on one device:
-the initial state, the three-phase step split at the cloud scheme
-(phase A = dynamics + pre-cloud physics, cloud scheme, phase B = SP
-tendencies + re-analysis + time filter), column gather, surface fields
-and SP-tendency scatter, with Eulerian or semi-Lagrangian dynamics
-(``semilag.py``) on sigma or hybrid levels, and the ``split_phases``
-low-memory mode. The operator tables live on the core's device; the JAX
-package's ``consts``/``bound`` jit plumbing and buffer donation have no
-counterpart here. ``GCMModel`` is the host shell with the reference's
-duck-typed model API that the driver calls.
+Port of ``sp_coupler_tpu/models/gcm/model.py::GCMCore``: the initial
+state, the three-phase step split at the cloud scheme (phase A = dynamics
++ pre-cloud physics, cloud scheme, phase B = SP tendencies + re-analysis +
+time filter), column gather, surface fields and SP-tendency scatter, with
+Eulerian or semi-Lagrangian dynamics (``semilag.py``) on sigma or hybrid
+levels, and the ``split_phases`` low-memory mode. The operator tables
+live on the core's device; the JAX package's ``consts``/``bound`` jit
+plumbing and buffer donation have no counterpart here. ``GCMModel`` is
+the host shell with the reference's duck-typed model API that the driver
+calls.
+
+With ``bands`` (--gcmprocs, ``parallel/bands.py``; JAX's
+``GCMCore(mesh=, shard_axis=)``) every rank of the mesh runs the core on
+its latitude band: the spectral state (``now``, ``prev``, ``new``) and
+``time`` are replicated, the same on every rank bit for bit; the grid
+fields, ``sfc``, ``sp_tend``, ``vdiff_mask``, ``lat_rad`` and ``fcor``
+hold the band's rows. The physics is columnwise and runs on the band as
+on the whole grid. Column profiles and surface fields come from the rank
+whose band holds each column (``Bands.columns``, exact); a rank scatters
+the tendencies of its band's columns. ``whole_state``/``band_state``
+convert a state between the bands and the whole grid (restart).
 """
 
 import dataclasses
@@ -70,9 +81,10 @@ class GCMConfig:
 
 
 class GCMCore:
-    """Precomputed operators + phase functions on one device."""
+    """Precomputed operators + phase functions on one device; bands: this
+    rank's latitude band (``parallel.bands.Bands``) or None."""
 
-    def __init__(self, cfg: GCMConfig, device=None):
+    def __init__(self, cfg: GCMConfig, device=None, bands=None):
         if cfg.advection not in ("eulerian", "sl"):
             raise ValueError("GCMConfig.advection must be 'eulerian' or "
                              "'sl', got %r" % (cfg.advection,))
@@ -82,7 +94,9 @@ class GCMCore:
                              % (cfg.sl_coriolis,))
         self.cfg = cfg
         self.device = default_device(device)
-        self.sht = spharm.SpectralTransform(cfg.trunc, device=self.device)
+        self.bands = bands
+        self.sht = spharm.SpectralTransform(cfg.trunc, device=self.device,
+                                            bands=bands)
         self.vc = vertical.VerticalCoords(cfg.nlev, tref=cfg.tref,
                                           device=self.device,
                                           hybrid=cfg.hybrid)
@@ -118,6 +132,7 @@ class GCMCore:
                                     device=self.device)[:, None]
         self.nlat, self.nlon = self.sht.nlat, self.sht.nlon
         self.ncols = self.nlat * self.nlon
+        self.rows = self.nlat if bands is None else bands.nb   # grid rows
 
     # ---- initial condition ------------------------------------------------
 
@@ -132,7 +147,7 @@ class GCMCore:
         _, p_full = vc.pressures(ps)
         p_full = p_full[:, None, None]
         Teq = physics.equilibrium_temperature(p_full, self.lat_rad, cfg.phys)
-        T_grid = Teq.expand(L, self.nlat, self.nlon)
+        T_grid = Teq.expand(L, self.rows, self.nlon)
         rh = 0.8 * vc.sf[:, None, None] ** 1.5
         q_grid = rh * thermo.qsat_liq(T_grid, p_full)
         spec = dycore.SpectralState.zeros(L, M, N, device=dev)
@@ -147,7 +162,7 @@ class GCMCore:
         return GCMState(
             now=spec, prev=spec, new=spec, grid=grid,
             sfc=self._surface(grid), sp_tend=_zero_sp_tend(dev),
-            vdiff_mask=torch.ones((self.nlat, self.nlon), dtype=torch.float32,
+            vdiff_mask=torch.ones((self.rows, self.nlon), dtype=torch.float32,
                                   device=dev),
             time=torch.zeros((), dtype=torch.float32, device=dev))
 
@@ -182,13 +197,14 @@ class GCMCore:
         if not (self.cfg.split_phases and self.slg is not None):
             return self._phase_a_body(state, first)
         cfg, sht, vc, slg = self.cfg, self.sht, self.vc, self.slg
+        whole = sht.whole       # the source fields span the whole grid
         dt2 = cfg.dt if first else 2.0 * cfg.dt
-        mg = semilag.sl_mid_grid(sht, vc, slg, state.now)
-        mid = semilag.sl_mid_terms(sht, vc, slg, state.now, mg,
+        mg = semilag.sl_mid_grid(whole, vc, slg, state.now)
+        mid = semilag.sl_mid_terms(whole, vc, slg, state.now, mg,
                                    coriolis=self.sl_cor)
         del mg
-        traj = semilag.sl_trajectories(sht, vc, slg, state.now, dt2)
-        stack = semilag.sl_dep_stack(sht, vc, slg, state.now, state.prev,
+        traj = semilag.sl_trajectories(whole, vc, slg, state.now, dt2)
+        stack = semilag.sl_dep_stack(whole, vc, slg, state.now, state.prev,
                                      dt2, decenter=cfg.sl_decenter,
                                      coriolis=self.sl_cor)
         angm = traj["angm"]
@@ -299,16 +315,25 @@ class GCMCore:
 
     # ---- column API (used by the coupler) ----------------------------------
 
+    def _columns(self, fields, col_idx):
+        """Each of fields [..., rows, nlon] at the columns col_idx [n] of
+        the whole grid: [..., n] (under bands, from the rank whose band
+        holds each column; a collective)."""
+        if self.bands is not None:
+            return self.bands.columns(fields, col_idx)
+        j = col_idx // self.nlon
+        i = col_idx % self.nlon
+        return [f[..., j, i] for f in fields]
+
     def column_profiles(self, state: GCMState, col_idx):
         """Per-column profiles [n, L] (or [n, L+1]) at the post-cloud-scheme
         point, levels top-first. col_idx: [n] flat lat-major indices."""
         g = state.grid
-        j = col_idx // self.nlon
-        i = col_idx % self.nlon
-        take = lambda f: f[:, j, i].T
-        ps = c.pref0 * torch.exp(g.lnps[j, i])
+        u, v, T, q, ql, qi, a, lnps = self._columns(
+            [g.u, g.v, g.T, g.q, g.ql, g.qi, g.a, g.lnps], col_idx)
+        ps = c.pref0 * torch.exp(lnps)
         ph_l, pf_l = self.vc.pressures(ps)
-        Tcols = take(g.T)
+        Tcols = T.T
         if self.vc.hybrid:
             hc = self.vc.hybrid_coeffs(ps)
             zg_full = self.vc.geopotential_full(
@@ -318,32 +343,68 @@ class GCMCore:
             zg_full = self.vc.geopotential_full(Tcols)
             zg_half = self.vc.geopotential_half(Tcols)
         return {
-            "U": take(g.u), "V": take(g.v), "T": Tcols,
-            "SH": take(g.q), "QL": take(g.ql), "QI": take(g.qi),
-            "A": take(g.a), "Pfull": pf_l.T, "Phalf": ph_l.T,
+            "U": u.T, "V": v.T, "T": Tcols, "SH": q.T, "QL": ql.T,
+            "QI": qi.T, "A": a.T, "Pfull": pf_l.T, "Phalf": ph_l.T,
             "Zgfull": zg_full, "Zghalf": zg_half,
         }
 
     def surface_fields(self, state: GCMState, col_idx):
         """The surface fields the coupler converts under cplsurf, [n] per
         key, at the columns col_idx."""
-        j = col_idx // self.nlon
-        i = col_idx % self.nlon
-        return {k: state.sfc[k][j, i] for k in (
-            "Z0M", "Z0H", "QLflux", "QIflux", "SHflux", "TLflux", "TSflux")}
+        keys = ("Z0M", "Z0H", "QLflux", "QIflux", "SHflux", "TLflux",
+                "TSflux")
+        return dict(zip(keys, self._columns([state.sfc[k] for k in keys],
+                                            col_idx)))
 
     def with_sp_tendencies(self, state: GCMState, col_idx, tend):
         """Scatter per-column tendencies ([n, L] per variable) into the
-        dense SP buffers."""
+        dense SP buffers; under bands, those of the band's columns."""
         j = col_idx // self.nlon
         i = col_idx % self.nlon
+        if self.bands is not None:
+            mine = (j >= self.bands.r0) & (j < self.bands.r1)
+            j, i = j[mine] - self.bands.r0, i[mine]
+            tend = {k: v[mine] for k, v in tend.items()}
         new_t = dict(state.sp_tend)
-        shape = (self.cfg.nlev, self.nlat, self.nlon)
+        shape = (self.cfg.nlev, self.rows, self.nlon)
         for k, v in tend.items():
             base = new_t[k].expand(shape).clone()
             base[:, j, i] = v.T
             new_t[k] = base
         return state._replace(sp_tend=new_t)
+
+    # ---- bands and the whole grid ------------------------------------------
+
+    def _map_grid(self, state: GCMState, fn):
+        """state with fn applied to every grid-space tensor (the grid
+        fields, sfc, sp_tend and vdiff_mask; not the scalar zeros of
+        cleared tendencies)."""
+        f = lambda x: fn(x) if torch.is_tensor(x) and x.dim() >= 2 else x
+        return state._replace(
+            grid=type(state.grid)(*[f(x) for x in state.grid]),
+            sfc={k: f(v) for k, v in state.sfc.items()},
+            sp_tend={k: f(v) for k, v in state.sp_tend.items()},
+            vdiff_mask=f(state.vdiff_mask))
+
+    def whole_state(self, state: GCMState) -> GCMState:
+        """state with its grid space on the whole grid, on every rank (a
+        collective under bands; state itself without)."""
+        return state if self.bands is None else self._map_grid(
+            state, self.bands.gather)
+
+    def band_state(self, state: GCMState) -> GCMState:
+        """This rank's band of a whole-grid state (state itself without
+        bands)."""
+        return state if self.bands is None else self._map_grid(
+            state, lambda x: self.bands.cut(x).contiguous())
+
+    def replicated(self, state: GCMState):
+        """The part of state that is the same on every rank: the whole
+        state, or under bands the spectral states and the time."""
+        if self.bands is None:
+            return state
+        return dict(now=state.now, prev=state.prev, new=state.new,
+                    time=state.time)
 
 
 class GCMModel:
@@ -351,8 +412,9 @@ class GCMModel:
 
     support_async = False
 
-    def __init__(self, cfg: GCMConfig = GCMConfig(), seed=0, device=None):
-        self.core = GCMCore(cfg, device=device)
+    def __init__(self, cfg: GCMConfig = GCMConfig(), seed=0, device=None,
+                 bands=None):
+        self.core = GCMCore(cfg, device=device, bands=bands)
         self.cfg = cfg
         self.state = self.core.initial_state(seed)
         self.mask = set()
@@ -420,8 +482,10 @@ class GCMModel:
             for idx in self.mask:
                 m[idx // self.core.nlon, idx % self.core.nlon] = 0.0
         self._vdf_disable_in_mask = value
-        self.state = self.state._replace(vdiff_mask=torch.as_tensor(
-            m, device=self.core.device))
+        m = torch.as_tensor(m, device=self.core.device)
+        if self.core.bands is not None:
+            m = self.core.bands.cut(m).contiguous()
+        self.state = self.state._replace(vdiff_mask=m)
 
     def _refresh_vdiff_mask(self):
         if getattr(self, "_vdf_disable_in_mask", False):

@@ -28,6 +28,15 @@ The pipeline functions (``sl_mid_grid`` -> ``sl_mid_terms`` ->
 stages of ``sl_step``; the core's ``split_phases`` mode calls them one by
 one and drops each intermediate as soon as the next stage has consumed
 it.
+
+On latitude bands (--gcmprocs, the transform's ``bands``) the source
+fields the trajectories and interpolations read (``sl_mid_grid``,
+``sl_mid_terms``, ``sl_dep_stack``, the trajectory winds) are synthesized
+over the whole grid on every rank from the replicated spectral state
+(``sht.whole``): the taps reach beyond the band, and the polar ghost rows
+span several bands. The arrival-point work (trajectories, interpolation,
+``sl_arrivals``) runs on the band's rows only, and ``sl_solve``'s
+analysis adds the ranks' sums.
 """
 
 import numpy as np
@@ -65,10 +74,17 @@ class SLGrid:
     widths that cover wind_max at every latitude up to ~80 deg. Without
     ``dt`` one band of width min(10, nlon/2 - 4). The band tables are
     built on the host in float64 numpy, as the JAX package builds them.
+
+    With the transform's ``bands`` the arrival points are the band's rows
+    (``arrival``); the grid tables ``r``, ``e``, ``n`` and the extended
+    latitudes stay whole, for the source fields.
     """
 
     def __init__(self, sht, nghost=12, method=None, dt=None, wind_max=150.0):
         self.nlat, self.nlon = sht.nlat, sht.nlon
+        self.bands = sht.bands
+        self.row0 = 0 if sht.bands is None else sht.bands.r0
+        self.nb = self.nlat if sht.bands is None else sht.bands.nb
         if method is None:
             method = "gather"
         if method not in ("window", "gather"):
@@ -77,7 +93,7 @@ class SLGrid:
         self.method = method
         self.k_chunk = None
         # the float32 mu of the transform, as the JAX package's sht.mu
-        mu = sht.mu.cpu().numpy().astype(np.float64)     # north -> south
+        mu = sht.whole.mu.cpu().numpy().astype(np.float64)  # north -> south
         cosphi = np.cos(np.arcsin(mu))
         dx_eq = 2.0 * np.pi * float(sht.radius) / self.nlon
         cap = max(self.nlon // 2 - 4, 2)
@@ -122,6 +138,16 @@ class SLGrid:
                 segs.append((int(r0), int(prev) + 1))
                 bands.append((segs, int(ladder[li])))
             self.lon_bands = bands
+        # the row segments of lon_bands cut to the arrival rows, in their
+        # numbering (the same list without bands)
+        self.lon_bands_local = []
+        for segs, Si in self.lon_bands:
+            cut = [(max(r0, self.row0) - self.row0,
+                    min(r1, self.row0 + self.nb) - self.row0)
+                   for r0, r1 in segs]
+            cut = [(a, b) for a, b in cut if b > a]
+            if cut:
+                self.lon_bands_local.append((cut, Si))
         phi = np.arcsin(mu)
         lam = 2.0 * np.pi * np.arange(self.nlon) / self.nlon
         # extended latitude nodes (descending): pole-mirrored ghost rows
@@ -140,6 +166,10 @@ class SLGrid:
         self.r = f32(np.stack([cph * clm, cph * slm, sph]))
         self.e = f32(np.stack([-slm, clm, np.zeros_like(clm)]))
         self.n = f32(np.stack([-sph * clm, -sph * slm, cph]))
+
+    def arrival(self, x):
+        """The arrival rows of whole-grid x [..., nlat, nlon]."""
+        return x[..., self.row0:self.row0 + self.nb, :]
 
     # ---- extension + interpolation ------------------------------------
 
@@ -190,8 +220,9 @@ class SLGrid:
         """Interpolate a stack of fields at target points.
 
         fields: [F, K, nlat, nlon] (K: levels; the taps are computed once
-        and shared over F). lam_t, phi_t: [K, nlat, nlon] target angles
-        (lam in [0, 2 pi)). Returns [F, K, nlat, nlon]."""
+        and shared over F). lam_t, phi_t: [K, rows, nlon] target angles
+        (lam in [0, 2 pi)) at the arrival rows. Returns [F, K, rows,
+        nlon]."""
         if self.method == "window":
             return self._interp_window(fields, lam_t, phi_t, cubic)
         return self._interp_gather(fields, lam_t, phi_t, cubic)
@@ -215,12 +246,12 @@ class SLGrid:
         """Latitude taps of the window path: (djb, the topmost tap's row
         offset from the arrival row, and its k node latitudes), from
         compares against statically shifted node rows."""
-        ng, nlat = self.ng, self.nlat
+        j0, nb = self.ng + self.row0, self.nb
         phi_ext = self.phi_ext
 
         def prow(s, l=0):
-            # phi_ext[ng + r + s + l] as a broadcastable [1, nlat, 1]
-            return phi_ext[ng + s + l: ng + s + l + nlat][None, :, None]
+            # phi_ext[ng + r + s + l] as a broadcastable [1, rows, 1]
+            return phi_ext[j0 + s + l: j0 + s + l + nb][None, :, None]
 
         cnt = torch.zeros(phi_t.shape, dtype=torch.int64,
                           device=phi_t.device)
@@ -260,13 +291,13 @@ class SLGrid:
         the targets only, so they are built once per band and shared by
         every field."""
         k = 4 if cubic else 2
-        K, nlat, nlon = lam_t.shape
-        ng = self.ng
-        Sj = min(self.S_lat, ng - k + 1)
+        nlon, nb = self.nlon, self.nb
+        j0 = self.ng + self.row0
+        Sj = min(self.S_lat, self.ng - k + 1)
         di0 = -1 if cubic else 0
+        pad = max(min(Si, nlon // 2 - k) for _, Si in self.lon_bands) + k
         bands = [(segs, min(Si, nlon // 2 - k))
-                 for segs, Si in self.lon_bands]
-        pad = max(Si for _, Si in bands) + k
+                 for segs, Si in self.lon_bands_local]
 
         dlon, t = self._window_dlon(lam_t)
         djb, nodes, _ = self._window_lat(phi_t, k, Sj)
@@ -285,8 +316,8 @@ class SLGrid:
 
         ext = self.extend(fields)                 # [F, K, J_ext, nlon]
         padded = torch.cat([ext[..., -pad:], ext, ext[..., :pad]], dim=-1)
-        out = torch.empty(fields.shape, dtype=fields.dtype,
-                          device=fields.device)
+        out = torch.empty(fields.shape[:2] + lam_t.shape[1:],
+                          dtype=fields.dtype, device=fields.device)
         for segs, Si in bands:
             dl_b = torch.clamp(seg_cat(dlon, segs), -Si, Si)
             wlat_b = [seg_cat(w, segs) for w in wlat]
@@ -304,7 +335,7 @@ class SLGrid:
                 A = torch.zeros_like(wlat_b[0])
                 for dj in range(k):
                     A = A + torch.where(djb_b + dj == sj, wlat_b[dj], 0.0)
-                row = seg_cat(padded[..., ng + sj: ng + sj + nlat, :], segs)
+                row = seg_cat(padded[..., j0 + sj: j0 + sj + nb, :], segs)
                 P = None
                 for B, si in zip(Bs, range(-Si + di0, Si + di0 + k)):
                     term = B * row[..., pad + si: pad + si + nlon]
@@ -318,21 +349,25 @@ class SLGrid:
 
     def clamp_stats(self, lam_t, phi_t, cubic=True):
         """Fraction of target points whose displacement exceeds the
-        window and is edge-truncated, in longitude and in latitude."""
+        window and is edge-truncated, in longitude and in latitude; under
+        bands, of the whole grid's points (a collective)."""
         k = 4 if cubic else 2
-        K, nlat, nlon = lam_t.shape
+        K, _, nlon = lam_t.shape
         Sj = min(self.S_lat, self.ng - k + 1)
         dlon, _ = self._window_dlon(lam_t)
         lon_exc = torch.zeros((), dtype=torch.float32, device=lam_t.device)
-        for segs, Si in self.lon_bands:
+        for segs, Si in self.lon_bands_local:
             Si = min(Si, nlon // 2 - k)
             for r0, r1 in segs:
                 lon_exc = lon_exc + torch.sum(
                     (torch.abs(dlon[:, r0:r1]) > Si).to(torch.float32))
         _, _, raw = self._window_lat(phi_t, k, Sj)
         lat_exc = torch.sum(((raw < -Sj) | (raw > Sj)).to(torch.float32))
-        npts = float(K * nlat * nlon)
-        return {"lon": lon_exc / npts, "lat": lat_exc / npts}
+        exc = torch.stack([lon_exc, lat_exc])
+        if self.bands is not None:
+            self.bands.sum_(exc)
+        npts = float(K * self.nlat * nlon)
+        return {"lon": exc[0] / npts, "lat": exc[1] / npts}
 
     def _interp_gather(self, fields, lam_t, phi_t, cubic=True):
         """Gather-tap evaluation: per tap one gather of every field at
@@ -369,7 +404,7 @@ class SLGrid:
                 idx = (row + cols[di])[None].expand(F, K, P)
                 vals = torch.gather(ext, 2, idx)
                 acc = acc + vals * (wlat[dj] * wlon[di])
-        return acc.reshape(F, K, self.nlat, self.nlon)
+        return acc.reshape((F,) + tuple(lam_t.shape))
 
     # ---- trajectories ---------------------------------------------------
 
@@ -384,17 +419,18 @@ class SLGrid:
     def trajectories(self, u, v, half_tau, radius, iters=2):
         """Great-circle departure/midpoint angles from winds at time t.
 
-        u, v: [K, nlat, nlon]. Returns (lam_d, phi_d), (lam_m, phi_m),
-        each [K, nlat, nlon]. Midpoint iteration (McDonald 1986):
-        r_m <- normalize(r_a - (tau/2) V(r_m)/a); the departure point is
-        the arrival point reflected through the midpoint."""
+        u, v: [K, nlat, nlon] (the whole grid). Returns (lam_d, phi_d),
+        (lam_m, phi_m), each [K, rows, nlon] at the arrival rows. Midpoint
+        iteration (McDonald 1986): r_m <- normalize(r_a - (tau/2)
+        V(r_m)/a); the departure point is the arrival point reflected
+        through the midpoint."""
         K = u.shape[0]
         e = self.e[:, None]
         n = self.n[:, None]
-        r_a = self.r[:, None].expand(3, K, self.nlat, self.nlon)
+        r_a = self.arrival(self.r)[:, None].expand(3, K, self.nb, self.nlon)
         V3 = u[None] * e + v[None] * n                    # [3, K, ...]
         s = half_tau / radius
-        r_m = r_a - s * V3
+        r_m = r_a - s * self.arrival(V3)
         r_m = r_m / torch.linalg.norm(r_m, dim=0, keepdim=True)
         for _ in range(max(iters - 1, 0)):
             lam_m, phi_m = self._angles(r_m)
@@ -562,9 +598,10 @@ def sl_arrivals(slg: SLGrid, mid_fields, N_pi, lam_m, phi_m,
     """Midpoint (linear) interpolation + arrival-point combination and
     the Coriolis inverse: the grid half of the finish."""
     h = tau / 2.0
-    e3, n3 = slg.e[:, None], slg.n[:, None]
-    r3 = slg.r[:, None]
-    fcor = 2.0 * c.omega * slg.r[2][None]
+    r = slg.arrival(slg.r)
+    e3, n3 = slg.arrival(slg.e)[:, None], slg.arrival(slg.n)[:, None]
+    r3 = r[:, None]
+    fcor = 2.0 * c.omega * r[2][None]
 
     def combine(mid_b, dep_b, lam_b, phi_b):
         """Midpoint interpolation + arrival combination of one level
@@ -647,10 +684,11 @@ def sl_step(sht, vc, slg: SLGrid, now, prev, tau, decenter=0.1,
     centered in time (stable for f tau < 2); "trapezoid" splits the
     rotation into an explicit departure half and an implicit arrival half
     (stable for any f dt, but it damps synoptic eddies)."""
-    prep = sl_dep_stack(sht, vc, slg, now, prev, tau, decenter, coriolis)
-    prep.update(sl_trajectories(sht, vc, slg, now, tau))
-    prep.update(sl_mid_terms(sht, vc, slg, now,
-                             sl_mid_grid(sht, vc, slg, now), coriolis))
+    whole = sht.whole
+    prep = sl_dep_stack(whole, vc, slg, now, prev, tau, decenter, coriolis)
+    prep.update(sl_trajectories(whole, vc, slg, now, tau))
+    prep.update(sl_mid_terms(whole, vc, slg, now,
+                             sl_mid_grid(whole, vc, slg, now), coriolis))
     dep_vals, pi_dep = sl_interp_dep(slg, prep["dep"], prep["pi_comb"],
                                      *prep["angd"])
     return sl_finish(sht, vc, slg, prep["mid"], prep["N_pi"],

@@ -1,10 +1,20 @@
 """Spherical-harmonic transforms on the Gaussian grid (torch tensors).
 
-Port of ``sp_coupler_tpu/models/gcm/spharm.py`` without a mesh: a real
-DFT in longitude written as an einsum against cos/sin tables, and
-Legendre transforms as einsums over the equator-folded associated-Legendre
-tables (even/odd n-m classes, north half only). The tables are built with
-the same host numpy code as the JAX package.
+Port of ``sp_coupler_tpu/models/gcm/spharm.py``: a real DFT in longitude
+written as an einsum against cos/sin tables, and Legendre transforms as
+einsums over the equator-folded associated-Legendre tables (even/odd n-m
+classes, north half only). The tables are built with the same host numpy
+code as the JAX package.
+
+With ``bands`` (``parallel/bands.py``, --gcmprocs) the grid space is this
+rank's latitude band and the spectral coefficients stay replicated, as
+the JAX package's ``constrain_grid``/``constrain_spec`` lay them out. A
+band's row j takes the folded tables' values at its mirror row (j in the
+north, nlat - 1 - j in the south) with the odd class's sign flipped in
+the south, so synthesis needs no exchange, and analysis sums the band's
+own rows unfolded, then adds the ranks' sums with one ``all_reduce`` per
+``analyze`` / ``vort_div_from_uv`` call. ``whole`` is the unbanded
+transform over the same tables (itself without bands).
 
 Conventions: packed-real spectral coefficients [..., M, N, 2] with M = T+1,
 N = T+2 (the n = T+1 row is recurrence workspace); grid arrays
@@ -12,6 +22,7 @@ N = T+2 (the n = T+1 row is recurrence workspace); grid arrays
 full float32 (TF32 off, as the JAX package's HIGHEST precision).
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -86,10 +97,11 @@ def _shift(s, up):
 
 
 class SpectralTransform:
-    """Precomputed transform operator for one (truncation, grid) pair."""
+    """Precomputed transform operator for one (truncation, grid) pair;
+    bands: this rank's latitude band (``parallel.bands.Bands``) or None."""
 
     def __init__(self, trunc, nlat=None, nlon=None, radius=6.371e6,
-                 device=None):
+                 device=None, bands=None):
         if nlat is None or nlon is None:
             nlon, nlat = GRID_FOR_TRUNC[trunc]
         self.trunc, self.nlat, self.nlon = trunc, nlat, nlon
@@ -165,6 +177,32 @@ class SpectralTransform:
                           -np.sin(ang).T * wm[:, None]], axis=1)
         self.Ffwd = f32(fwd)            # [nlon, M, 2]
         self.Finv = f32(inv_t)          # [M, 2, nlon]
+        self.bands = None
+        self.whole = self
+        if bands is not None:
+            self._band(bands)
+
+    def _band(self, bands):
+        """Cut the grid-space tables to the band: mu, w and cosl to its
+        rows, and Pe/Po to their mirror rows of the folded tables, Po
+        negated in the south (P(-mu) = (-1)^(n-m) P(mu))."""
+        if bands.nlat != self.nlat:
+            raise ValueError("bands of %d rows on a grid of %d"
+                             % (bands.nlat, self.nlat))
+        whole = copy.copy(self)
+        whole.whole = whole
+        self.whole, self.bands = whole, bands
+        rows = np.arange(bands.r0, bands.r1)
+        south = rows >= self.jn
+        mirror = torch.as_tensor(np.where(south, self.nlat - 1 - rows, rows),
+                                 device=self.device)
+        sign = torch.as_tensor(np.where(south, -1.0, 1.0),
+                               dtype=torch.float32, device=self.device)
+        self.Pe = whole.Pe[mirror]
+        self.Po = whole.Po[mirror] * sign[:, None, None]
+        cut = slice(bands.r0, bands.r1)
+        self.mu, self.w, self.cosl = (whole.mu[cut], whole.w[cut],
+                                      whole.cosl[cut])
 
     # ---- scalar transforms -------------------------------------------------
 
@@ -216,14 +254,36 @@ class SpectralTransform:
         se, so = self._pack_coeffs(s)
         fe = torch.einsum("...mkc,jmk->...jmc", se, self.Pe)
         fo = torch.einsum("...mkc,jmk->...jmc", so, self.Po)
+        if self.bands is not None:
+            return fe + fo          # the band's tables carry the fold
         return self._unfold(fe + fo, fe - fo)
 
+    def _ana_sums(self, fmw):
+        """(even, odd) packed Legendre sums [..., M, Ke, 2]: over the
+        folded whole grid, or the band's rows' share of them."""
+        if self.bands is None:
+            fmw_e, fmw_o = self._fold(fmw, 1.0), self._fold(fmw, -1.0)
+        else:
+            fmw_e = fmw_o = fmw
+        return (torch.einsum("...jmc,jmk->...mkc", fmw_e, self.Pe),
+                torch.einsum("...jmc,jmk->...mkc", fmw_o, self.Po))
+
+    def _ana_many(self, *fmws):
+        """_ana of each of fmws; under bands one all_reduce adds the ranks'
+        sums of all of them."""
+        sums = [x for f in fmws for x in self._ana_sums(f)]
+        if self.bands is not None:
+            flat = self.bands.sum_(torch.cat([x.reshape(-1) for x in sums]))
+            out, off = [], 0
+            for x in sums:
+                out.append(flat[off:off + x.numel()].reshape(x.shape))
+                off += x.numel()
+            sums = out
+        return [self._unpack_coeffs(sums[2 * k], sums[2 * k + 1])
+                for k in range(len(fmws))]
+
     def _ana(self, fmw):
-        ge = self._fold(fmw, 1.0)
-        go = self._fold(fmw, -1.0)
-        se = torch.einsum("...jmc,jmk->...mkc", ge, self.Pe)
-        so = torch.einsum("...jmc,jmk->...mkc", go, self.Po)
-        return self._unpack_coeffs(se, so)
+        return self._ana_many(fmw)[0]
 
     def analyze(self, f):
         """Grid [..., nlat, nlon] -> packed spectral [..., M, N, 2]."""
@@ -268,10 +328,10 @@ class SpectralTransform:
         A = self._wq(self._fft(u / coslat))
         B = self._wq(self._fft(v / coslat))
         mvec = torch.arange(self.M, dtype=u.dtype, device=u.device)
-        iA = self._mul_i(A, mvec)
-        iB = self._mul_i(B, mvec)
-        div = (self._ana(iA) - self._h_shift_adj(self._ana(B))) / self.radius
-        vort = (self._ana(iB) + self._h_shift_adj(self._ana(A))) / self.radius
+        a_iA, a_B, a_iB, a_A = self._ana_many(
+            self._mul_i(A, mvec), B, self._mul_i(B, mvec), A)
+        div = (a_iA - self._h_shift_adj(a_B)) / self.radius
+        vort = (a_iB + self._h_shift_adj(a_A)) / self.radius
         return vort * self.mask[..., None], div * self.mask[..., None]
 
     def grad(self, s):
@@ -282,9 +342,10 @@ class SpectralTransform:
         return dfdl / (self.radius * coslat), dfdm / (self.radius * coslat)
 
     def latitudes_deg(self):
-        """Gaussian latitudes (degrees, north -> south) from the float32
-        mu, as the JAX package's (the same columns fall in a region)."""
-        return np.degrees(np.arcsin(self.mu.cpu().numpy()))
+        """Gaussian latitudes of the whole grid (degrees, north -> south)
+        from the float32 mu, as the JAX package's (the same columns fall
+        in a region)."""
+        return np.degrees(np.arcsin(self.whole.mu.cpu().numpy()))
 
     def longitudes_deg(self):
         return np.arange(self.nlon) * 360.0 / self.nlon

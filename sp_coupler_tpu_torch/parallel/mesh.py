@@ -11,8 +11,9 @@ for the instances of its les slot (``ceil(n / L)`` a slot, GSPMD's block
 rule), its block of their horizontal plane: y split over the ``y`` axis
 and x over ``x``, as ``P("les", None, "y", "x")`` does
 (``parallel/plane.py``). Every rank runs the small GCM replicated, as the
-JAX package's default does. The GCM's latitude bands (--gcmprocs) are not
-ported (ROADMAP.md, open items: spatial and GCM decomposition).
+JAX package's default does, or with --gcmprocs its latitude band of the
+GCM's grid, the bands over every rank of the mesh in rank order
+(``parallel/bands.py``).
 
 Bring-up (``init_distributed``): the JAX package's own variables
 ``SPTPU_DIST_COORD`` (``host:port``, or an ``init_method`` URL such as

@@ -19,15 +19,17 @@ take the generic path; ``les_cross`` writes each instance's cross
 sections (``io/crossio.py``); ``les_evolve_chunks`` > 1 splits the evolve
 of a fused step. The GCM takes hybrid levels (``gcm_hybrid``) and
 semi-Lagrangian advection (``gcm_advection`` "sl", or "auto" at T63 and
-above). The setting of the JAX driver that is not ported (--gcmprocs)
-raises NotImplementedError naming its ROADMAP.md entry.
+above).
 
 Multi-process runs (``--mesh_les`` L and ``--lesprocs`` N or ``mesh_x``/
 ``mesh_y`` under torchrun or ``SPTPU_DIST_*``, ``parallel/mesh.py``): the
 ranks form the mesh (les, x, y); a rank holds its les slot's instances
 and, with x * y > 1, its block of their planes (``parallel/plane.py``);
 every rank runs the GCM and the coupling math and calls the same
-collectives in the same order. Rank 0 alone writes spifs.nc, timing.txt
+collectives in the same order. With --gcmprocs N > 1 the GCM's grid
+space is split into latitude bands over every rank of the mesh
+(``parallel/bands.py``; without a mesh the setting has no effect, as in
+the JAX driver). Rank 0 alone writes spifs.nc, timing.txt
 and the restart (the checkpoint gathers the whole fleet); the first rank
 of each plane writes the cross.nc of its slot's instances, from their
 gathered planes.
@@ -50,7 +52,7 @@ from ..models import dummy as dummy_mod
 from ..models.les import (grid as lgrid, step as lstep, model as les_model,
                           diag as ldiag)
 from ..models.les.state import LESForcing
-from ..parallel import mesh as pmesh
+from ..parallel import bands as pbands, mesh as pmesh
 from ..utils import geometry
 
 log = logging.getLogger(__name__)
@@ -60,12 +62,14 @@ QT_MODES = {"sp": lstep.QT_FORCING_GLOBAL,
             "local": lstep.QT_FORCING_LOCAL,
             "strong": lstep.QT_FORCING_STRONG}
 
-_SPATIAL = "ROADMAP.md, open items: spatial and GCM decomposition"
 
-
-def create_gcm(cfg: SPConfig, device=None):
+def create_gcm(cfg: SPConfig, device=None, mesh=None):
+    """The run's GCM. --gcmprocs N > 1 with a mesh splits the native GCM's
+    grid space into latitude bands over the whole mesh (JAX
+    driver.py:55-62: GCM and LES phases never overlap in time); without a
+    mesh it has no effect."""
     if cfg.gcm_type in ("sptpu", "oifs"):
-        from ..models.gcm import model as gcm_model
+        from ..models.gcm import model as gcm_model, spharm
         adv = cfg.gcm_advection
         if adv == "auto":
             # Eulerian leapfrog is CFL-limited to ~dx/u_max; at T63+ the
@@ -75,7 +79,18 @@ def create_gcm(cfg: SPConfig, device=None):
                                    nlev=cfg.gcm_levels, dt=cfg.gcm_dt,
                                    start_date=cfg.gcm_start_date,
                                    hybrid=cfg.gcm_hybrid, advection=adv)
-        return gcm_model.GCMModel(gcfg, seed=cfg.seed, device=device)
+        bands = None
+        if cfg.gcm_num_procs > 1:
+            if mesh is None:
+                log.info("--gcmprocs %d: no mesh, the GCM runs whole",
+                         cfg.gcm_num_procs)
+            else:
+                bands = pbands.for_mesh(
+                    mesh, spharm.GRID_FOR_TRUNC[cfg.gcm_truncation][1])
+                log.info("GCM grid in latitude bands over %d ranks: rows "
+                         "%d-%d here", bands.P, bands.r0, bands.r1 - 1)
+        return gcm_model.GCMModel(gcfg, seed=cfg.seed, device=device,
+                                  bands=bands)
     if cfg.gcm_type == "dummy":
         return dummy_mod.DummyGCM()
     if cfg.gcm_type in ("ncfile", "spifsnc_gcm"):
@@ -184,7 +199,9 @@ class SPRunner:
             raise RuntimeError("output dir %s exists" % cfg.output_dir)
         os.makedirs(cfg.output_dir, exist_ok=True)
 
-        self.gcm = create_gcm(cfg, self.device)
+        # the GCM's bands come from the mesh before the fleet may decline it
+        # (_shard_fleet_state), as in the JAX driver: they stay
+        self.gcm = create_gcm(cfg, self.device, self.mesh)
         self.gcm.initialize_code()
         self.gcm.commit_parameters()
         self.gcm.commit_grid()
@@ -341,14 +358,9 @@ class SPRunner:
         return self
 
     def _check_settings(self):
-        """Refuse the setting this port leaves out (--gcmprocs); log the
-        reference's no-op knobs (--queue, --channel, work dirs,
+        """Log the reference's no-op knobs (--queue, --channel, work dirs,
         redirects)."""
         cfg = self.cfg
-        if cfg.gcm_num_procs > 1:
-            raise NotImplementedError(
-                "spatial and GCM decomposition: the GCM's latitude bands "
-                "(--gcmprocs) are not ported yet (%s)" % _SPATIAL)
         if cfg.les_queue_threads > 0:
             log.info("--queue %d accepted (no-op: the LES fleet is one "
                      "batched device computation)", cfg.les_queue_threads)

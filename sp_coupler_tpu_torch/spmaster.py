@@ -147,11 +147,13 @@ def build_parser(defaults: SPConfig):
     p.add_argument("--lesprocs", dest="les_num_procs", metavar="N", type=int,
                    default=defaults.les_num_procs,
                    help="Devices per LES instance (reference: MPI tasks per "
-                        "DALES); only 1 is ported")
+                        "DALES): each plane splits into n_x x n_y blocks")
     p.add_argument("--gcmprocs", dest="gcm_num_procs", metavar="N", type=int,
                    default=defaults.gcm_num_procs,
                    help="Devices for the GCM (reference: OpenIFS MPI tasks); "
-                        "only 1 is ported")
+                        "N > 1 splits the GCM's grid into latitude bands "
+                        "over every rank of the mesh (--mesh_les/--lesprocs); "
+                        "no effect without a mesh")
     p.add_argument("--queue", dest="les_queue_threads", metavar="N", type=int,
                    default=defaults.les_queue_threads,
                    help="Ignored (reference worker-thread queue; the LES "

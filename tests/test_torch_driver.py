@@ -250,17 +250,33 @@ def test_device_defaults_to_the_card(tmp_path):
     (dict(gcm_num_procs=2), "spatial and GCM decomposition"),
 ])
 def test_unported_settings_raise(tmp_path, kw, entry, caplog):
-    """--gcmprocs still raises, naming its ROADMAP.md entry. mesh_x and
-    --lesprocs are ported (tests/test_torch_spatial.py runs them on 4
-    ranks): in one process their mesh does not fit, so the run warns as
-    the JAX driver does and takes a coupled step unsharded."""
+    """The settings of ROADMAP.md's item `entry`, all ported, in one
+    process. mesh_x and --lesprocs (tests/test_torch_spatial.py runs them
+    on 4 ranks): their mesh does not fit, so the run warns as the JAX
+    driver does and takes a coupled step unsharded. --gcmprocs 2
+    (tests/test_torch_bands.py runs it on 2 and 4 ranks): with no mesh
+    to band the GCM over it has no effect, as in the JAX driver; the step
+    equals the one without it bit for bit."""
     base = dict(SMALL, output_dir=str(tmp_path / "out"))
     base.update(kw)
     r = SPRunner(SPConfig(**base), [geometry.Point(POINT)], device="cpu")
     if "gcm_num_procs" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, open items: " + entry):
+        with caplog.at_level("INFO"):
             r.initialize()
+        assert "--gcmprocs 2: no mesh, the GCM runs whole" in caplog.text
+        assert r.mesh is None and r.gcm.core.bands is None
+        plain = SPRunner(SPConfig(**dict(SMALL, output_dir=str(
+            tmp_path / "plain"))), [geometry.Point(POINT)], device="cpu")
+        plain.initialize()
+        for run in (r, plain):
+            run.run(1)
+            run.finalize()
+        assert r.substeps == plain.substeps and len(r.substeps) == 1
+        for name in ("gcm", "fleet"):
+            a = tree.flatten(getattr(r, name).state)[0]
+            b = tree.flatten(getattr(plain, name).state)[0]
+            assert len(a) == len(b)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), name
         return
     with caplog.at_level("WARNING"):
         r.initialize()

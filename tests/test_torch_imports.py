@@ -50,6 +50,7 @@ MODULES = (
     "sp_coupler_tpu_torch.models.ncreplay",
     "sp_coupler_tpu_torch.io.spnc",
     "sp_coupler_tpu_torch.io.crossio",
+    "sp_coupler_tpu_torch.parallel.bands",
     "sp_coupler_tpu_torch.parallel.mesh",
     "sp_coupler_tpu_torch.parallel.plane",
     "sp_coupler_tpu_torch.parallel.sharding",

@@ -58,7 +58,6 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_mp_worker.py")
 TIMEOUT = 300          # seconds a run of ranks may take
-SPATIAL = "ROADMAP.md, open items: spatial and GCM decomposition"
 # tests/mp_worker.py's case through the CLI, 2 coupled steps
 CONF = dict(les_itot=16, les_jtot=16, les_ktot=24, les_xsize=3200.0,
             les_ysize=3200.0, les_dz=100.0, les_cross=True,
@@ -67,6 +66,9 @@ CONF = dict(les_itot=16, les_jtot=16, les_ktot=24, les_xsize=3200.0,
 ARGS = ["--trunc", "10", "--levels", "8", "--gcm_dt", "600", "--les_dt",
         "5", "--numles", "2", "--points", "15", "300", "--steps", "1",
         "--device", "cpu"]
+# a small LES for the settings that are a no-op in one process
+NO_OP_CONF = dict(les_itot=8, les_jtot=8, les_ktot=12, les_xsize=1600.0,
+                  les_ysize=1600.0, les_dz=100.0)
 
 
 def run_ranks(store, nprocs, *args):
@@ -327,16 +329,32 @@ def test_spinup_nudge_generic_on_two_ranks(tmp_path, gcm):
 
 @pytest.mark.parametrize("flags", [["--lesprocs", "4"], ["--gcmprocs", "2"]])
 def test_cli_spatial_flags_raise(tmp_path, flags, caplog):
-    """--gcmprocs still raises, naming its ROADMAP.md entry; --lesprocs is
-    ported (tests/test_torch_spatial.py runs it on 4 ranks): in one
-    process its mesh does not fit, so the CLI warns and runs unsharded."""
+    """The spatial flags in one process, both ported. --lesprocs
+    (tests/test_torch_spatial.py runs it on 4 ranks): its mesh does not
+    fit, so the CLI warns and runs unsharded. --gcmprocs
+    (tests/test_torch_bands.py runs it on 2 and 4 ranks): with no mesh it
+    has no effect, as in the JAX driver; the run's records equal those of
+    the run without it bit for bit."""
+    if "--gcmprocs" in flags:
+        # one coupled step (--steps 0) of 2 x 8x8x12
+        with open(tmp_path / "conf.json", "w") as f:
+            json.dump(NO_OP_CONF, f)
+        small = ARGS + ["--steps", "0", "--conf", str(tmp_path / "conf.json")]
+        runner = spmaster.build_runner(
+            small + ["--odir", str(tmp_path / "out")] + flags)
+        with caplog.at_level(logging.INFO):
+            assert spmaster.drive(runner) == 0
+        assert "--gcmprocs 2: no mesh, the GCM runs whole" in caplog.text
+        assert runner.mesh is None and runner.gcm.core.bands is None
+        plain = spmaster.build_runner(small + ["--odir",
+                                               str(tmp_path / "plain")])
+        assert spmaster.drive(plain) == 0
+        assert runner.substeps == plain.substeps
+        assert_same_records(read_spifs(str(tmp_path / "out" / "spifs.nc")),
+                            read_spifs(str(tmp_path / "plain" / "spifs.nc")))
+        return
     runner = spmaster.build_runner(
         ARGS + ["--odir", str(tmp_path / "out")] + flags)
-    if "--gcmprocs" in flags:
-        with pytest.raises(NotImplementedError, match=SPATIAL):
-            runner.initialize()
-        assert not os.path.exists(str(tmp_path / "out"))
-        return
     with caplog.at_level(logging.WARNING):
         runner.initialize()
     assert ("mesh (les=1, x=2, y=2) does not fit 1 devices; running "

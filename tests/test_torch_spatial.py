@@ -31,8 +31,8 @@ against the port's own whole-plane runs, on the CPU.
   step (the largest difference is printed), rank 0 alone writes spifs.nc,
   each cross.nc within the same bound; checkpoints resume across
   decompositions.
-- The refusals: --gcmprocs 2 raises naming "spatial and GCM
-  decomposition", a plane the mesh does not divide raises ValueError, a
+- The settings: --gcmprocs 2 in one process is a no-op (no mesh, as in
+  the JAX driver), a plane the mesh does not divide raises ValueError, a
   world other than les * x * y warns and runs unsharded.
 
 Every rank is a subprocess of tests/torch_mp_worker.py (one thread each),
@@ -63,10 +63,10 @@ from sp_coupler_tpu_torch.models.les import (grid as lgrid, state as lstate,
 from sp_coupler_tpu_torch.models.les.state import LESState, LESForcing
 from sp_coupler_tpu_torch.parallel import mesh as pmesh, plane as pplane
 from sp_coupler_tpu_torch.runtime.driver import SPRunner
-from sp_coupler_tpu_torch.utils import geometry
+from sp_coupler_tpu_torch.utils import geometry, tree
 from sp_coupler_tpu_torch.verify.parity import PROFILE_TOL
 from test_parallel import _evolve, _tiny_fleet
-from test_torch_parallel import (ARGS, CONF, SPATIAL, read_spifs, reports,
+from test_torch_parallel import (ARGS, CONF, NO_OP_CONF, read_spifs, reports,
                                  run_ranks)
 
 torch.set_num_threads(2)
@@ -381,11 +381,28 @@ def test_spinup_nudge_generic_on_blocks(tmp_path, gcm):
 # ---- settings: --lesprocs in one process, --gcmprocs -------------------------
 
 def test_gcmprocs_still_raises(tmp_path):
-    runner = spmaster.build_runner(ARGS + ["--odir", str(tmp_path / "out"),
-                                           "--gcmprocs", "2"])
-    with pytest.raises(NotImplementedError, match=SPATIAL):
-        runner.initialize()
-    assert not os.path.exists(str(tmp_path / "out"))
+    """--gcmprocs no longer raises: in one process there is no mesh to
+    band the GCM over, so it has no effect (the JAX driver's semantics)
+    and the run equals the run without it bit for bit, the GCM state and
+    the LES fleet after the steps included (tests/test_torch_bands.py
+    runs it banded)."""
+    with open(tmp_path / "conf.json", "w") as f:
+        json.dump(NO_OP_CONF, f)
+    runs = []
+    for name, extra in (("out", ["--gcmprocs", "2"]), ("plain", [])):
+        runner = spmaster.build_runner(
+            ARGS + ["--steps", "0", "--conf", str(tmp_path / "conf.json"),
+                    "--odir", str(tmp_path / name)] + extra)
+        assert spmaster.drive(runner) == 0
+        runs.append(runner)
+    a, b = runs
+    assert a.gcm.state.grid.T.shape == b.gcm.state.grid.T.shape
+    assert a.substeps == b.substeps
+    for name in ("gcm", "fleet"):
+        xs = tree.flatten(getattr(a, name).state)[0]
+        ys = tree.flatten(getattr(b, name).state)[0]
+        assert len(xs) == len(ys)
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys)), name
 
 
 @pytest.mark.parametrize("kw, shape", [

@@ -1,5 +1,5 @@
 """One rank of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_spatial.py).
+tests/test_torch_spatial.py, tests/test_torch_bands.py).
 
 Launched as ``python tests/torch_mp_worker.py MODE ARGS...``, once a rank,
 with SPTPU_DIST_COORD (a file:// store), SPTPU_DIST_NPROCS and
@@ -24,6 +24,17 @@ Modes:
                           IN's coupled case (T10 + one instance) stepped
                           on (1, 2, 2); rank 0 writes OUT.npz, each rank
                           OUT.<rank>.json
+  bands IN.pt OUT         on 4 ranks, the GCM on latitude bands: IN's
+                          spectral coefficients through the T21 transforms
+                          on the mesh (1, 2, 2); IN's T10/L8 starts stepped
+                          twice (Eulerian on (2, 2, 1), SL with each
+                          interpolation method on (4, 1, 1)); Eulerian and
+                          SL steps on hybrid levels beside one process's,
+                          from the port's start; the column gather and
+                          scatter, the whole/band state round trip and
+                          the SL clamp statistics against one process's;
+                          each rank writes OUT.<rank>.npz (its states, the
+                          gathered grids) and OUT.<rank>.json
 """
 
 import json
@@ -73,17 +84,25 @@ def cli(report, argv):
     runner = spmaster.build_runner(argv)
     try:
         rc = spmaster.drive(runner)
-        if hasattr(runner.gcm, "state"):
-            pmesh.replicate(runner.gcm.state, pmesh.make_mesh())
+        core = getattr(runner.gcm, "core", None)
+        if core is not None:
+            pmesh.replicate(core.replicated(runner.gcm.state),
+                            pmesh.make_mesh())
         fleet = runner.fleet
+        state = getattr(fleet, "state", None)
         rep = dict(
             rc=rc, rank=pmesh.rank(), world=pmesh.world_size(),
             io_proc=runner.io_proc, mesh=runner.mesh is not None,
             writer=type(runner.writer).__name__,
             timing_header=runner._timing_header_done,
-            positions=fleet.positions, sp_cols=runner.sp_cols,
-            held=int(fleet.state.u.shape[0]),
-            shape=list(fleet.state.u.shape),
+            positions=getattr(fleet, "positions", None),
+            sp_cols=runner.sp_cols,
+            held=None if state is None else int(state.u.shape[0]),
+            shape=None if state is None else list(state.u.shape),
+            gcm_bands=(None if core is None or core.bands is None
+                       else [core.bands.P, core.bands.r0, core.bands.r1]),
+            gcm_rows=(None if core is None
+                      else int(runner.gcm.state.grid.T.shape[-2])),
             mesh_shape=runner.mesh.shape if runner.mesh is not None else None,
             cross=sorted(runner.crossio.writers) if runner.crossio else [],
             substeps=runner.substeps, gcm_replicated=True)
@@ -247,6 +266,102 @@ def spatial(inp, out):
         json.dump(rep, f)
 
 
+def bands(inp, out):
+    from sp_coupler_tpu_torch.models.gcm import model as gcm_model, spharm
+    from sp_coupler_tpu_torch.parallel import bands as pbands
+    from sp_coupler_tpu_torch.utils import tree
+    pmesh.init_distributed("cpu")
+    rank = pmesh.rank()
+    data = torch.load(inp, weights_only=False)
+    arrays, rep = {}, {"rank": rank}
+
+    def keep(name, state):
+        for i, leaf in enumerate(tree.flatten(state)[0]):
+            arrays["%s_%d" % (name, i)] = leaf.numpy()
+
+    # the T21 transforms on (1, 2, 2)
+    sht = spharm.SpectralTransform(21, device="cpu")
+    b = pbands.for_mesh(pmesh.make_mesh(1, 2, 2), sht.nlat)
+    bt = spharm.SpectralTransform(21, device="cpu", bands=b)
+    g = bt.synthesize(data["spec"])
+    arrays["t21_grid"] = b.gather(g).numpy()
+    arrays["t21_spec"] = bt.analyze(g).numpy()
+    rep["t21_rows"] = [b.r0, b.r1]
+    rep["t21_syn_bitwise"] = bool(torch.equal(
+        g, b.cut(sht.synthesize(data["spec"]))))
+
+    # the T10/L8 steps, each from IN's start carried in whole
+    for name, mesh, adv, method in (
+            ("eul", pmesh.make_mesh(2, 2, 1), "eulerian", None),
+            ("sl_gather", pmesh.make_mesh(), "sl", "gather"),
+            ("sl_window", pmesh.make_mesh(), "sl", "window")):
+        cfg = gcm_model.GCMConfig(trunc=10, nlev=8, dt=600.0, advection=adv)
+        core = gcm_model.GCMCore(cfg, device="cpu", bands=pbands.for_mesh(
+            mesh, 16))
+        if method:
+            core.slg.method = method
+        s = core.band_state(data[adv])
+        for step in range(2):
+            s = core.step(s, first=step == 0)
+            keep("%s_%d" % (name, step), core.replicated(s))
+            arrays["%s_%d_gridT" % (name, step)] = core.whole_state(
+                s).grid.T.numpy()
+        rep[name + "_rows"] = int(s.grid.T.shape[-2])
+        if adv == "sl":
+            lam, phi = data["targets"]
+            st = core.slg.clamp_stats(core.slg.arrival(lam),
+                                      core.slg.arrival(phi))
+            arrays[name + "_clamp"] = torch.stack([st["lon"], st["lat"]]
+                                                  ).numpy()
+
+    # hybrid levels: the bands beside one process, from the port's start
+    for name, adv in (("eul_hybrid", "eulerian"), ("sl_hybrid", "sl")):
+        cfg = gcm_model.GCMConfig(trunc=10, nlev=8, dt=600.0, advection=adv,
+                                  hybrid=True)
+        one = gcm_model.GCMCore(cfg, device="cpu")
+        core = gcm_model.GCMCore(cfg, device="cpu", bands=pbands.for_mesh(
+            pmesh.make_mesh(), 16))
+        w = one.initial_state(seed=0)
+        s = core.band_state(w)
+        for step in range(2):
+            w = one.step(w, first=step == 0)
+            s = core.step(s, first=step == 0)
+            for k in ("vort", "div", "T", "q"):
+                arrays["%s_%d_%s" % (name, step, k)] = getattr(s.now,
+                                                               k).numpy()
+                arrays["%s_%d_%s_one" % (name, step, k)] = getattr(
+                    w.now, k).numpy()
+            arrays["%s_%d_gridT" % (name, step)] = core.whole_state(
+                s).grid.T.numpy()
+            arrays["%s_%d_gridT_one" % (name, step)] = w.grid.T.numpy()
+
+    # columns from the bands against one process's, from the same grid
+    cfg = gcm_model.GCMConfig(trunc=10, nlev=8, dt=600.0)
+    one = gcm_model.GCMCore(cfg, device="cpu")
+    core = gcm_model.GCMCore(cfg, device="cpu", bands=pbands.for_mesh(
+        pmesh.make_mesh(), 16))
+    whole = one.step(data["eulerian"], first=True)
+    band = core.band_state(whole)
+    cols = data["cols"]
+    same = lambda a, b: all(bool(torch.equal(a[k], b[k])) for k in a)
+    rep["profiles_bitwise"] = same(core.column_profiles(band, cols),
+                                   one.column_profiles(whole, cols))
+    rep["surface_bitwise"] = same(core.surface_fields(band, cols),
+                                  one.surface_fields(whole, cols))
+    tend = data["tend"]
+    got = core.with_sp_tendencies(band, cols, tend).sp_tend
+    want = core.band_state(one.with_sp_tendencies(whole, cols, tend)).sp_tend
+    rep["scatter_bitwise"] = same(got, want)
+    rep["roundtrip_bitwise"] = all(
+        bool(torch.equal(x, y)) for x, y in zip(
+            tree.flatten(core.whole_state(band))[0],
+            tree.flatten(whole)[0]))
+    pmesh.shutdown()
+    np.savez("%s.%d.npz" % (out, rank), **arrays)
+    with open("%s.%d.json" % (out, rank), "w") as f:
+        json.dump(rep, f)
+
+
 def main():
     mode, args = sys.argv[1], sys.argv[2:]
     if mode == "evolve":
@@ -257,6 +372,8 @@ def main():
         return misc(*args)
     if mode == "spatial":
         return spatial(*args)
+    if mode == "bands":
+        return bands(*args)
     raise SystemExit("unknown mode %s" % mode)
 
 
