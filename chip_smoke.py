@@ -50,8 +50,12 @@ Phases (any failure raises and exits non-zero):
      restarted from its restart.npz appends a record; then a small run
      (T10/L8 + 2 x 16x16x32) with the Smagorinsky closure and the
      variability nudge, where lesflat and lesmom launch 3 x substeps.
-     spifs.nc is not written (the card's host may lack h5py): the records
-     go to MemoryWriter and are checked there, and a line says so. The
+     Every leg writes spifs.nc through the port's default writer (h5lite;
+     the card's host has no h5py), and the file, read back through the
+     port's reader, must hold every record the driver handed the writer
+     bit for bit (TeeWriter keeps a copy), the restart's appended record
+     included; a line gives the writer, the file size, timing.txt's
+     host-I/O column and whether h5py is importable. The
      run_T21.sh leg also writes the LES cross sections (les_cross,
      heights 2/40/80, dtav 60 s): les-work-<col>/cross.nc of both columns,
      written by the native writer (a Python fallback fails the phase),
@@ -123,6 +127,18 @@ Phases (any failure raises and exits non-zero):
      ranks, lesstage 3 x each rank's substeps. Every rank's grid must
      hold nlat / P rows. Writes chip_smoke_bands.json and the ranks' logs
      bands_rank<r>.log, bands_cli_rank<r>.log.
+  16. the golden replay (phase_replay, on the host): tests/golden/spifs.nc
+     (gzip + shuffle, 16 columns, 101 records) read through the port's
+     reader, its 100 steps replayed through the port's driver (ncreplay),
+     every column and step compared, each tendency within REPLAY_TOL of
+     its scale (tests/test_torch_replay.py's checks);
+  17. the columns bench (phase_columns): runtime/columnbench.py at
+     T63/L19 + 64 SP columns of 64x64x160, batched, 2 coupled steps: its
+     JSON row and peak_gib, lesstage launched 3 x the batched loop's
+     substeps, a spifs.nc of 64 groups and 2 records read back; writes
+     chip_smoke_columns.json.
+Phases 13-15 hand their runs the same writer, on rank 0 where there
+are ranks, and compare rank 0's file with the single process's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1034,10 +1050,10 @@ RUN_T21_COLS = [824, 888]
 
 
 class MemoryWriter:
-    """A spifs.nc writer (``spifs.SpifsWriter``'s calls) that keeps every
-    record in memory: the card's host may have no h5py, which the file
-    needs. The records of a path outlive the writer in STORE, so that a
-    restarted run appends to them as it would to the file."""
+    """A copy of every record a spifs.nc writer is handed
+    (``spifs.SpifsWriter``'s calls), kept in memory: TeeWriter's tee. The
+    records of a path outlive the writer in STORE, so that a restarted run
+    appends to them as it does to the file."""
 
     STORE = {}
 
@@ -1062,21 +1078,69 @@ class MemoryWriter:
         for var, arr in kwargs.items():
             g.setdefault(var, {})[self.step] = np.asarray(arr, np.float32)
 
-    def sync(self):
-        pass
 
-    def close(self):
-        pass
+def tee_writer():
+    """The port's default spifs.nc writer (``spifs.SpifsWriter``, on
+    h5lite), every call of it also handed to a MemoryWriter, so that
+    read_records can hold the file against what the driver wrote."""
+    from sp_coupler_tpu_torch.io import spifs
+
+    class TeeWriter(spifs.SpifsWriter):
+        def __init__(self, path, *a, **kw):
+            super().__init__(path, *a, **kw)
+            self.tee = MemoryWriter(path, *a, **kw)
+
+        def add_les_column(self, index, lat, lon):
+            self.tee.add_les_column(index, lat, lon)
+            return super().add_les_column(index, lat, lon)
+
+        def add_output_column(self, index, lat, lon):
+            self.tee.add_output_column(index, lat, lon)
+            return super().add_output_column(index, lat, lon)
+
+        def update_time(self, t):
+            self.tee.update_time(t)
+            super().update_time(t)
+
+        def write_column(self, index, lock=False, **kwargs):
+            self.tee.write_column(index, **kwargs)
+            super().write_column(index, lock=lock, **kwargs)
+
+    return TeeWriter
 
 
 def read_records(path):
     """(Time list, {column: {var: [records, ...] array}}) of a run's
-    output kept by MemoryWriter."""
+    spifs.nc, read through the port's reader (``spifs.open_reader``),
+    for the variables the run wrote. Raises unless the file holds every
+    record the writer was handed (TeeWriter's copy) bit for bit, and as
+    many records."""
+    from sp_coupler_tpu_torch.io import spifs
     rec = MemoryWriter.STORE[path]
-    groups = {col: {var: np.stack([r[i] for i in sorted(r)])
-                    for var, r in g.items()}
-              for col, g in rec["groups"].items()}
-    return list(rec["Time"]), groups
+    ds = spifs.open_reader(path)
+    try:
+        times = np.asarray(ds.variables["Time"][:])
+        groups = {int(name): {var: np.asarray(g.variables[var][...])
+                              for var in rec["groups"].get(int(name), {})}
+                  for name, g in ds.groups.items()}
+    finally:
+        ds.close()
+    if times.tolist() != np.asarray(rec["Time"], np.float32).tolist():
+        raise AssertionError("%s: Time %s, the writer was handed %s"
+                             % (path, times.tolist(), rec["Time"]))
+    if set(groups) != set(rec["groups"]):
+        raise AssertionError("%s: groups %s, the writer's %s" % (
+            path, sorted(groups), sorted(rec["groups"])))
+    for col, g in rec["groups"].items():
+        for var, steps in g.items():
+            got = groups[col][var]
+            for i, want in steps.items():
+                if got[i].shape != want.shape or \
+                        got[i].tobytes() != want.tobytes():
+                    raise AssertionError(
+                        "%s: column %d %s record %d differs from what the "
+                        "writer was handed" % (path, col, var, i))
+    return times.tolist(), groups
 
 
 def cli_leg(argv, writer):
@@ -1150,6 +1214,30 @@ def timing_rows(odir):
     return head, rows
 
 
+def spifs_file(path, have_h5py):
+    """What wrote a spifs.nc (its _NCProperties, which must name h5lite),
+    its size and timing.txt's host-I/O column; logged."""
+    from sp_coupler_tpu_torch.io import spifs
+    ds = spifs.open_reader(path)
+    try:
+        prov = ds._h5file.attrs["_NCProperties"].decode()
+    finally:
+        ds.close()
+    if "h5lite" not in prov or "h5py" in sys.modules:
+        raise AssertionError("%s written as %r; h5py imported: %s"
+                             % (path, prov, "h5py" in sys.modules))
+    _, rows = timing_rows(os.path.dirname(path))
+    out = dict(provenance=prov, bytes=os.path.getsize(path),
+               host_io_s=[r[-1] for r in rows], h5py_importable=have_h5py)
+    log("spifs.nc: written by the port's h5lite writer (%s), h5py %s on "
+        "this host and not imported; %d bytes, every record read back "
+        "bit for bit through spifs.open_reader; timing.txt host-I/O "
+        "column %s s" % (prov, "importable" if have_h5py
+                         else "not importable", out["bytes"],
+                         out["host_io_s"]))
+    return out
+
+
 def phase_cli(card, main_steps):
     """run_T21.sh's run through the port's CLI on the card, its restart,
     and a small Smagorinsky leg with the variability nudge.
@@ -1157,12 +1245,8 @@ def phase_cli(card, main_steps):
     bare CoupledStepFn, printed beside the CLI's."""
     import importlib.util
     import tempfile
-    writer = MemoryWriter
+    writer = tee_writer()
     have_h5py = importlib.util.find_spec("h5py") is not None
-    log("cli: spifs.nc is not written (h5py %s here): the records are "
-        "kept in memory (MemoryWriter) and checked there; the file format "
-        "is held by the CPU tests" % ("imports" if have_h5py
-                                      else "does not import"))
     res = dict(card=card, h5py=have_h5py)
     with tempfile.TemporaryDirectory() as tmp:
         odir = os.path.join(tmp, "run_T21")
@@ -1184,6 +1268,7 @@ def phase_cli(card, main_steps):
         if len(times) != 2:
             raise AssertionError("cli run_T21: %d records, want 2"
                                  % len(times))
+        res["spifs"] = spifs_file(spifs_path, have_h5py)
         check_finite_records("cli run_T21", groups, RUN_T21_COLS, 2,
                              ("thl", "f_T", "A_d", "z0m", "wthl", "rain"))
         head, rows = timing_rows(odir)
@@ -1224,6 +1309,7 @@ def phase_cli(card, main_steps):
                                  "launches %s" % (len(times), launches))
         check_finite_records("cli restart", groups, RUN_T21_COLS, 3,
                              ("thl", "f_T", "A_d", "z0m", "wthl", "rain"))
+        res["spifs_restart"] = spifs_file(spifs_path, have_h5py)
         legs.append(dict(name="restart", walls=walls, launches=launches,
                          times=times))
         log("cli restart: %d records at %s s, step walls %s, launches %s"
@@ -1312,7 +1398,7 @@ def mesh_rank(odir, conf, report):
     from sp_coupler_tpu_torch.runtime import scalebench
     try:
         runner, walls, launches = cli_leg(bench_argv(odir, conf, MESH_RANKS),
-                                          MemoryWriter)
+                                          tee_writer())
         rank = pmesh.rank()
         if runner.mesh is None or pmesh.world_size() != MESH_RANKS:
             raise AssertionError("rank %d: no les mesh over %d ranks"
@@ -1404,7 +1490,7 @@ def phase_mesh(card):
             json.dump(MESH_CONF, f)
         single_dir = os.path.join(tmp, "single")
         runner, walls1, launches1 = cli_leg(bench_argv(single_dir, conf),
-                                            MemoryWriter)
+                                            tee_writer())
         if runner.sp_cols != BENCH_COLS:
             raise AssertionError("the bench points selected %s, not %s"
                                  % (runner.sp_cols, BENCH_COLS))
@@ -1783,7 +1869,7 @@ def spatial_rank(odir, report):
         conf = os.path.join(odir, "mesh.json")
         runner, walls, launches = cli_leg(
             bench_argv(os.path.join(odir, "bench"), conf) + SPATIAL_ARGS,
-            MemoryWriter)
+            tee_writer())
         if runner.mesh is None or runner.fleet.plane is None:
             raise AssertionError("rank %d: no spatial mesh" % rank)
         pmesh.replicate(runner.gcm.state, runner.mesh)
@@ -1805,7 +1891,7 @@ def spatial_rank(odir, report):
         runner, walls, launches = cli_leg(
             SMAG_ARGV + ["--conf", conf3, "--odir",
                          os.path.join(odir, "small")] + SMAG_SPATIAL,
-            MemoryWriter)
+            tee_writer())
         pos = runner.fleet.positions
         smag = dict(walls=walls, substeps=runner.substeps,
                     launches=launches, positions=pos,
@@ -2519,7 +2605,7 @@ def bands_cli_rank(odir, conf, report):
     try:
         runner, walls, launches = cli_leg(
             bench_argv(odir, conf, MESH_RANKS) + BANDS_CLI_ARGS,
-            MemoryWriter)
+            tee_writer())
         rank = pmesh.rank()
         core = runner.gcm.core
         if runner.mesh is None or core.bands is None:
@@ -2776,6 +2862,148 @@ def phase_gcm_bands(card, single, t159_first):
     return launches
 
 
+# ---- the golden replay and the columns bench ----------------------------
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden")
+TENDENCIES = ("f_U", "f_V", "f_T", "f_SH", "f_QL", "f_QI", "f_A")
+REPLAY_TOL = 1e-5        # of each tendency's scale (tests/test_golden.py)
+# columnbench's case here: T63/L19 + 64 SP columns of 64x64x160 (RICO,
+# TKE), batched, 2 coupled steps (the first builds and warms up)
+COLUMNS_ARGV = ["--sizes", "64", "--trunc", "63", "--nlev", "19", "--nx",
+                "64", "--ny", "64", "--nz", "160", "--les_schedule",
+                "batched", "--steps", "2"]
+
+
+def phase_replay(card):
+    """tests/golden/spifs.nc (gzip + shuffle, 16 columns, 101 records)
+    read on this host through the port's reader, and replayed through the
+    port's driver on the host as tests/test_torch_replay.py does: every
+    column and step compared, each tendency within REPLAY_TOL of its
+    scale."""
+    import tempfile
+    from sp_coupler_tpu_torch.config import SPConfig
+    from sp_coupler_tpu_torch.io import spifs
+    from sp_coupler_tpu_torch.runtime.driver import SPRunner
+    from sp_coupler_tpu_torch.utils import geometry
+    t0 = time.time()
+    with open(os.path.join(GOLDEN, "golden_meta.json")) as f:
+        meta = json.load(f)
+    steps = meta["steps"]
+    ds = spifs.open_reader(os.path.join(GOLDEN, "spifs.nc"))
+    try:
+        cols = sorted(int(g) for g in ds.groups)
+        n_rec = len(np.asarray(ds.variables["Time"][:]))
+        scale = {}
+        for g in ds.groups.values():
+            for var in ("T", "thl", "u", "Psurf") + TENDENCIES:
+                a = np.asarray(g.variables[var][:])
+                if not np.all(np.isfinite(a)):
+                    raise AssertionError("replay: non-finite %s" % var)
+                if var in TENDENCIES:
+                    scale[var] = max(scale.get(var, 0.0),
+                                     float(np.max(np.abs(a))))
+    finally:
+        ds.close()
+    if cols != meta["columns"] or n_rec < steps:
+        raise AssertionError("replay: columns %s, %d records" % (cols, n_rec))
+    poly = geometry.Polygon(geometry.parse_lat_lons(
+        [float(v) for v in meta["poly_lat_lon"]]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = SPConfig(gcm_type="ncfile", les_type="ncfile",
+                       gcm_input_dir=GOLDEN, les_input_dir=GOLDEN,
+                       gcm_steps=steps, cplsurf=True, max_num_les=16,
+                       output_dir=os.path.join(tmp, "out"))
+        r = SPRunner(cfg, geometries=[poly], device="cpu")
+        r.initialize()
+        r.run(steps)
+        r.finalize(save_restart=False)
+    mm = r.gcm.mismatches
+    worst = {}
+    for _, var, _, d in mm:
+        worst[var] = max(worst.get(var, 0.0), d)
+    rel = {v: worst[v] / max(scale[v], 1e-30) for v in worst}
+    if (len(mm) != len(TENDENCIES) * len(cols) * steps
+            or set(worst) != set(TENDENCIES)
+            or max(rel.values()) > REPLAY_TOL):
+        raise AssertionError("replay: %d comparisons, worst |diff|/scale %s"
+                             % (len(mm), rel))
+    wall = time.time() - t0
+    log("replay: tests/golden/spifs.nc (%d columns, %d records, gzip + "
+        "shuffle) read through spifs.open_reader (h5lite) on this host, "
+        "%d steps replayed on the host, %d tendency comparisons, largest "
+        "|diff| / scale %.3g (%s; limit %g), %.1f s"
+        % (len(cols), n_rec, steps, len(mm), max(rel.values()),
+           max(rel, key=rel.get), REPLAY_TOL, wall))
+    return dict(columns=len(cols), records=n_rec, comparisons=len(mm),
+                worst_rel=rel, wall_s=wall)
+
+
+def phase_columns(card):
+    """runtime/columnbench.py at COLUMNS_ARGV on the card: the JSON row
+    (with peak_gib), lesstage launched 3 x the substeps of the batched
+    loop, and a spifs.nc of 64 groups and 2 records read back through the
+    port's reader."""
+    import tempfile
+    from sp_coupler_tpu_torch.io import spifs
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.runtime import columnbench
+    calls = [0]
+    substep = lstep.substep
+
+    def counting_substep(*a, **kw):
+        calls[0] += 1
+        return substep(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = columnbench.parser().parse_args(COLUMNS_ARGV
+                                               + ["--workdir", tmp])
+        n = int(args.sizes)
+        lstep.substep = counting_substep
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            row = columnbench.run_size(args, n, torch.device("cuda"))
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            lstep.substep = substep
+        path = os.path.join(tmp, "cols_%04d" % n, "spifs.nc")
+        ds = spifs.open_reader(path)
+        try:
+            n_groups = len(ds.groups)
+            n_rec = len(np.asarray(ds.variables["Time"][:]))
+            finite = all(np.all(np.isfinite(np.asarray(g.variables[v][:])))
+                         for g in ds.groups.values()
+                         for v in ("thl", "f_T", "rain"))
+        finally:
+            ds.close()
+    for k, count in launches.items():
+        want = 3 * calls[0] if k == "lesstage" else 0
+        if count != want or (k == "lesstage" and count == 0):
+            raise AssertionError("columns: %s launches %d, want %d (3 x %d "
+                                 "substeps of the batched loop)"
+                                 % (k, count, want, calls[0]))
+    if row["n_cols"] != n or n_groups != n or n_rec != args.steps \
+            or not finite:
+        raise AssertionError("columns: row %s, spifs.nc %d groups, %d "
+                             "records, finite %s" % (row, n_groups, n_rec,
+                                                     finite))
+    log("columns: T%d/L%d + %d x %dx%dx%d (%s), %d steps: row %s; lesstage "
+        "%d = 3 x %d substeps of the batched loop; spifs.nc %d groups, %d "
+        "records, read back; peak %s GiB on %s"
+        % (args.trunc, args.nlev, n, args.nx, args.ny, args.nz,
+           args.les_schedule, args.steps, json.dumps(row),
+           launches["lesstage"], calls[0], n_groups, n_rec,
+           row["peak_gib"], card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_columns.json"), "w") as f:
+        json.dump(dict(card=card, argv=COLUMNS_ARGV, row=row,
+                       launches=launches, loop_substeps=calls[0]), f,
+                  indent=1)
+    return launches
+
+
 def write_t159(gcm_sl, t159):
     """chiprun_out/chip_smoke_t159.json: the T159 leg and the SL GCM's
     times."""
@@ -2806,6 +3034,8 @@ def main():
     halo_stats, halo_runs = phase_spatial(card, single)
     runs += halo_runs
     runs += phase_gcm_bands(card, single, t159_first)
+    phase_replay(card)
+    runs.append(phase_columns(card))
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():

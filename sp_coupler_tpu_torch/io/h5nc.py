@@ -1,31 +1,23 @@
-"""Minimal netCDF4-style file layer on HDF5 (h5py).
+"""Minimal netCDF4-style file layer on HDF5, through ``h5lite``.
 
-Copy of ``sp_coupler_tpu/io/h5nc.py``: spifs.nc is an HDF5 file following
-the netCDF-4 conventions (groups, dimension scales, unlimited record
-dimension), written through an API mirroring the subset of netCDF4-python
-the reference IO layer uses (Dataset, createDimension/createVariable/
-createGroup, variable.units, var[i] = data, sync, append mode; spio.py).
-The files of the two packages are interchangeable.
-
-h5py is imported when a Dataset is opened, not with this module: a host
-without h5py imports the port, and opening spifs.nc there raises
-ImportError. There is no other output format.
+The API of ``sp_coupler_tpu/io/h5nc.py``: spifs.nc is an HDF5 file
+following the netCDF-4 conventions (groups, dimension scales, unlimited
+record dimension), written through an API mirroring the subset of
+netCDF4-python the reference IO layer uses (Dataset, createDimension/
+createVariable/createGroup, variable.units, var[i] = data, sync, append
+mode; spio.py). The JAX package writes the same calls through h5py; the
+port writes and reads them through ``h5lite``, this package's own HDF5
+code, on every host, so it needs no h5py. The files of the two packages
+are interchangeable.
 """
 
 import threading
 
 import numpy as np
 
+from . import h5lite
+
 _DIM_NOTE = "This is a netCDF dimension but not a netCDF variable."
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("spifs.nc output needs the h5py package, which "
-                          "this Python does not have") from e
-    return h5py
 
 
 class Variable:
@@ -54,7 +46,7 @@ class Variable:
         if 0 in self._unl:
             need = idx + 1 if isinstance(idx, (int, np.integer)) else None
             if need is not None and self._d.shape[0] < need:
-                self._d.resize(need, axis=0)
+                self._d.resize(need)
 
     def __setitem__(self, idx, value):
         if isinstance(idx, tuple):
@@ -137,10 +129,7 @@ class _GroupMixin:
                                    maxshape=tuple(maxshape), dtype=dtype,
                                    **kw)
         for ax, s in enumerate(scales):
-            try:
-                d.dims[ax].attach_scale(s)
-            except Exception:
-                pass
+            d.dims[ax].attach_scale(s)
         var = Variable(d, unl_axes)
         self.variables[name] = var
         return var
@@ -155,9 +144,8 @@ class _GroupMixin:
 
     def _load_existing(self):
         """Bind variables/groups of an existing file (append/read mode)."""
-        h5py = _h5py()
         for key, item in self._h.items():
-            if isinstance(item, h5py.Group):
+            if isinstance(item, h5lite.Group):
                 g = Group(item, self)
                 self.groups[key] = g
                 g._load_existing()
@@ -189,8 +177,7 @@ class Dataset(_GroupMixin):
     """Root file object; thread-safe sync."""
 
     def __init__(self, path, mode="w", compress=0):
-        h5py = _h5py()
-        self._h5file = h5py.File(path, {"w": "w", "a": "a", "r": "r"}[mode])
+        self._h5file = h5lite.File(path, {"w": "w", "a": "a", "r": "r"}[mode])
         self._h = self._h5file
         self._parent = None
         self._compress = int(compress)  # gzip level for float vars; 0 = off
@@ -202,8 +189,7 @@ class Dataset(_GroupMixin):
             # netCDF-4 provenance marker (written by netcdf-c; readers use
             # it to identify the file as netCDF-4-flavored HDF5)
             self._h5file.attrs["_NCProperties"] = np.bytes_(
-                "version=2,sp_coupler_tpu_torch=0.1,hdf5="
-                + h5py.version.hdf5_version)
+                "version=2,sp_coupler_tpu_torch=0.1,h5lite=1")
         if mode in ("a", "r"):
             self._load_existing()
 
@@ -216,7 +202,4 @@ class Dataset(_GroupMixin):
             self._h5file.flush()
 
     def close(self):
-        try:
-            self._h5file.close()
-        except Exception:
-            pass
+        self._h5file.close()

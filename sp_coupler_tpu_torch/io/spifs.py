@@ -183,5 +183,7 @@ class NullWriter:
 
 
 def open_reader(path):
-    """Read-mode Dataset for replay/verification tooling."""
+    """Read-mode Dataset for replay/verification tooling, through the
+    port's own HDF5 reader (``h5lite``; no h5py), for files of either
+    package."""
     return h5nc.Dataset(path, "r")

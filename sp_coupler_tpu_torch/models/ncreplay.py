@@ -8,8 +8,8 @@ verified end to end without either heavy model. The driver's generic path
 runs them (``gcm_type`` / ``les_type`` "ncfile", "spifsnc_gcm",
 "spifsnc_les").
 
-The recording is read through ``io.spifs.open_reader`` (h5py): on a host
-without h5py, opening it raises ImportError, and no other format is tried.
+The recording is read through ``io.spifs.open_reader``, the port's own
+HDF5 reader (``io/h5lite.py``), on any host: h5py is not needed.
 """
 
 import datetime

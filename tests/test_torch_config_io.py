@@ -168,15 +168,20 @@ def _same(a, b):
             assert a[k] == b[k], k
 
 
-@pytest.mark.parametrize("writer, reader", [("port", "jax"),
-                                            ("jax", "port")])
-def test_spifs_written_by_one_read_by_the_other(tmp_path, writer, reader):
+@pytest.mark.parametrize("writer, reader, appender", [
+    pytest.param("port", "jax", "port", id="port-jax"),
+    pytest.param("jax", "port", "jax", id="jax-port"),
+    pytest.param("jax", "port", "port", id="jax-port-appended-by-port"),
+    pytest.param("port", "jax", "jax", id="port-jax-appended-by-jax")])
+def test_spifs_written_by_one_read_by_the_other(tmp_path, writer, reader,
+                                                appender):
     """Same groups, variables, units, shapes and values whichever package
-    writes the file (and appends to it) and whichever reads it."""
+    writes the file, whichever appends to it (the port through h5lite, the
+    JAX package through h5py) and whichever reads it."""
     mods = {"port": tspifs, "jax": jspifs}
     p1, p2 = str(tmp_path / "a.nc"), str(tmp_path / "b.nc")
     _write(mods[writer], p1)
-    _write(mods[writer], p1, append=True)
+    _write(mods[appender], p1, append=True)
     _write(mods[reader], p2)
     _write(mods[reader], p2, append=True)
     got = _read(mods[reader], p1)

@@ -376,9 +376,22 @@ def test_native_run_matches_jax(jax_run, port_run):
     assert thl.shape == (2, 24) and np.all((thl > 200) & (thl < 400))
 
 
-def test_timing_phases_same_trajectory(jax_run, port_run, tmp_path):
+def test_timing_phases_same_trajectory(jax_run, port_run, tmp_path,
+                                       monkeypatch):
     """timing_phases=1 runs step 1 through call_phased: the same records
-    as timing_phases=0, and phase columns on that step's timing line."""
+    as timing_phases=0, and phase columns on that step's timing line.
+    The phases' times are checked unrounded, as call_phased returns them:
+    timing.txt prints them as %6.2f, and this case's post phase (~4 ms)
+    reads 0.00 on a slow core."""
+    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+    phased, call_phased = [], CoupledStepFn.call_phased
+
+    def recording(self, *a, **kw):
+        out, phase_t = call_phased(self, *a, **kw)
+        phased.append(phase_t)
+        return out, phase_t
+
+    monkeypatch.setattr(CoupledStepFn, "call_phased", recording)
     d = str(tmp_path / "phased")
     _port_run(jax_run, d, timing_phases=1)
     a, _ = read_spifs(os.path.join(d, "spifs.nc"))
@@ -391,7 +404,10 @@ def test_timing_phases_same_trajectory(jax_run, port_run, tmp_path):
             if not ln.startswith("#")][1:]
     assert len(rows) == 2
     assert float(rows[0][1]) == 0.0 and float(rows[0][5]) == 0.0
-    assert float(rows[1][1]) > 0.0 and float(rows[1][5]) > 0.0
+    assert len(phased) == 1
+    t_pre, _, t_post = phased[0]
+    assert t_pre > 0.0 and t_post > 0.0
+    assert rows[1][1] == "%.2f" % t_pre and rows[1][5] == "%.2f" % t_post
 
 
 def test_jax_checkpoint_resumes_in_the_port(jax_run, tmp_path):
@@ -505,12 +521,15 @@ def test_cold_start_from_prof(tmp_path):
 # ---- chip_smoke.py's CLI phase: the parts that run on the CPU ------------
 
 def test_memory_writer_keeps_the_records(tmp_path):
-    """chip_smoke.MemoryWriter (the CLI phase's writer where h5py is
-    missing) holds what spifs.nc holds, a restarted run appending."""
+    """chip_smoke's tee writer (the CLI phases' writer: spifs.nc through
+    the port's default writer, every record also kept in a MemoryWriter)
+    gives the file the default writer gives, and read_records holds the
+    file bit for bit against the kept records, a restarted run
+    appending."""
     import types
     import chip_smoke as cs
     out = {}
-    for name, writer in (("file", None), ("memory", cs.MemoryWriter)):
+    for name, writer in (("file", None), ("memory", cs.tee_writer())):
         cfg = dummy_cfg(tmp_path / name, cplsurf=True)
         for restart in (False, True):
             r = SPRunner(cfg.replace(restart=restart),
@@ -521,12 +540,19 @@ def test_memory_writer_keeps_the_records(tmp_path):
             r.finalize()
         out[name] = (cs.read_records(cfg.output_path) if writer
                      else read_spifs(cfg.output_path)[::-1])
+        path = cfg.output_path
     (t_mem, g_mem), (t_file, g_file) = out["memory"], out["file"]
     assert t_mem == list(t_file) and len(t_mem) == 3
     col = r.sp_cols[0]
     assert sorted(g_mem) == [col]
+    kept = cs.MemoryWriter.STORE[path]
+    assert sorted(g_mem[col]) == sorted(kept["groups"][col])
     for var, a in g_mem[col].items():
         np.testing.assert_array_equal(a, g_file[str(col)][var], err_msg=var)
+    # a record that differs from what the writer was handed is found
+    kept["groups"][col]["T"][1] = kept["groups"][col]["T"][1] + 1.0
+    with pytest.raises(AssertionError, match="record 1 differs"):
+        cs.read_records(path)
     # launches are 3 x substeps: summed over a serial fleet's instances,
     # the slowest instance's for a batched one
     run = lambda serial: types.SimpleNamespace(

@@ -38,6 +38,7 @@ MODULES = (
     "sp_coupler_tpu_torch.utils.geometry",
     "sp_coupler_tpu_torch.utils.decks",
     "sp_coupler_tpu_torch.utils.tree",
+    "sp_coupler_tpu_torch.io.h5lite",
     "sp_coupler_tpu_torch.io.h5nc",
     "sp_coupler_tpu_torch.io.spifs",
     "sp_coupler_tpu_torch.io.restart",
@@ -55,6 +56,7 @@ MODULES = (
     "sp_coupler_tpu_torch.parallel.plane",
     "sp_coupler_tpu_torch.parallel.sharding",
     "sp_coupler_tpu_torch.runtime.scalebench",
+    "sp_coupler_tpu_torch.runtime.columnbench",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

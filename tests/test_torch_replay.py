@@ -116,17 +116,41 @@ def test_replay_fleet_serves_the_recording():
         fleet.cleanup_code()
 
 
-def test_replay_needs_h5py(monkeypatch):
-    """Without h5py the recording cannot be opened: the same ImportError
-    as spifs.nc output, and no other format is tried."""
-    from sp_coupler_tpu_torch.io import h5nc
+def test_replay_without_h5py(monkeypatch):
+    """With h5py unimportable the recording opens all the same: the port
+    reads spifs.nc through its own h5lite, and ReplayLESFleet serves the
+    values test_replay_fleet_serves_the_recording reads."""
+    import builtins
+    import sys
+    real_import = builtins.__import__
 
-    def missing():
-        raise ImportError("spifs.nc output needs the h5py package")
+    def no_h5py(name, *a, **kw):
+        if name == "h5py" or name.startswith("h5py."):
+            raise ImportError("No module named 'h5py'")
+        return real_import(name, *a, **kw)
 
-    monkeypatch.setattr(h5nc, "_h5py", missing)
-    with pytest.raises(ImportError, match="h5py"):
-        ncreplay.ReplayGCM(GOLDEN_NC)
+    for name in [m for m in sys.modules if m == "h5py"
+                 or m.startswith("h5py.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setattr(builtins, "__import__", no_h5py)
+    with pytest.raises(ImportError):
+        import h5py  # noqa: F401
+    cfg = SPConfig(les_type="ncfile", les_input_dir=GOLDEN)
+    fleet = create_fleet(cfg, 2)
+    try:
+        assert (fleet.get_itot(), fleet.get_jtot(), fleet.get_ktot()) == (
+            64, 64, 160)
+        fleet.evolve_to(float(fleet.times[5]))
+        prof = fleet.get_profiles()
+        g = fleet.ds.groups[str(fleet.columns[1])]
+        np.testing.assert_array_equal(prof["THL"][1],
+                                      np.asarray(g.variables["thl"][5]))
+        gcm = ncreplay.ReplayGCM(GOLDEN_NC)
+        assert len(gcm.times) == len(fleet.times) >= meta()["steps"]
+        gcm.cleanup_code()
+    finally:
+        fleet.cleanup_code()
+    assert "h5py" not in sys.modules
 
 
 # ---- the replay ------------------------------------------------------------

@@ -380,7 +380,7 @@ def test_spinup_nudge_generic_on_blocks(tmp_path, gcm):
 
 # ---- settings: --lesprocs in one process, --gcmprocs -------------------------
 
-def test_gcmprocs_still_raises(tmp_path):
+def test_gcmprocs_is_a_noop_in_one_process(tmp_path):
     """--gcmprocs no longer raises: in one process there is no mesh to
     band the GCM over, so it has no effect (the JAX driver's semantics)
     and the run equals the run without it bit for bit, the GCM state and
