@@ -26,6 +26,13 @@ the scalar and momentum kernels):
      20 calls), CUDA-event time per call, and their share of the bound
      (chip_smoke.tensor_bytes); then their device time at several levels
      per z-chunk (SPLIT_TZ_SWEEP; the default geometry's marked);
+  7. (mode tl639 only) the TL639 jet run of runtime/tl639.py stepped one
+     step at a time for each of TL639_PROBES: per step max|u| and the
+     level and latitude where it sits, the largest vertical Courant
+     number of the explicit vertical advection (|eta-dot| x 2 dt over the
+     layer's thickness, from the state the step starts from) and where,
+     the temperature extrema and the non-finite counts of u, v, T, lnps;
+     the run stops at its first non-finite step.
   6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
      SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
      step, one first=False coupled step with the fleet batched and one
@@ -41,6 +48,7 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_profile.py stage   (phase 4 only)
      python3 chip_profile.py split   (phase 5 only)
      python3 chip_profile.py t159    (phase 6 only; not part of "all")
+     python3 chip_profile.py tl639   (phase 7 only; not part of "all")
 """
 
 import json
@@ -49,6 +57,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -60,6 +69,15 @@ SPLIT_TZ_SWEEP = (2, 3, 4, 5, 6, 7, 8, 10, 14, 20, 40, 160)
 # the device kernels of csrc/ (their names in torch.profiler), listed after
 # each profiled step whatever their rank
 PORT_KERNELS = ("k_stage", "k_means", "k_scalar", "k_momentum")
+# the jet runs of phase 7: (trunc, nlev, dt, split_phases, SL
+# interpolation method, steps): the config-5 run in both phase modes,
+# with JAX's TPU interpolation (the window, which clamps displacements),
+# at half the step, and at T255
+TL639_PROBES = ((639, 60, 720.0, True, "gather", 25),
+                (639, 60, 720.0, False, "gather", 25),
+                (639, 60, 720.0, True, "window", 25),
+                (639, 60, 360.0, True, "gather", 60),
+                (255, 60, 720.0, False, "gather", 60))
 
 
 def timed_step(fn, gs, les, prof, rain, first):
@@ -350,11 +368,77 @@ def phase_t159(card):
     return out
 
 
+def tl639_row(core, state, dt, lat):
+    """The probe's numbers of one step of the jet run: the step from
+    state, and the vertical Courant numbers of the state it starts
+    from."""
+    from sp_coupler_tpu_torch.models.gcm import semilag
+    from sp_coupler_tpu_torch.runtime import tl639
+    m = semilag.sl_mid_grid(core.sht.whole, core.vc, core.slg, state.now)
+    sd = m["sdot"].abs()
+    cz = dt * (sd[1:] + sd[:-1]) / m["dpt_full"]     # 2 dt x mean |eta-dot|
+    cz = cz.expand(core.cfg.nlev, core.nlat, core.nlon)
+    del m, sd
+    state = core.step(tl639.strip(state))
+    g = state.grid
+    bad = {k: int((~torch.isfinite(getattr(g, k))).sum())
+           for k in ("u", "v", "T", "lnps")}
+    ua = g.u.abs().nan_to_num(0.0)
+    iu = np.unravel_index(int(ua.argmax()), tuple(ua.shape))
+    iz = np.unravel_index(int(cz.nan_to_num(0.0).argmax()), tuple(cz.shape))
+    row = dict(umax=float(ua.max()), u_level=int(iu[0]),
+               u_lat=float(lat[iu[1]]), courant_z=float(cz.max()),
+               courant_level=int(iz[0]), courant_lat=float(lat[iz[1]]),
+               Tmin=float(g.T.min()), Tmax=float(g.T.max()), nonfinite=bad)
+    return state, row
+
+
+def phase_tl639(card):
+    """The jet run of runtime/tl639.py, step by step (TL639_PROBES)."""
+    from sp_coupler_tpu_torch.models.gcm import semilag
+    from sp_coupler_tpu_torch.runtime import tl639
+    out = []
+    for trunc, nlev, dt, split, method, steps in TL639_PROBES:
+        core = tl639.build(trunc, nlev, dt, split_phases=split,
+                           device="cuda")
+        if method != core.slg.method:
+            kc = core.slg.k_chunk
+            core.slg = semilag.SLGrid(core.sht, method=method, dt=dt)
+            core.slg.k_chunk = kc
+        lat = np.degrees(np.arcsin(core.sht.mu.cpu().numpy()))
+        state = core.step(tl639.start(core, 60.0), first=True)
+        rows = []
+        t0 = time.time()
+        for i in range(steps):
+            state, row = tl639_row(core, state, dt, lat)
+            rows.append(dict(step=i + 1, **row))
+            cs.log("tl639 T%d/L%d dt %g split %s %s step %d: max|u| %.1f "
+                   "(level %d, lat %.1f), vertical Courant %.3g (level %d, "
+                   "lat %.1f), T %.1f..%.1f, non-finite %s"
+                   % (trunc, nlev, dt, split, method, i + 1, row["umax"],
+                      row["u_level"], row["u_lat"], row["courant_z"],
+                      row["courant_level"], row["courant_lat"], row["Tmin"],
+                      row["Tmax"], row["nonfinite"]))
+            if any(row["nonfinite"].values()):
+                break
+        torch.cuda.synchronize()
+        out.append(dict(trunc=trunc, nlev=nlev, dt=dt, split_phases=split,
+                        method=method, steps_run=len(rows),
+                        wall_s=time.time() - t0, rows=rows))
+        del state, core
+        torch.cuda.empty_cache()
+    cs.log("tl639 probes on %s: %s" % (card, [
+        (p["trunc"], p["dt"], p["split_phases"], p["method"], p["steps_run"],
+         any(any(r["nonfinite"].values()) for r in p["rows"]))
+        for p in out]))
+    return out
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if mode not in ("all", "path", "stage", "split", "t159"):
+    if mode not in ("all", "path", "stage", "split", "t159", "tl639"):
         raise SystemExit("usage: chip_profile.py [path | stage | split | "
-                         "t159]")
+                         "t159 | tl639]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -368,6 +452,8 @@ def main():
         out.update(split=phase_split(card))
     if mode == "t159":
         out.update(t159=phase_t159(card))
+    if mode == "tl639":
+        out.update(tl639=phase_tl639(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

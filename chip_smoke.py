@@ -11,7 +11,9 @@ semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
 then the main path's case on 2 ranks sharing the card (instance
 parallelism over torch.distributed), on 4 ranks each holding a block
 of every plane (--lesprocs 4: the kernels in their halo mode), and the
-GCM on latitude bands (--gcmprocs) with the T159 case on 4 ranks.
+GCM on latitude bands (--gcmprocs) with the T159 case on 4 ranks; then
+the GCM alone up to TL639/L60, the T255 case with 128x128x160 LES
+(BASELINE configs 5 and 4) and the GCM's climate runs.
 
 Phases (any failure raises and exits non-zero):
   1. environment: torch / nvcc versions, card name and power limit;
@@ -20,11 +22,13 @@ Phases (any failure raises and exits non-zero):
   3. the stage kernel against its plain PyTorch version on the card, at
      STAGE_SHAPES: the main path's shapes (64x64x160, n = 1 and 2), a
      small one (16x16x32, n = 2), a ragged grid (12x10x20, n = 3), the
-     smallest plane (4x4) and z-chunks that do not divide nz: the
+     smallest plane (4x4), z-chunks that do not divide nz and the T255
+     case's planes (128x128x160, n = 1 and 2): the
      outputs, the increments out - base on their own, and kmax against a
      float64 run of the plain version, for the stage_inputs state and a
-     rough one (rough_inputs), and at the T159 leg's batch (FLEET_SHAPES:
-     64x64x160, n = 64) for stage_inputs; then each option of STAGE_OPTIONS
+     rough one (rough_inputs), and at the fleets' batches (FLEET_SHAPES:
+     64x64x160, n = 64, the T159 leg's; 128x128x160, n = 4, phase_t255's)
+     for stage_inputs; then each option of STAGE_OPTIONS
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
      CUDA-event timings of both and the kernel's bound;
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
@@ -66,7 +70,9 @@ Phases (any failure raises and exits non-zero):
      T21/L19 + 2 x 64x64x160, dt 600 s, dt_les 5 s) on the card through
      the stage kernel, held by parity.compare against the committed CPU
      run of the port and reported against the JAX package's (verify/ref/,
-     PARITY_REFS); the stage kernel launches 3 x the substeps;
+     PARITY_REFS); the stage kernel launches 3 x the substeps; writes
+     chip_smoke_parity.json, parity_real_h100.npz and the report of
+     verify/parity_report.py (PARITY_H100.md) into OUT_DIR;
   10. the chunked step: one coupled step of the main path's case with
      evolve_chunks=3 from the start of an unchunked one; 3 x substeps
      launches, finite profiles within PROFILE_TOL[0] of the unchunked
@@ -137,6 +143,23 @@ Phases (any failure raises and exits non-zero):
      JSON row and peak_gib, lesstage launched 3 x the batched loop's
      substeps, a spifs.nc of 64 groups and 2 records read back; writes
      chip_smoke_columns.json.
+  18. the GCM across truncations (phase_gcm_scale): runtime/gcmscale.py's
+     rows at T159, T255 and TL639 (L60, SL, hybrid), GCM_SCALE_REPEATS
+     timed steps and spectral round-trips each: finite, with the core's
+     build time and the peak of device memory;
+  19. BASELINE config 5's GCM (phase_tl639): runtime/tl639.py at its
+     defaults (TL639/L60, dt 720 s, +-60 m/s jets, split phases) for
+     TL639_STEPS steps, which must pass its PASS rule (the full 600-step
+     run does not: it goes non-finite by step ~19);
+  20. BASELINE config 4 (phase_t255): runtime/t255bench.py at full width,
+     T255/L19 SL + 4 x 128x128x160 (TKE), batched, a warm step and a
+     timed one: the stage kernel launches 3 x the substeps of the batched
+     loop, the profiles are finite and [4, 160]; writes
+     chip_smoke_t255.json;
+  21. the GCM as an atmosphere (phase_climate): verify/held_suarez.py and
+     verify/moist_endurance.py for CLIMATE_DAYS model days each at
+     T42/L19, finite, with their JSON lines' keys; phases 18-21 write
+     chip_smoke_scale.json and their reports into OUT_DIR.
 Phases 13-15 hand their runs the same writer, on rank 0 where there
 are ranks, and compare rank 0's file with the single process's.
 The line before the last is the kernels' JSON record; the last line is
@@ -199,16 +222,20 @@ INC_FRAC, INC_RTOL = 2e-3, 1e-3
 # 3b), (nx, ny, nz), n, tz (None: the levels per z-chunk of each kernel's
 # launch geometry, ops/tiling.py). Beside the main path's: a grid whose
 # last tile is ragged in y and wider than the plane in x, the smallest
-# plane the kernels take, and z-chunks that do not divide nz (at
-# 64x64x157, n = 2 the default chunks leave a last one of 17 levels for
-# the stage, 3 for lesflat, 7 for lesmom)
+# plane the kernels take, z-chunks that do not divide nz (at 64x64x157,
+# n = 2 the default chunks leave a last one of 17 levels for the stage,
+# 3 for lesflat, 7 for lesmom), and the T255 case's 128x128x160 planes
+# (phase_t255), four times the tiles of a 64x64 plane
 STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
                 ((64, 64, 160), 2, None), ((12, 10, 20), 3, 6),
                 ((4, 4, 9), 1, 4), ((16, 16, 32), 1, 5),
-                ((64, 64, 157), 2, None))
-# the stage kernel alone (phase 3) also at the T159 leg's batch: 64
-# instances of 64x64x160 in one launch, for the smooth input
-FLEET_SHAPES = (((64, 64, 160), 64, None),)
+                ((64, 64, 157), 2, None), ((128, 128, 160), 1, None),
+                ((128, 128, 160), 2, None))
+# the stage kernel alone (phase 3) also at the batches of the fleets that
+# run it: the T159 leg's 64 instances of 64x64x160 and phase_t255's 4 of
+# 128x128x160 in one launch (one z-chunk a column at both), for the smooth
+# input
+FLEET_SHAPES = (((64, 64, 160), 64, None), ((128, 128, 160), 4, None))
 # physics options the main path does not take (LESPhysics fields), each
 # held by its own effect: the change of the outputs from the default run,
 # against the plain version's change, at INC_FRAC of its max (f_coriolis
@@ -742,6 +769,7 @@ def phase_small_coupled(card, subgrid="tke"):
     """A small coupled step through the kernels against the plain split
     path, with the given closure."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
+    from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
@@ -752,7 +780,7 @@ def phase_small_coupled(card, subgrid="tke"):
         core = gcm_model.GCMCore(gcm_model.GCMConfig(trunc=10, nlev=8,
                                                      dt=300.0))
         gs = core.initial_state(seed=0)
-        les = seed_les(core, gs, grid, cols)
+        les = t255bench.seed_les(core, gs, grid, cols)
         phys = lstep.LESPhysics(subgrid=subgrid, use_kernel=use_kernel)
         fn = CoupledStepFn(core, grid, phys, cols, dt_les=15.0, n_substeps=0)
         prof = ldiag.slab_profiles(grid, les)
@@ -784,24 +812,13 @@ def phase_small_coupled(card, subgrid="tke"):
            " ".join("%s %.2g" % kv for kv in gaps.items()), card))
 
 
-def seed_les(core, gs, grid, cols):
-    """LES fleet started from the GCM column state (bench.py:49-61)."""
-    from sp_coupler_tpu_torch.models.les import state as lstate
-    from sp_coupler_tpu_torch.coupling import convert
-    dev = core.device
-    prof0 = core.column_profiles(gs, torch.as_tensor(cols, device=dev))
-    conv0 = convert.convert_profiles(prof0, grid.zf(dev))
-    gen = torch.Generator(device=dev).manual_seed(42)
-    return lstate.init_state(grid, conv0.u, conv0.v, conv0.thl, conv0.qt,
-                             conv0.ps, gen)
-
-
 def main_path_case(subgrid="tke"):
     """The bench.py case on the port: T21/L19 + 2 x 64x64x160 (RICO),
     columns 1208/1272, adaptive with dt_les 15 s, with the given LES
     closure. Returns the step function and its start (gcm state, LES
     fleet, profiles, rain)."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
+    from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
@@ -812,7 +829,7 @@ def main_path_case(subgrid="tke"):
     grid = lgrid.LESGrid()
     cols = [1208, 1272]
     gs = core.initial_state(seed=0)
-    les = seed_les(core, gs, grid, cols)
+    les = t255bench.seed_les(core, gs, grid, cols)
     fn = CoupledStepFn(core, grid, lstep.LESPhysics(subgrid=subgrid), cols,
                        dt_les=15.0, n_substeps=0)
     prof = ldiag.slab_profiles(grid, les)
@@ -910,7 +927,7 @@ PARITY_REFS = (("torch", "parity_real_torch_cpu.npz", True),
 def phase_parity(card):
     """verify/parity.py's real case on the card, through the stage kernel,
     held against the committed CPU runs. Returns the launch counts."""
-    from sp_coupler_tpu_torch.verify import parity
+    from sp_coupler_tpu_torch.verify import parity, parity_report
     from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
     ref_dir = os.path.join(os.path.dirname(parity.__file__), "ref")
     with np.load(os.path.join(ref_dir, PARITY_REFS[0][1])) as ref:
@@ -953,6 +970,9 @@ def phase_parity(card):
             failed.append(name)
     with open(os.path.join(OUT_DIR, "chip_smoke_parity.json"), "w") as f:
         json.dump(res, f, indent=1)
+    refs = [os.path.join(ref_dir, fname) for _, fname, _ in PARITY_REFS]
+    parity_report.write(os.path.join(OUT_DIR, "PARITY_H100.md"), refs[0],
+                        path, card, refs[1])
     if failed:
         raise AssertionError("parity: the card's run is outside PROFILE_TOL "
                              "of %s" % failed)
@@ -2108,21 +2128,17 @@ def gcm_core(dev, **kw):
 
 
 def t42_guard(name, card):
-    """One 10-day T42 guard on the card: returns its record."""
-    from sp_coupler_tpu_torch.models.gcm import physics
-    kw = dict(trunc=42, nlev=19, dt=1800.0, hybrid=True, advection="sl")
-    if name == "hs94":
-        kw["phys"] = physics.PhysicsParams(
-            dtheta_z=10.0, tau_rad=40.0 * 86400.0,
-            tau_rad_sfc=4.0 * 86400.0, rayleigh_tau=86400.0)
-    core = gcm_core("cuda", **kw)
-    state = core.initial_state(seed=3)
-    if name == "hs94":
-        z = torch.zeros_like
-        dry = state.now._replace(q=z(state.now.q), ql=z(state.now.ql),
-                                 qi=z(state.now.qi), a=z(state.now.a))
-        state = state._replace(now=dry, prev=dry, new=dry,
-                               vdiff_mask=z(state.vdiff_mask))
+    """One 10-day T42 guard on the card (the dry HS94 start and forcing of
+    verify/held_suarez.py, or the default moist physics): returns its
+    record."""
+    from sp_coupler_tpu_torch.verify import held_suarez
+    if name == "hs94":      # T42/L19, dt 1800 s, SL, hybrid: its defaults
+        core = held_suarez.hs94_core(device="cuda")
+        state = held_suarez.dry_start(core, core.initial_state(seed=3))
+    else:
+        core = gcm_core("cuda", trunc=42, nlev=19, dt=1800.0, hybrid=True,
+                        advection="sl")
+        state = core.initial_state(seed=3)
     torch.cuda.synchronize()
     t0 = time.time()
     state = core.step(state, first=True)
@@ -2337,12 +2353,13 @@ def t159_case(schedule="batched"):
     LES fleet, profiles, rain)."""
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
+    from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
     core = gcm_core("cuda", trunc=159, nlev=19, dt=900.0, advection="sl")
     grid = lgrid.LESGrid()
     cols = t159_columns(core)
     gs = core.initial_state(seed=0)
-    les = seed_les(core, gs, grid, cols)
+    les = t255bench.seed_les(core, gs, grid, cols)
     fn = CoupledStepFn(core, grid, lstep.LESPhysics(), cols, dt_les=15.0,
                        n_substeps=0, evolve_chunks=8,
                        serial_evolve=schedule)
@@ -2503,6 +2520,7 @@ def bands_rank(odir, report):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
     from sp_coupler_tpu_torch import interop
+    from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
@@ -2542,7 +2560,7 @@ def bands_rank(odir, report):
         grid = lgrid.LESGrid()
         cols = t159_columns(whole)
         gs = whole.initial_state(seed=0)
-        les = seed_les(whole, gs, grid, cols)
+        les = t255bench.seed_les(whole, gs, grid, cols)
         prof = ldiag.slab_profiles(grid, les)
         del whole
         core = bands_core(dev, mesh, trunc=159, nlev=19, dt=900.0,
@@ -3004,6 +3022,148 @@ def phase_columns(card):
     return launches
 
 
+# ---- BASELINE configs 4 and 5: the GCM to TL639, the T255 fleet ---------
+
+# gcmscale's rows here (truncations, repeats of the timed step and of the
+# spectral round-trip), tl639's steps, the T255 fleet (T255/L19 + 4 x
+# 128x128x160, batched, a warm and a timed step) and the climate runs'
+# model days (Held-Suarez with a day of spin-up, the moist run)
+GCM_SCALE, GCM_SCALE_REPEATS = (159, 255, 639), 3
+TL639_STEPS = 10
+T255_ARGV = ["--n", "4", "--les_schedule", "batched", "--steps", "1"]
+CLIMATE_DAYS = 2
+
+
+def phase_gcm_scale(card):
+    """runtime/gcmscale.py's rows at GCM_SCALE on the card: finite, each
+    with its build time and peak of device memory."""
+    from sp_coupler_tpu_torch.runtime import gcmscale
+    rows = []
+    for trunc in GCM_SCALE:
+        row = gcmscale.bench_trunc(trunc, GCM_SCALE_REPEATS, "cuda")
+        vals = [row[k] for k in ("step_ms", "spectral_roundtrip_ms",
+                                 "init_s", "peak_gib")]
+        if not all(v is not None and np.isfinite(v) and v > 0
+                   for v in vals):
+            raise AssertionError("gcm_scale: row %s" % row)
+        log("gcm_scale: T%d/L%d (%dx%d, dt %g s): step %.2f ms, spectral "
+            "round-trip %.2f ms, core built in %.1f s, peak %.2f GiB on %s"
+            % (trunc, row["nlev"], *row["grid"], row["dt_s"],
+               row["step_ms"], row["spectral_roundtrip_ms"], row["init_s"],
+               row["peak_gib"], card))
+        rows.append(row)
+    return rows
+
+
+def phase_tl639(card):
+    """runtime/tl639.py at its defaults (TL639/L60, dt 720 s, +-60 m/s
+    jets, split phases) for TL639_STEPS steps: its PASS rule must hold.
+    The report goes to chiprun_out/TL639_smoke.md."""
+    from sp_coupler_tpu_torch.runtime import tl639
+    os.makedirs(OUT_DIR, exist_ok=True)
+    line = tl639.main(["--steps", str(TL639_STEPS), "--out",
+                       os.path.join(OUT_DIR, "TL639_smoke.md")])
+    if not line["ok"] or line["steps"] != TL639_STEPS:
+        raise AssertionError("tl639: %s" % line)
+    log("tl639: T%d/L%d, dt %g s, %d steps PASS: %.3f s a step, core built "
+        "in %.1f s, peak %.2f GiB on %s; the full 600-step run FAILS, "
+        "non-finite by step ~19 (verify/TL639_H100.md, chip_profile.py "
+        "tl639)"
+        % (line["trunc"], line["nlev"], line["dt_s"], line["steps"],
+           line["step_s"], line["init_s"], line["peak_gib"], card))
+    return line
+
+
+def phase_t255(card):
+    """runtime/t255bench.py at full width with T255_ARGV on the card: the
+    stage kernel launches 3 x the substeps of the batched loop (a warm
+    step and a timed one), the slab profiles are finite and [4, 160].
+    Writes chiprun_out/chip_smoke_t255.json. Returns the launches."""
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.runtime import t255bench
+    args = t255bench.parser().parse_args(T255_ARGV)
+    calls = [0]
+    substep = lstep.substep
+
+    def counting_substep(*a, **kw):
+        calls[0] += 1
+        return substep(*a, **kw)
+
+    lstep.substep = counting_substep
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        row, extras = t255bench.run(args, torch.device("cuda"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        lstep.substep = substep
+    for k, count in launches.items():
+        want = 3 * calls[0] if k == "lesstage" else 0
+        if count != want or (k == "lesstage" and count == 0):
+            raise AssertionError("t255: %s launches %d, want %d (3 x %d "
+                                 "substeps of the batched loop)"
+                                 % (k, count, want, calls[0]))
+    shape = (args.n, args.nz)
+    for k in ("THL", "QT", "U"):
+        p = extras["prof"][k]
+        if tuple(p.shape) != shape or not bool(torch.isfinite(p).all()):
+            raise AssertionError("t255: %s profiles %s, finite %s"
+                                 % (k, tuple(p.shape),
+                                    bool(torch.isfinite(p).all())))
+    log("t255: T%d/L%d + %d x %dx%dx%d (%s): warm step %.1f s, then %s; "
+        "lesstage %d = 3 x %d substeps of the batched loop on %s"
+        % (args.trunc, args.nlev, args.n, args.nx, args.ny, args.nz,
+           args.les_schedule, extras["warm_s"], json.dumps(row),
+           launches["lesstage"], calls[0], card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_t255.json"), "w") as f:
+        json.dump(dict(card=card, argv=T255_ARGV, row=row,
+                       warm_s=extras["warm_s"], columns=extras["cols"],
+                       launches=launches, loop_substeps=calls[0]), f,
+                  indent=1)
+    return launches
+
+
+def phase_climate(card):
+    """verify/held_suarez.py and verify/moist_endurance.py for
+    CLIMATE_DAYS model days each at T42/L19 on the card, through their
+    entry points: finite, with every key of their JSON lines (the
+    climatology verdict needs the full runs). Reports go to
+    chiprun_out/."""
+    from sp_coupler_tpu_torch.verify import held_suarez, moist_endurance
+    os.makedirs(OUT_DIR, exist_ok=True)
+    days = str(CLIMATE_DAYS)
+    hs = held_suarez.main(["--days", days, "--spinup_days", "1", "--out",
+                           os.path.join(OUT_DIR, "HELD_SUAREZ_smoke.md")])
+    hs_keys = {"held_suarez_ok", "jet_nh_ms", "jet_sh_ms", "jet_nh_lat_deg",
+               "u_equator_upper_ms", "u_surface_max_ms",
+               "dT_eq_pole_lower_K", "finite", "wall_s"}
+    if set(hs) != hs_keys or not hs["finite"]:
+        raise AssertionError("climate: held_suarez %s" % hs)
+    moist = moist_endurance.main(["--days", days, "--out",
+                                  os.path.join(OUT_DIR, "MOIST_smoke.md")])
+    moist_keys = {"bench", "backend", "trunc", "nlev", "dt_s", "days",
+                  "wall_s", "jet_nh_ms", "jet_sh_ms", "ok"}
+    if (set(moist) != moist_keys or moist["days"] != CLIMATE_DAYS
+            or moist["backend"] != "cuda"
+            or not np.isfinite([moist["jet_nh_ms"], moist["jet_sh_ms"]]).all()):
+        raise AssertionError("climate: moist_endurance %s" % moist)
+    log("climate: Held-Suarez T42/L19 %d days (1 spin-up) finite, %.1f s; "
+        "moist T42/L19 %d days finite, %.1f s, on %s"
+        % (CLIMATE_DAYS, hs["wall_s"], CLIMATE_DAYS, moist["wall_s"], card))
+    return dict(held_suarez=hs, moist=moist)
+
+
+def write_scale(rows, tl, climate):
+    """chiprun_out/chip_smoke_scale.json: the GCM rows, the TL639 line and
+    the climate runs' lines."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_scale.json"), "w") as f:
+        json.dump(dict(gcm_scale=rows, tl639=tl, climate=climate), f,
+                  indent=1)
+
+
 def write_t159(gcm_sl, t159):
     """chiprun_out/chip_smoke_t159.json: the T159 leg and the SL GCM's
     times."""
@@ -3036,6 +3196,10 @@ def main():
     runs += phase_gcm_bands(card, single, t159_first)
     phase_replay(card)
     runs.append(phase_columns(card))
+    rows = phase_gcm_scale(card)
+    tl = phase_tl639(card)
+    runs.append(phase_t255(card))
+    write_scale(rows, tl, phase_climate(card))
     stats = dict(split, lesstage=dict(max_abs_err=worst, times=times))
     record = []
     for name, (source, replaces) in KERNELS.items():

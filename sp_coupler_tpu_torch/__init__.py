@@ -18,6 +18,9 @@ points run on the CUDA card unless the caller asks for another device
 (``default_device``).
 """
 
+import subprocess
+import time
+
 import torch
 
 __version__ = "0.1.0"
@@ -37,6 +40,30 @@ def default_device(device=None):
         raise RuntimeError("no CUDA card: pass device='cpu' to run on the "
                            "CPU")
     return torch.device("cuda")
+
+
+def clock(device):
+    """The host clock (time.time()) after the device's queue has drained:
+    a synchronise first on a CUDA device."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.time()
+
+
+def device_name(device):
+    """The CUDA card's name, or the device's type ("cpu")."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def card_line(device):
+    """The CUDA card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[device.index or 0]
 
 
 def generator(*key):

@@ -23,12 +23,11 @@ import os
 import resource
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import clock, default_device, device_name
 from ..config import SPConfig
 from ..models.gcm import spharm
 from ..utils import geometry
@@ -52,13 +51,6 @@ def pick_points(trunc, n):
         c = int(i % len(lons))
         pts.append((float(lons[c]), float(lats[r])))
     return pts
-
-
-def _clock(device):
-    """The host clock after the card's queue has drained."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.time()
 
 
 def host_io(path):
@@ -92,15 +84,15 @@ def run_size(args, n, device):
     pts = [geometry.Point(p) for p in pick_points(args.trunc, n)]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    t0 = _clock(device)
+    t0 = clock(device)
     r = SPRunner(cfg, pts, device=device)
     r.initialize()
     n_cols = len(r.sp_cols)
-    t1 = _clock(device)
+    t1 = clock(device)
     r.run(1)                      # includes the kernels' build
-    t2 = _clock(device)
+    t2 = clock(device)
     r.run(args.steps - 1)
-    t3 = _clock(device)
+    t3 = clock(device)
     r.finalize(save_restart=False)
     t_init, t_first, t_rest = t1 - t0, t2 - t1, t3 - t2
     step_s = t_rest / max(args.steps - 1, 1)
@@ -156,8 +148,7 @@ def parser():
 def main(argv=None):
     args = parser().parse_args(argv)
     device = default_device(args.device)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    name = device_name(device)
     print("device:", name, flush=True)
     rows = []
     for n in [int(s) for s in args.sizes.split(",")]:

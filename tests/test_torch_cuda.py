@@ -119,6 +119,44 @@ def test_tiled_kernel_matches_plain_on_card(dev, shape, n, tz, inputs):
     torch.cuda.synchronize()
 
 
+# the T255 case's LES plane (runtime/t255bench.py) in the default launch
+# geometry: one instance, and chip_smoke.py phase_t255's batch of 4 (one
+# z-chunk a column, chip_smoke.FLEET_SHAPES)
+WIDE = (128, 128, 160)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("inputs", ["stage_inputs", "rough_inputs"])
+def test_kernel_matches_plain_at_128_planes_on_card(dev, inputs, n):
+    """chip_smoke.py's check of the stage kernel (check_stage) at
+    128x128x160: 16 x 4 column tiles of a plane, n = 1 (4 z-chunks of 40
+    levels) and n = 4 (one chunk of 160)."""
+    grid = lgrid.LESGrid(nx=WIDE[0], ny=WIDE[1], nz=WIDE[2])
+    assert lesstage.stage_geometry(n, *WIDE[::-1]).tz == {1: 40, 4: 160}[n]
+    cur, base, frc, dt = getattr(cs, inputs)(grid, n, 7 + n)
+    cs.check_stage(lesstage.stage_fused_cuda, grid, lstep.LESPhysics(), cur,
+                   base, frc, dt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["split_inputs", "rough_split_inputs"])
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])
+def test_split_kernel_matches_plain_at_128_planes_on_card(dev, kernel,
+                                                          inputs):
+    """chip_smoke.py's check of kernels #2-#4 (check_arrays) at
+    128x128x160, n = 1."""
+    grid = lgrid.LESGrid(nx=WIDE[0], ny=WIDE[1], nz=WIDE[2])
+    name, launch, plain, args_of, tol, _ = next(
+        k for k in cs.split_kernels() if k[0] == kernel)
+    args = args_of(getattr(cs, inputs)(grid, 1, 12), grid)
+    got = launch(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    cs.check_arrays(name, got, ref, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, n, tz", [((16, 16, 32), 2, None),
                                           ((12, 10, 20), 3, 6)])

@@ -57,6 +57,13 @@ MODULES = (
     "sp_coupler_tpu_torch.parallel.sharding",
     "sp_coupler_tpu_torch.runtime.scalebench",
     "sp_coupler_tpu_torch.runtime.columnbench",
+    "sp_coupler_tpu_torch.runtime.gcmscale",
+    "sp_coupler_tpu_torch.runtime.tl639",
+    "sp_coupler_tpu_torch.runtime.t255bench",
+    "sp_coupler_tpu_torch.verify.held_suarez",
+    "sp_coupler_tpu_torch.verify.hs_bisect",
+    "sp_coupler_tpu_torch.verify.moist_endurance",
+    "sp_coupler_tpu_torch.verify.parity_report",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
