@@ -18,7 +18,8 @@ the scalar and momentum kernels):
      64x64x160, n = 1;
   4. the stage kernel alone at 64x64x160, n = 1 and 2: device time per
      call split by launch (torch.profiler, mean of 20 calls), CUDA-event
-     time per call, and its share of the bound (chip_smoke.stage_bound);
+     time per call, and its share of the bound
+     (sp_coupler_tpu_torch/ops/bounds.py, stage_bound);
      then the device time per call of k_stage at several levels per
      z-chunk (TZ_SWEEP; the default geometry's marked);
   5. the scalar (lesflat) and momentum (lesmom) kernels alone at
@@ -33,6 +34,13 @@ the scalar and momentum kernels):
      layer's thickness, from the state the step starts from) and where,
      the temperature extrema and the non-finite counts of u, v, T, lnps;
      the run stops at its first non-finite step.
+  8. (mode sass only) the static SASS of each built kernel (cuobjdump
+     -sass of the .so phase_build made): per device function, the count
+     of each float32 opcode (FFMA, FADD, FMUL, FMNMX, FSETP, FSEL, MUFU,
+     ...) and of all instructions; the share of multiplies and adds that
+     the compiler fused (FFMA against FADD + FMUL) reads against the
+     data sheet's 67 TFLOP/s of ops/bounds.py, which counts an FFMA as
+     two operations.
   6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
      SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
      step, one first=False coupled step with the fleet batched and one
@@ -49,11 +57,14 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_profile.py split   (phase 5 only)
      python3 chip_profile.py t159    (phase 6 only; not part of "all")
      python3 chip_profile.py tl639   (phase 7 only; not part of "all")
+     python3 chip_profile.py sass    (phase 8 only; not part of "all")
 """
 
 import json
 import os
+import re
 import statistics
+import subprocess
 import sys
 import time
 
@@ -61,6 +72,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from sp_coupler_tpu_torch.ops import bounds
 
 STEADY = 5
 TOP = 15
@@ -223,7 +235,8 @@ def phase_stage(card):
                 call, expect=cs.DEVICE_KERNELS["lesstage"]).items():
             by[launch_of(name)] = by.get(launch_of(name), 0.0) + us
         stage_us = by.get("k_means", 0.0) + by.get("k_stage", 0.0)
-        b_ms, bound_by = cs.bound_ms(*cs.stage_bound(n, nz, ny, nx))
+        b_ms, bound_by = bounds.bound_ms(*bounds.stage_bound(n, nz, ny,
+                                                             nx))
         ev = cs.cuda_ms(call)
         geom = lesstage.stage_geometry(n, nz, ny, nx)
         res["calls"][n] = dict(device_us_by_launch=by, device_us=stage_us,
@@ -265,9 +278,9 @@ def phase_split(card):
             us = sum(cs.device_us(
                 call, expect=cs.DEVICE_KERNELS[name]).values())
             ev = cs.cuda_ms(call)
-            b_ms, bound_by = cs.bound_ms(
+            b_ms, bound_by = bounds.bound_ms(
                 cs.tensor_bytes(args, call()),
-                cs.KERNEL_OPS[name] * n * nz * ny * nx)
+                bounds.KERNEL_OPS[name] * n * nz * ny * nx)
             geom = geom_of(args, None)
             res["calls"]["%s n=%d" % (name, n)] = dict(
                 device_us=us, cuda_event_ms=ev, bound_us=1e3 * b_ms,
@@ -334,7 +347,8 @@ def first_chunk_kernels(fn, carry, step_idx):
 
 def phase_t159(card):
     """The T159 case's steady step, batched against serial pacing."""
-    fn, carry = cs.t159_case("batched")
+    from sp_coupler_tpu_torch.runtime import t159bench
+    fn, carry = t159bench.case(torch.device("cuda"), "batched")
     carry = fn(*carry, 0, first=True)[:4]
     torch.cuda.synchronize()
     grid = fn.grid
@@ -434,11 +448,57 @@ def phase_tl639(card):
     return out
 
 
+# float32 opcodes of the SASS histogram (phase 8)
+F32_OPCODES = ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSET", "FSEL",
+               "FCHK", "MUFU")
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+
+
+def sass_counts(text):
+    """{device function: {opcode: count}} of cuobjdump -sass output."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = {}
+            continue
+        m = SASS_LINE.search(line)
+        if fn is not None and m:
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return out
+
+
+def phase_sass(card):
+    """Phase 8: the float32 opcodes of each kernel's static SASS."""
+    from sp_coupler_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    res = {}
+    for name in cs.BUILDS:
+        text = subprocess.run([tool, "-sass", _build.build(name)[0]],
+                              check=True, capture_output=True,
+                              text=True).stdout
+        for fn, ops in sass_counts(text).items():
+            f32 = {k: ops.get(k, 0) for k in F32_OPCODES}
+            mad = f32["FFMA"] + f32["FADD"] + f32["FMUL"]
+            res[fn] = dict(source=name, instructions=sum(ops.values()),
+                           f32=f32, f32_total=sum(f32.values()),
+                           ffma_share=f32["FFMA"] / max(mad, 1))
+            print("sass %s %s: %d instructions, %d float32 (%s); FFMA %.3f "
+                  "of FFMA + FADD + FMUL" % (
+                      name, fn, res[fn]["instructions"],
+                      res[fn]["f32_total"],
+                      " ".join("%s %d" % kv for kv in f32.items() if kv[1]),
+                      res[fn]["ffma_share"]), flush=True)
+    print("sass on %s" % card, flush=True)
+    return res
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if mode not in ("all", "path", "stage", "split", "t159", "tl639"):
+    if mode not in ("all", "path", "stage", "split", "t159", "tl639",
+                    "sass"):
         raise SystemExit("usage: chip_profile.py [path | stage | split | "
-                         "t159 | tl639]")
+                         "t159 | tl639 | sass]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -454,6 +514,8 @@ def main():
         out.update(t159=phase_t159(card))
     if mode == "tl639":
         out.update(tl639=phase_tl639(card))
+    if mode == "sass":
+        out.update(sass=phase_sass(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

@@ -5,9 +5,12 @@ Drives the port's two paths — the reference T21/L19 GCM coupled two-way to
 2 LES instances of 64 x 64 x 160 (RICO), CFL/Peclet-adaptive, the case of
 bench.py — on one CUDA card: the main path (Deardorff TKE closure) through
 the hand-written CUDA stage kernel, and the Smagorinsky path (the split
-tendency path) through the scalar and momentum kernels; then the
-semi-Lagrangian GCM alone and the T159 regional case (T159/L19 SL GCM +
-64 LES of 64 x 64 x 160, scripts/bench_t159.py) through the stage kernel;
+tendency path) through the scalar and momentum kernels; the port's
+bench (sp_coupler_tpu_torch/bench.py, the JAX package's bench.py) and
+its fleet benches (serial against batched pacing, throughput against
+batch size); then the semi-Lagrangian GCM alone and the T159 regional
+case (T159/L19 SL GCM + 64 LES of 64 x 64 x 160, scripts/bench_t159.py)
+through the stage kernel;
 then the main path's case on 2 ranks sharing the card (instance
 parallelism over torch.distributed), on 4 ranks each holding a block
 of every plane (--lesprocs 4: the kernels in their halo mode), and the
@@ -27,8 +30,9 @@ Phases (any failure raises and exits non-zero):
      outputs, the increments out - base on their own, and kmax against a
      float64 run of the plain version, for the stage_inputs state and a
      rough one (rough_inputs), and at the fleets' batches (FLEET_SHAPES:
-     64x64x160, n = 64, the T159 leg's; 128x128x160, n = 4, phase_t255's)
-     for stage_inputs; then each option of STAGE_OPTIONS
+     64x64x160, n = 3, 4, 8, 16, 32 and 64, every launch geometry of
+     phase_schedule, phase_batch and the T159 leg; 128x128x160, n = 4,
+     phase_t255's) for stage_inputs; then each option of STAGE_OPTIONS
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
      CUDA-event timings of both and the kernel's bound;
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
@@ -38,8 +42,12 @@ Phases (any failure raises and exits non-zero):
      tests' tolerance and at ARRAY_FRAC of its own max|ref|; with
      CUDA-event and device timings of both;
   4. a small coupled step (T10/L8 + 2 x 16x16x32) through the kernels
-     against the same step through the plain split path, for each closure:
-     the substep counts, the slab profiles and their change over the step;
+     against the same step through the plain split path, for each closure
+     and for the advection schemes cd2 and hybrid62 with the TKE closure
+     (SMALL_PATHS; their scalars take the plain path, their momentum the
+     lesmom kernel): the substep counts, the slab profiles and their
+     change over the step; the path's kernels launch 3 x the substeps of
+     the fleet's loop;
   5. the main path: 2 coupled steps (first=True, then first=False); the
      stage kernel's launch count must equal 3 x the substeps taken;
   6. the Smagorinsky path: the same 2 coupled steps with
@@ -77,6 +85,20 @@ Phases (any failure raises and exits non-zero):
      evolve_chunks=3 from the start of an unchunked one; 3 x substeps
      launches, finite profiles within PROFILE_TOL[0] of the unchunked
      step's;
+  10b. the bench (phase_bench): sp_coupler_tpu_torch/bench.py at its
+     defaults (the bench case, 2 warm and 3 timed coupled steps, the phase
+     breakdown with and without the projection): its JSON line's keys
+     (BENCH_KEYS), value > 0, finite profiles, the stage kernel launched 3
+     x every substep of the run; writes chip_smoke_bench.json;
+  10c. serial against batched pacing (phase_schedule):
+     runtime/schedulebench.py, the 4-instance mixed-wind fleet of
+     64x64x160 over 60 s: the same substeps per instance in both
+     schedules, spread at least 2x, the fields within EVOLVE_TOL of each
+     field's max, the stage kernel 3 x the substep calls;
+  10d. fleet throughput against batch size (phase_batch):
+     runtime/batchbench.py at n = BATCH_SIZES (up to 64 x 64x64x160), 20
+     fixed-dt substeps: finite output, the stage kernel 3 x the substeps,
+     the peak of device memory; 10c and 10d write chip_smoke_fleet.json;
   11. the SL GCM alone (phase_gcm_sl): the JAX package's two 10-day T42
      guards (T42/L19, hybrid, SL, dt 1800 s, 481 steps; T42_GUARDS), the
      window interpolation against the gather one at T159 (WG_*), and
@@ -84,9 +106,10 @@ Phases (any failure raises and exits non-zero):
      one SL step at T159/L19;
   12. the T159 regional case (phase_t159): the SL GCM at T159/L19 on the
      card against the port's CPU run from the same start for 3 steps
-     (T159_*), then T159/L19 SL + 64 x 64x64x160 at the columns of
-     bench_t159.py, dt_les 15 s, evolve_chunks 8, the batched fleet, 2
-     coupled steps: finite profiles and GCM fields, the stage kernel's
+     (T159_*), then the case through runtime/t159bench.py: T159/L19 SL +
+     64 x 64x64x160 at the columns of bench_t159.py, dt_les 15 s,
+     evolve_chunks 8, the batched fleet, 2 warm coupled steps and
+     T159_TIMED timed: finite profiles and GCM fields, the stage kernel's
      launches = 3 x the substeps of the batched loop; writes
      chiprun_out/chip_smoke_t159.json.
   13. instance parallelism (phase_mesh): the bench case through the CLI
@@ -179,6 +202,8 @@ import time
 import numpy as np
 import torch
 
+from sp_coupler_tpu_torch.ops.bounds import KERNEL_OPS, bound_ms, stage_bound
+
 OUT_DIR = "chiprun_out"
 # kernel name -> (CUDA source, the Pallas kernel it replaces)
 KERNELS = {
@@ -232,10 +257,15 @@ STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
                 ((64, 64, 157), 2, None), ((128, 128, 160), 1, None),
                 ((128, 128, 160), 2, None))
 # the stage kernel alone (phase 3) also at the batches of the fleets that
-# run it: the T159 leg's 64 instances of 64x64x160 and phase_t255's 4 of
-# 128x128x160 in one launch (one z-chunk a column at both), for the smooth
-# input
-FLEET_SHAPES = (((64, 64, 160), 64, None), ((128, 128, 160), 4, None))
+# run it, for the smooth input: at 64x64x160 every launch geometry of the
+# fleet benches, n = 3 (tz 32, 5 chunks; phase_schedule's batched fleet
+# once one instance is done), 4 (tz 40; its whole fleet), 8 (tz 80),
+# 16 (one chunk, 256 blocks), 32 (one chunk, 512 blocks; phase_batch's
+# BATCH_SIZES) and 64 (the T159 leg's and phase_batch's largest), and
+# phase_t255's 4 of 128x128x160 in one launch (one z-chunk a column)
+FLEET_N = (3, 4, 8, 16, 32, 64)
+FLEET_SHAPES = tuple(((64, 64, 160), n, None) for n in FLEET_N) + (
+    ((128, 128, 160), 4, None),)
 # physics options the main path does not take (LESPhysics fields), each
 # held by its own effect: the change of the outputs from the default run,
 # against the plain version's change, at INC_FRAC of its max (f_coriolis
@@ -262,20 +292,6 @@ COUPLED_FRAC = 1e-2
 SCALAR_TOL = dict(atol=2e-4, rtol=1e-4)
 MOM_TOL = dict(atol=5e-5, rtol=1e-4)
 ARRAY_FRAC = 1e-4
-# a kernel's bound: the bytes it must move (each input read once, each
-# output written once) over the H100's 3.35 TB/s, against its float
-# operations over their issue rate. Operations per grid point, counted by
-# hand from the CUDA sources (an add, multiply, divide, min/max, compare,
-# sqrt, exp, log or pow is one; the saturation adjustment at its default
-# 2 iterations): lesstage ~86 closure + ~100 thermodynamics + ~890
-# tendencies and axpy + ~80 plane means; lesflat/advect 4 scalars x ~140;
-# lesmom ~230. Each is one float32 instruction, issued at 128 a clock per
-# SM: 33.5 T/s on 132 SMs at 1.98 GHz, half the data sheet's 67 TFLOP/s
-# of float32 outside the tensor cores (SXM, 700 W), which counts a fused
-# multiply-add as two operations
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 33.5e12
-KERNEL_OPS = dict(lesstage=1160, lesflat=560, advect=560, lesmom=230)
 
 
 def log(*a):
@@ -555,23 +571,6 @@ def check_change(name, got, ref):
     return err / scale if scale > 0 else err
 
 
-def stage_bound(n, nz, ny, nx):
-    """(bytes, float operations) the stage needs at this shape: 7 current
-    fields, 7 base fields and the profiles read once, 7 fields and aux
-    written once; KERNEL_OPS per point."""
-    pts = n * nz * ny * nx
-    return (4 * (21 * pts + n * (7 * nz + 1 + 4) + 3 * n),
-            KERNEL_OPS["lesstage"] * pts)
-
-
-def bound_ms(nbytes, ops):
-    """The least time for the work on an H100 (SXM): bytes over 3.35 TB/s
-    and float32 operations over 33.5 T/s (F32_OPS_PER_S), the larger; and
-    which binds."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
 def phase_kernel(card):
     """The stage kernel against its plain version, on the card."""
     from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
@@ -765,9 +764,38 @@ def read_launches():
                 lesmom_halo=lesmom.halo_launches)
 
 
-def phase_small_coupled(card, subgrid="tke"):
+def check_launches(name, launches, calls, kernels=("lesstage",)):
+    """Each of kernels launched 3 x calls (substep calls) times, and at
+    least once; every other wrapper not at all."""
+    for k, count in launches.items():
+        want = 3 * calls if k in kernels else 0
+        if count != want or (k in kernels and count == 0):
+            raise AssertionError("%s: %s launches %d, want %d (3 x %d "
+                                 "substeps)" % (name, k, count, want, calls))
+
+
+# (closure, advection scheme) of the small coupled steps: the two closures,
+# and the split path's other schemes, whose scalars take the plain path
+# and whose momentum takes the lesmom kernel
+SMALL_PATHS = (("tke", "hybrid52"), ("smagorinsky", "hybrid52"),
+               ("tke", "cd2"), ("tke", "hybrid62"))
+
+
+def path_kernels(subgrid="tke", scheme="hybrid52"):
+    """The kernels a path launches: the stage kernel for TKE with hybrid52;
+    else the split path's momentum kernel, and its scalar kernel with
+    hybrid52 (the scalar kernel implements hybrid52 advection only)."""
+    if scheme == "hybrid52":
+        return PATH_KERNELS[subgrid]
+    return ("lesmom",)
+
+
+def phase_small_coupled(card, subgrid="tke", scheme="hybrid52"):
     """A small coupled step through the kernels against the plain split
-    path, with the given closure."""
+    path, with the given closure and advection scheme. The path's kernels
+    launch 3 x the substeps of the fleet's loop (the substep calls, each
+    over the instances still running), the others not at all. Returns
+    the kernel path's launch counts."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
     from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
@@ -775,25 +803,27 @@ def phase_small_coupled(card, subgrid="tke"):
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
     grid = lgrid.LESGrid(nx=16, ny=16, nz=32)
     cols = [100, 200]
+    kernels = path_kernels(subgrid, scheme)
     outs = []
     for use_kernel in (True, False):
         core = gcm_model.GCMCore(gcm_model.GCMConfig(trunc=10, nlev=8,
                                                      dt=300.0))
         gs = core.initial_state(seed=0)
         les = t255bench.seed_les(core, gs, grid, cols)
-        phys = lstep.LESPhysics(subgrid=subgrid, use_kernel=use_kernel)
+        phys = lstep.LESPhysics(subgrid=subgrid, scheme=scheme,
+                                use_kernel=use_kernel)
         fn = CoupledStepFn(core, grid, phys, cols, dt_les=15.0, n_substeps=0)
         prof = ldiag.slab_profiles(grid, les)
         reset_launches()
-        out = fn(gs, les, prof, torch.zeros(2, device=core.device), 0,
-                 first=True)
+        out, calls = counted_substeps(lambda: fn(
+            gs, les, prof, torch.zeros(2, device=core.device), 0,
+            first=True))
         counts = read_launches()
-        ran = [k for k in PATH_KERNELS[subgrid] if counts[k] > 0]
-        if use_kernel and len(ran) != len(PATH_KERNELS[subgrid]):
-            raise AssertionError("kernel path of %s launched %s" % (subgrid,
-                                                                   counts))
-        if not use_kernel and any(counts.values()):
-            raise AssertionError("plain path launched %s" % counts)
+        check_launches("%s/%s %s path" % (
+            subgrid, scheme, "kernel" if use_kernel else "plain"), counts,
+            calls, kernels if use_kernel else ())
+        if use_kernel:
+            launches = counts
         outs.append((prof, out, fn.unpack_diag(out[4])))
     (p0, o_k, d_k), (_, o_p, d_p) = outs
     if not np.array_equal(d_k["n_substeps"], d_p["n_substeps"]):
@@ -806,10 +836,12 @@ def phase_small_coupled(card, subgrid="tke"):
         check_close("coupled " + k, o_k[2][k], ref, 2e-3 * scale, 2e-3)
         gaps[k] = check_increment("coupled " + k, o_k[2][k], ref, p0[k],
                                   COUPLED_FRAC, 0.0)
-    log("small coupled step T10/L8 + 2x16x16x32, %s: kernel path == plain "
-        "path (substeps %s); profile change err / max|change|: %s on %s"
-        % (subgrid, [int(x) for x in d_k["n_substeps"]],
+    log("small coupled step T10/L8 + 2x16x16x32, %s/%s: kernel path == "
+        "plain path (substeps %s; launches %s); profile change err / "
+        "max|change|: %s on %s"
+        % (subgrid, scheme, [int(x) for x in d_k["n_substeps"]], launches,
            " ".join("%s %.2g" % kv for kv in gaps.items()), card))
+    return launches
 
 
 def main_path_case(subgrid="tke"):
@@ -1027,6 +1059,158 @@ def phase_chunked(card):
     return launches
 
 
+# ---- the port's benches (sp_coupler_tpu_torch/bench.py, runtime/) ---------
+
+# the keys of bench.py's JSON line on the port (tests/test_torch_benches.py
+# reads them from the JAX package's bench.py)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "phase_ms",
+              "phase_method", "hbm_gbs", "hbm_frac", "f32_op_frac",
+              "op_model"]
+BATCH_SIZES = (2, 8, 16, 32, 64)
+
+
+def counted_substeps(fn):
+    """(fn(), the number of models/les/step.substep calls it made)."""
+    from sp_coupler_tpu_torch.models.les import step as lstep
+    calls = [0]
+    substep = lstep.substep
+
+    def counting_substep(*a, **kw):
+        calls[0] += 1
+        return substep(*a, **kw)
+
+    lstep.substep = counting_substep
+    try:
+        return fn(), calls[0]
+    finally:
+        lstep.substep = substep
+
+
+def phase_bench(card):
+    """sp_coupler_tpu_torch/bench.py at its defaults, in this process: the
+    bench case (T21/L19 + 2 x 64x64x160), 2 warm and 3 timed coupled steps,
+    then the phase breakdown (2 x (1 + 3) x 50 fixed-dt substeps, with and
+    without the projection). The line has bench.py's keys, value > 0,
+    finite profiles, and the stage kernel launched 3 x every substep of
+    the run (the substep calls; the fleet runs serially at this size, so
+    the coupled steps call it once a substep of each instance, and the
+    breakdown's batch of 2 once a substep). Writes chip_smoke_bench.json.
+    Returns the launch counts."""
+    from sp_coupler_tpu_torch import bench
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
+    args = bench.parser().parse_args([])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    (line, extras), calls = counted_substeps(
+        lambda: bench.run(args, torch.device("cuda")))
+    wall = time.time() - t0
+    launches = read_launches()
+    if list(line) != BENCH_KEYS or list(line["phase_ms"]) != [
+            "substep", "stage_x3", "projection_x3"]:
+        raise AssertionError("bench: keys %s" % list(line))
+    if not line["value"] > 0:
+        raise AssertionError("bench: value %r" % line["value"])
+    for k in ("THL", "QT", "U"):
+        if not bool(torch.isfinite(extras["prof"][k]).all()):
+            raise AssertionError("bench: non-finite %s" % k)
+    sub = extras["substeps"]
+    serial = lstep.serial_fleet_default(lgrid.LESGrid(
+        nx=args.nx, ny=args.ny, nz=args.nz))
+    if serial and calls != sum(sub.values()):
+        raise AssertionError("bench: %d substep calls, the run counts %s"
+                             % (calls, sub))
+    check_launches("bench", launches, calls)
+    log("bench: %.4g gridpoint-updates/s (vs_baseline %.1f), phase_ms %s, "
+        "hbm_frac %.3g, f32_op_frac %.3g; launches %s for substeps %s; "
+        "%.1f s in all on %s"
+        % (line["value"], line["vs_baseline"], line["phase_ms"],
+           line["hbm_frac"], line["f32_op_frac"], launches, sub, wall, card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_bench.json"), "w") as f:
+        json.dump(dict(card=card, line=line, substeps=sub,
+                       launches=launches, wall_s=wall), f, indent=1)
+    return launches
+
+
+def phase_schedule(card):
+    """runtime/schedulebench.py at full width: the 4-instance mixed-wind
+    fleet of 64x64x160, 60 s, batched and serial, a warm call and 3 reps
+    each. Both schedules take the same substeps per instance, with a
+    spread of at least 2x across the fleet; the two last reps' fields
+    agree within EVOLVE_TOL of each field's max (cuBLAS may round the
+    projection's batched products by the batch size); the
+    stage kernel launches 3 x the substep calls. Returns the record and
+    the launch counts."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    from sp_coupler_tpu_torch.runtime import schedulebench
+    grid = lgrid.LESGrid()
+    state, forcing = schedulebench.fleet(grid, torch.device("cuda"))
+    torch.cuda.synchronize()
+    reset_launches()
+    res, calls = counted_substeps(
+        lambda: schedulebench.run(grid, state, forcing))
+    launches = read_launches()
+    b, s = res["batched"], res["serial"]
+    if b["substeps"] != s["substeps"] or max(b["substeps"]) < 2 * min(
+            b["substeps"]):
+        raise AssertionError("schedule: substeps batched %s, serial %s"
+                             % (b["substeps"], s["substeps"]))
+    gaps = {}
+    for k in STAGE_NAMES:
+        ref = getattr(s["state"], k)
+        scale = float(ref.abs().max())
+        gaps[k] = check_close("schedule " + k, getattr(b["state"], k), ref,
+                              EVOLVE_TOL["atol"] * scale,
+                              EVOLVE_TOL["rtol"]) / max(scale, 1e-30)
+    check_launches("schedule", launches, calls)
+    rec = dict(batched_s=b["s"], serial_s=s["s"], speedup=res["speedup"],
+               substeps=b["substeps"], field_gap_of_max=gaps,
+               launches=launches)
+    log("schedule: 4 x 64x64x160 over 60 s, batched %.3f s, serial %.3f s "
+        "(serial speedup %.2fx), substeps %s; batched against serial, max "
+        "err / max|serial|: %s on %s"
+        % (b["s"], s["s"], res["speedup"], b["substeps"],
+           " ".join("%s %.2g" % kv for kv in gaps.items()), card))
+    return rec, launches
+
+
+def phase_batch(card):
+    """runtime/batchbench.py at full width: fleets of BATCH_SIZES x
+    64x64x160, 20 fixed-dt substeps, a warm call and 2 timed ones each;
+    finite output, the stage kernel 3 x 3 x 20 launches a fleet, the peak
+    of device memory. Returns the rows and the launch counts."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    from sp_coupler_tpu_torch.runtime import batchbench
+    grid = lgrid.LESGrid()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (rows, out), calls = counted_substeps(
+        lambda: batchbench.run(grid, torch.device("cuda"), BATCH_SIZES))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in STAGE_NAMES:
+        if not bool(torch.isfinite(getattr(out, k)).all()):
+            raise AssertionError("batch: non-finite %s at n = %d"
+                                 % (k, BATCH_SIZES[-1]))
+    if calls != len(BATCH_SIZES) * (1 + batchbench.REPS) * batchbench.N_SUB:
+        raise AssertionError("batch: %d substep calls" % calls)
+    check_launches("batch", launches, calls)
+    log("batch: %s; peak %.2f GiB, launches %s on %s"
+        % ("; ".join("n=%d %.3f ms/substep %.4g updates/s" % (
+            r["n_les"], r["ms_per_substep"], r["updates_per_s"])
+            for r in rows), peak, launches, card))
+    return dict(rows=rows, peak_memory_gib=peak, launches=launches), launches
+
+
+def write_fleet(schedule, batch):
+    """chiprun_out/chip_smoke_fleet.json: the schedule and batch benches."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_fleet.json"), "w") as f:
+        json.dump(dict(schedule=schedule, batch=batch), f, indent=1)
+
+
 def check_cross(odir, cols, n_steps, grid):
     """les-work-<col>/cross.nc of each column: the native writer wrote it,
     the port's reader and scipy read it, thlxy* planes ny x nx with at
@@ -1206,12 +1390,8 @@ def check_leg_launches(name, runner, launches, kernels):
     instance; a batched one (small instances) once per substep of the
     fleet, as many as its slowest instance takes."""
     per_step = np.sum if runner.fleet.serial else np.max
-    total = int(sum(per_step(s) for s in runner.substeps))
-    for k, count in launches.items():
-        want = 3 * total if k in kernels else 0
-        if count != want or (k in kernels and count == 0):
-            raise AssertionError("%s: %s launches %d, want %d (3 x %d "
-                                 "substeps)" % (name, k, count, want, total))
+    check_launches(name, launches,
+                   int(sum(per_step(s) for s in runner.substeps)), kernels)
 
 
 def check_finite_records(name, groups, cols, n_rec, variables):
@@ -2270,7 +2450,6 @@ def phase_gcm_sl(card):
 
 # ---- the T159 regional case (scripts/bench_t159.py) ----------------------
 
-T159_LES = 64
 # the SL GCM at T159/L19 on the card against the port's CPU run from the
 # same start, 3 steps: the dynamical grid fields at rtol T159_RTOL plus
 # T159_ATOL of max|cpu|; the condensate at T159_Q_ATOL of max|q| and the
@@ -2283,21 +2462,6 @@ T159_LES = 64
 # fraction (measured 1.5e-8 kg/kg and 8.8e-4; NVIDIA H100 80GB HBM3,
 # 700 W)
 T159_RTOL, T159_ATOL, T159_Q_ATOL, T159_A_ATOL = 1e-4, 5e-4, 1e-5, 2e-2
-
-
-def t159_columns(core, n=T159_LES):
-    """scripts/bench_t159.py:32-39: 8 rows of |lat| < 15 deg x 8
-    longitudes."""
-    lats = np.asarray(core.sht.latitudes_deg())
-    rows = np.where(np.abs(lats) < 15.0)[0]
-    cols = []
-    for r in rows[:: max(1, len(rows) // 8)]:
-        for k in range(8):
-            cols.append(int(r * core.nlon + (k * core.nlon) // 8))
-    cols = cols[:n]
-    if len(cols) != n:
-        raise AssertionError("T159: %d columns, want %d" % (len(cols), n))
-    return cols
 
 
 def t159_gcm_vs_cpu(card, n_steps=3):
@@ -2345,106 +2509,57 @@ def t159_gcm_vs_cpu(card, n_steps=3):
     return dict(errors=errs, card_s=t_dev, cpu_s=t_cpu, steps=n_steps)
 
 
-def t159_case(schedule="batched"):
-    """The T159 regional case on the port (scripts/bench_t159.py:15-60):
-    the T159/L19 SL GCM, 64 LES of 64x64x160 (RICO, TKE) at the columns
-    bench_t159.py picks, dt_les 15 s, evolve_chunks 8, the fleet paced
-    by `schedule`. Returns the step function and its start (gcm state,
-    LES fleet, profiles, rain)."""
-    from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
-                                                 diag as ldiag)
-    from sp_coupler_tpu_torch.runtime import t255bench
-    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
-    core = gcm_core("cuda", trunc=159, nlev=19, dt=900.0, advection="sl")
-    grid = lgrid.LESGrid()
-    cols = t159_columns(core)
-    gs = core.initial_state(seed=0)
-    les = t255bench.seed_les(core, gs, grid, cols)
-    fn = CoupledStepFn(core, grid, lstep.LESPhysics(), cols, dt_les=15.0,
-                       n_substeps=0, evolve_chunks=8,
-                       serial_evolve=schedule)
-    prof = ldiag.slab_profiles(grid, les)
-    return fn, (gs, les, prof, torch.zeros(len(cols), device=core.device))
+# the T159 case through runtime/t159bench.py: its 2 warm steps and
+# T159_TIMED timed ones, the batched fleet
+T159_TIMED = 1
 
 
 def phase_t159(card):
-    """The T159 regional case on the card: T159/L19 SL GCM + 64 LES of
-    64x64x160 (RICO, TKE), columns as scripts/bench_t159.py picks them,
-    dt_les 15 s, evolve_chunks 8, the batched fleet, 2 coupled steps.
-    The stage kernel launches 3 x the substeps of the batched loop (the
-    substep calls, each over the instances still running). Returns its
-    record and the first step's per-instance substeps and profiles
+    """The T159 regional case on the card through runtime/t159bench.py:
+    T159/L19 SL GCM + 64 LES of 64x64x160 (RICO, TKE), columns as
+    scripts/bench_t159.py picks them, dt_les 15 s, evolve_chunks 8, the
+    batched fleet, its 2 warm steps and T159_TIMED timed ones. The stage
+    kernel launches 3 x the substeps of the batched loop (the substep
+    calls, each over the instances still running). Returns its record
+    and the first step's per-instance substeps and profiles
     (phase_gcm_bands' reference)."""
-    from sp_coupler_tpu_torch.models.les import step as lstep
+    from sp_coupler_tpu_torch.runtime import t159bench
     rec = dict(card=card, gcm_vs_cpu=t159_gcm_vs_cpu(card))
     torch.cuda.reset_peak_memory_stats()
-    fn, (gs, les, prof, rain) = t159_case()
-    core, grid, cols = fn.core, fn.grid, fn.cols.tolist()
-    calls = [0]
-    substep = lstep.substep
-
-    def counting_substep(*a, **kw):
-        calls[0] += 1
-        return substep(*a, **kw)
-
-    lstep.substep = counting_substep
-    steps = []
-    try:
-        torch.cuda.synchronize()
-        reset_launches()
-        for step, first in ((0, True), (1, False)):
-            n0 = calls[0]
-            t0 = time.time()
-            gs, les, prof, rain, diag = fn(gs, les, prof, rain, step,
-                                           first=first)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            nsub = [int(x) for x in fn.unpack_diag(diag)["n_substeps"]]
-            if first:
-                first_step = dict(nsub=nsub, prof={
-                    k: v.cpu().numpy() for k, v in prof.items()})
-            for k in ("THL", "QT", "U"):
-                if not bool(torch.isfinite(prof[k]).all()):
-                    raise AssertionError("t159: non-finite %s after step %d"
-                                         % (k, step))
-            for k in ("u", "v", "T", "q", "lnps"):
-                if not bool(torch.isfinite(getattr(gs.grid, k)).all()):
-                    raise AssertionError("t159: non-finite GCM %s after "
-                                         "step %d" % (k, step))
-            if tuple(prof["THL"].shape) != (T159_LES, grid.nz) or \
-                    min(nsub) <= 0:
-                raise AssertionError("t159: THL %s, substeps %s"
-                                     % (tuple(prof["THL"].shape), nsub))
-            rate = grid.nx * grid.ny * grid.nz * sum(nsub) / wall
-            steps.append(dict(first=first, wall_s=wall,
-                              instance_substeps=sum(nsub),
-                              loop_substeps=calls[0] - n0,
-                              substeps_min_max=[min(nsub), max(nsub)],
-                              gridpoint_updates_per_s=rate))
-            log("t159 step %d (first=%s): %.3f s, %d instance-substeps "
-                "(%d..%d per instance) in %d substeps of the batched loop, "
-                "%.4g LES gridpoint-updates/s on %s"
-                % (step, first, wall, sum(nsub), min(nsub), max(nsub),
-                   calls[0] - n0, rate, card))
-        launches = read_launches()
-    finally:
-        lstep.substep = substep
-    loop = sum(st["loop_substeps"] for st in steps)
-    for k, count in launches.items():
-        want = 3 * loop if k == "lesstage" else 0
-        if count != want or (k == "lesstage" and count == 0):
-            raise AssertionError("t159: %s launches %d, want %d (3 x %d "
-                                 "substeps of the batched loop)"
-                                 % (k, count, want, loop))
+    args = t159bench.parser().parse_args(
+        ["batched", "--steps", str(T159_TIMED)])
+    torch.cuda.synchronize()
+    reset_launches()
+    (row, extras), calls = counted_substeps(
+        lambda: t159bench.run(args, torch.device("cuda")))
+    launches = read_launches()
+    gs, prof, steps = extras["gcm"], extras["prof"], extras["steps"]
+    for k in ("THL", "QT", "U"):
+        if not bool(torch.isfinite(prof[k]).all()):
+            raise AssertionError("t159: non-finite %s" % k)
+    for k in ("u", "v", "T", "q", "lnps"):
+        if not bool(torch.isfinite(getattr(gs.grid, k)).all()):
+            raise AssertionError("t159: non-finite GCM %s" % k)
+    nz = args.nz
+    if tuple(prof["THL"].shape) != (args.n, nz) or \
+            min(min(st["substeps"]) for st in steps) <= 0:
+        raise AssertionError("t159: THL %s, substeps %s"
+                             % (tuple(prof["THL"].shape), steps))
+    for st in steps:
+        log("t159 step (first=%s): %.3f s, %d instance-substeps (%d..%d per "
+            "instance) on %s" % (st["first"], st["wall_s"],
+                                 sum(st["substeps"]), min(st["substeps"]),
+                                 max(st["substeps"]), card))
+    check_launches("t159", launches, calls)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    rec.update(columns=cols, steps=steps, launches=launches,
-               peak_memory_gib=peak, les=T159_LES,
-               les_grid=[grid.nx, grid.ny, grid.nz],
-               gcm_grid=[core.nlat, core.nlon])
-    log("t159: T159/L19 SL (%dx%d) + %d x %dx%dx%d, launches %s for %d "
-        "substeps of the batched loop, peak memory %.2f GiB on %s"
-        % (core.nlat, core.nlon, T159_LES, grid.nx, grid.ny, grid.nz,
-           launches, loop, peak, card))
+    rec.update(row=row, columns=extras["cols"], steps=steps,
+               loop_substeps=calls, launches=launches,
+               peak_memory_gib=peak, les=args.n,
+               les_grid=[args.nx, args.ny, nz])
+    log("t159: T159/L19 SL + %d x %dx%dx%d through t159bench, launches %s "
+        "for %d substeps of the batched loop, peak memory %.2f GiB on %s"
+        % (args.n, args.nx, args.ny, nz, launches, calls, peak, card))
+    first_step = dict(nsub=steps[0]["substeps"], prof=extras["first_prof"])
     return rec, first_step
 
 
@@ -2465,7 +2580,7 @@ SPEC_TOL = dict(atol=2e-4, rtol=1e-3)
 GRID_TOL = dict(atol=5e-3, rtol=1e-4)
 # (b) the bench case through the CLI with --mesh_les 2 --gcmprocs 2
 BANDS_CLI_ARGS = ["--gcmprocs", str(MESH_RANKS)]
-# (c) the T159 regional case (t159_case: T159/L19 SL, 64 x 64x64x160,
+# (c) the T159 regional case (t159bench.case: T159/L19 SL, 64 x 64x64x160,
 # dt_les 15 s, evolve_chunks 8, batched) on les = 4 ranks of 16 instances
 # with 4 GCM bands of 60 rows, one coupled step from phase_t159's start.
 # A rank's batched loop runs 16 instances where phase_t159's runs 64, and
@@ -2520,7 +2635,7 @@ def bands_rank(odir, report):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
     from sp_coupler_tpu_torch import interop
-    from sp_coupler_tpu_torch.runtime import t255bench
+    from sp_coupler_tpu_torch.runtime import t159bench, t255bench
     from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
                                                  diag as ldiag)
@@ -2555,10 +2670,10 @@ def bands_rank(odir, report):
                    band=[core.bands.r0, core.bands.r1])
         del core, s, start, gridT
         torch.cuda.empty_cache()
-        # (c) phase_t159's start (t159_case), the fleet in les blocks
+        # (c) phase_t159's start (t159bench.case), the fleet in les blocks
         whole = gcm_core(dev, trunc=159, nlev=19, dt=900.0, advection="sl")
         grid = lgrid.LESGrid()
-        cols = t159_columns(whole)
+        cols = t159bench.columns(whole)
         gs = whole.initial_state(seed=0)
         les = t255bench.seed_les(whole, gs, grid, cols)
         prof = ldiag.slab_profiles(grid, les)
@@ -2964,28 +3079,17 @@ def phase_columns(card):
     port's reader."""
     import tempfile
     from sp_coupler_tpu_torch.io import spifs
-    from sp_coupler_tpu_torch.models.les import step as lstep
     from sp_coupler_tpu_torch.runtime import columnbench
-    calls = [0]
-    substep = lstep.substep
-
-    def counting_substep(*a, **kw):
-        calls[0] += 1
-        return substep(*a, **kw)
-
     with tempfile.TemporaryDirectory() as tmp:
         args = columnbench.parser().parse_args(COLUMNS_ARGV
                                                + ["--workdir", tmp])
         n = int(args.sizes)
-        lstep.substep = counting_substep
-        try:
-            torch.cuda.synchronize()
-            reset_launches()
-            row = columnbench.run_size(args, n, torch.device("cuda"))
-            torch.cuda.synchronize()
-            launches = read_launches()
-        finally:
-            lstep.substep = substep
+        torch.cuda.synchronize()
+        reset_launches()
+        row, calls = counted_substeps(
+            lambda: columnbench.run_size(args, n, torch.device("cuda")))
+        torch.cuda.synchronize()
+        launches = read_launches()
         path = os.path.join(tmp, "cols_%04d" % n, "spifs.nc")
         ds = spifs.open_reader(path)
         try:
@@ -2996,12 +3100,7 @@ def phase_columns(card):
                          for v in ("thl", "f_T", "rain"))
         finally:
             ds.close()
-    for k, count in launches.items():
-        want = 3 * calls[0] if k == "lesstage" else 0
-        if count != want or (k == "lesstage" and count == 0):
-            raise AssertionError("columns: %s launches %d, want %d (3 x %d "
-                                 "substeps of the batched loop)"
-                                 % (k, count, want, calls[0]))
+    check_launches("columns", launches, calls)
     if row["n_cols"] != n or n_groups != n or n_rec != args.steps \
             or not finite:
         raise AssertionError("columns: row %s, spifs.nc %d groups, %d "
@@ -3012,12 +3111,12 @@ def phase_columns(card):
         "records, read back; peak %s GiB on %s"
         % (args.trunc, args.nlev, n, args.nx, args.ny, args.nz,
            args.les_schedule, args.steps, json.dumps(row),
-           launches["lesstage"], calls[0], n_groups, n_rec,
+           launches["lesstage"], calls, n_groups, n_rec,
            row["peak_gib"], card))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_columns.json"), "w") as f:
         json.dump(dict(card=card, argv=COLUMNS_ARGV, row=row,
-                       launches=launches, loop_substeps=calls[0]), f,
+                       launches=launches, loop_substeps=calls), f,
                   indent=1)
     return launches
 
@@ -3079,31 +3178,15 @@ def phase_t255(card):
     stage kernel launches 3 x the substeps of the batched loop (a warm
     step and a timed one), the slab profiles are finite and [4, 160].
     Writes chiprun_out/chip_smoke_t255.json. Returns the launches."""
-    from sp_coupler_tpu_torch.models.les import step as lstep
     from sp_coupler_tpu_torch.runtime import t255bench
     args = t255bench.parser().parse_args(T255_ARGV)
-    calls = [0]
-    substep = lstep.substep
-
-    def counting_substep(*a, **kw):
-        calls[0] += 1
-        return substep(*a, **kw)
-
-    lstep.substep = counting_substep
-    try:
-        torch.cuda.synchronize()
-        reset_launches()
-        row, extras = t255bench.run(args, torch.device("cuda"))
-        torch.cuda.synchronize()
-        launches = read_launches()
-    finally:
-        lstep.substep = substep
-    for k, count in launches.items():
-        want = 3 * calls[0] if k == "lesstage" else 0
-        if count != want or (k == "lesstage" and count == 0):
-            raise AssertionError("t255: %s launches %d, want %d (3 x %d "
-                                 "substeps of the batched loop)"
-                                 % (k, count, want, calls[0]))
+    torch.cuda.synchronize()
+    reset_launches()
+    (row, extras), calls = counted_substeps(
+        lambda: t255bench.run(args, torch.device("cuda")))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches("t255", launches, calls)
     shape = (args.n, args.nz)
     for k in ("THL", "QT", "U"):
         p = extras["prof"][k]
@@ -3115,12 +3198,12 @@ def phase_t255(card):
         "lesstage %d = 3 x %d substeps of the batched loop on %s"
         % (args.trunc, args.nlev, args.n, args.nx, args.ny, args.nz,
            args.les_schedule, extras["warm_s"], json.dumps(row),
-           launches["lesstage"], calls[0], card))
+           launches["lesstage"], calls, card))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_t255.json"), "w") as f:
         json.dump(dict(card=card, argv=T255_ARGV, row=row,
                        warm_s=extras["warm_s"], columns=extras["cols"],
-                       launches=launches, loop_substeps=calls[0]), f,
+                       launches=launches, loop_substeps=calls), f,
                   indent=1)
     return launches
 
@@ -3177,14 +3260,19 @@ def main():
     phase_build()
     worst, times = phase_kernel(card)
     split = phase_split_kernels(card)
-    phase_small_coupled(card)
-    phase_small_coupled(card, "smagorinsky")
+    runs = [phase_small_coupled(card, *path) for path in SMALL_PATHS]
     tke, main_steps = phase_main(card)
-    runs = [tke, phase_main(card, "smagorinsky")[0]]
+    runs += [tke, phase_main(card, "smagorinsky")[0]]
     runs += phase_cli(card, main_steps)
     phase_seed(card)
     runs.append(phase_parity(card))
     runs.append(phase_chunked(card))
+    runs.append(phase_bench(card))
+    schedule, launches = phase_schedule(card)
+    runs.append(launches)
+    batch, launches = phase_batch(card)
+    runs.append(launches)
+    write_fleet(schedule, batch)
     gcm_sl = phase_gcm_sl(card)
     t159, t159_first = phase_t159(card)
     write_t159(gcm_sl, t159)

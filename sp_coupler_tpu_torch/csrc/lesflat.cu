@@ -28,8 +28,8 @@
 // The bound: bytes. At 64x64x160 and n = 1 a field is 2.62 MB; with S = 4
 // the kernel reads 11 fields (u, v, w, 4 K, 4 s) and writes 4, 39.3 MB,
 // 11.7 us at 3.35 TB/s; ~140 float operations a point and scalar
-// (chip_smoke.py, KERNEL_OPS) take 11.0 us at the card's issue rate, so
-// the two are close. Read straight from global memory for each point and
+// (ops/bounds.py, KERNEL_OPS) take 5.5 us at the data sheet's 67 TFLOP/s
+// of float32. Read straight from global memory for each point and
 // scalar, the +-3-point stencil costs far more instructions and L1/L2
 // traffic than either: ~31 reads a point through wrapped 64-bit index
 // arithmetic, u, v, w re-read for each scalar, each face flux computed by

@@ -25,8 +25,8 @@
 //
 // The bound: bytes. At 64x64x160 and n = 1 a field is 2.62 MB; the kernel
 // reads 4 fields (u, v, w, Km) and writes 3, 18.4 MB, 5.5 us at 3.35 TB/s;
-// ~230 float operations a point (chip_smoke.py, KERNEL_OPS) take 4.5 us
-// at the card's issue rate. Read straight from global memory for each
+// ~230 float operations a point (ops/bounds.py, KERNEL_OPS) take 2.3 us
+// at the data sheet's 67 TFLOP/s of float32. Read straight from global memory for each
 // point, the stencil (+-1 in x and y, -2..+1 in z) costs far more
 // instructions and L1/L2 traffic than either: ~60 reads a point through
 // clamped and wrapped 64-bit index arithmetic, the corner fluxes and the

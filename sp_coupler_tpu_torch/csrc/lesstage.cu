@@ -12,16 +12,16 @@
 // (u, v, w, thl, qt, qr, e12) and 7 base fields read once, 7 updated
 // fields written once, 21 float32 = 84 bytes; ~1.2k float operations by
 // a hand count (tendencies and axpy ~890, thermodynamics ~100, closure
-// ~86, plane means ~80; chip_smoke.py, KERNEL_OPS), each an add,
-// multiply, compare or min/max issued as one float32 instruction, 128 a
-// clock per SM: 33.5 T/s on an H100 SXM (the data sheet's 67 TFLOP/s
-// counts a fused multiply-add as two). At 64x64x160, n = 1: 55 MB,
-// 16.4 us at 3.35 TB/s, against 0.76 G operations, 22.7 us. Operations
-// bind (the ~30 exp, log and reciprocals a point go to the special
-// function units, 16 a clock per SM: ~5 us, which does not bind). So the
-// design computes each point's thermodynamics and closure once and reads
-// the stencils from shared memory rather than recomputing at every
-// neighbour; it moves each byte once. Measured on an H100 80GB HBM3
+// ~86, plane means ~80; ops/bounds.py, KERNEL_OPS), each an add,
+// multiply, compare or min/max, over the data sheet's 67 TFLOP/s of
+// float32 on an H100 SXM (which counts a fused multiply-add as two). At
+// 64x64x160, n = 1: 55 MB, 16.4 us at 3.35 TB/s, against 0.76 G
+// operations, 11.4 us (22.7 us if no multiply-add fuses). Bytes bind,
+// operations close behind (the ~30 exp, log and reciprocals a point go to
+// the special function units, 16 a clock per SM: ~5 us, which does not
+// bind). So the design computes each point's thermodynamics and closure
+// once and reads the stencils from shared memory rather than recomputing
+// at every neighbour; it moves each byte once. Measured on an H100 80GB HBM3
 // (PERF.md, Findings), the stage is held by instruction issue: the
 // tendencies take about half of k_stage's time, and the 5th-order face
 // values are not yet shared between neighbouring cells.

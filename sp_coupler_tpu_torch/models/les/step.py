@@ -229,12 +229,18 @@ def tendencies(grid, phys, state, forcing, dt, plane=None):
 
 
 def substep(grid, phys, state: LESState, forcing: LESForcing, dt,
-            solver=None, plane=None):
+            solver=None, plane=None, skip_projection=False):
     """One LES time step of length dt ([n] float32): RK3 + projection.
 
     Returns (state, kmax [n]) with kmax the final stage's max eddy
     viscosity, for the adaptive driver's Peclet limit. plane: this rank's
     block of a plane split over ranks (``parallel.plane.Plane``) or None.
+
+    ``skip_projection`` (bench only, ``sp_coupler_tpu_torch/bench.py``'s
+    phase accounting): drop the pressure projection of every stage, with
+    a plane its halo and gather too, so that the projection's cost in
+    context is the time against the full substep. Never use it for
+    physics.
     """
     from ...ops import lesstage
 
@@ -244,9 +250,10 @@ def substep(grid, phys, state: LESState, forcing: LESForcing, dt,
              rain) = lesstage.stage_fused(grid, phys, s, base, forcing,
                                           frac, dt, plane=plane)
             w = torch.cat([wn, torch.zeros_like(wn[:, :1])], dim=1)
-            u, v, w, _ = poisson.project(grid, s.rhobf, s.rhobh, u, v, w,
-                                         _bcast(frac * dt), solver=solver,
-                                         plane=plane)
+            if not skip_projection:
+                u, v, w, _ = poisson.project(grid, s.rhobf, s.rhobh, u, v,
+                                             w, _bcast(frac * dt),
+                                             solver=solver, plane=plane)
             t = dict(kmax=kmax, surf_rain=rain)
             return s._replace(u=u, v=v, w=w, thl=thl, qt=qt, qr=qr,
                               e12=e12, ustar=torch.sqrt(ustar2)), t
@@ -257,8 +264,10 @@ def substep(grid, phys, state: LESState, forcing: LESForcing, dt,
             u = base.u + fdt * t["u"]
             v = base.v + fdt * t["v"]
             w = base.w + fdt * t["w"]
-            u, v, w, _ = poisson.project(grid, s.rhobf, s.rhobh, u, v, w,
-                                         fdt, solver=solver, plane=plane)
+            if not skip_projection:
+                u, v, w, _ = poisson.project(grid, s.rhobf, s.rhobh, u, v,
+                                             w, fdt, solver=solver,
+                                             plane=plane)
             return s._replace(
                 u=u, v=v, w=w,
                 thl=base.thl + fdt * t["thl"],

@@ -140,6 +140,25 @@ def test_kernel_matches_plain_at_128_planes_on_card(dev, inputs, n):
     torch.cuda.synchronize()
 
 
+# the fleet benches' batches of 64x64x160 (chip_smoke.FLEET_N): the
+# default launch geometry's levels per z-chunk at each
+FLEET_TZ = {3: 32, 4: 40, 8: 80, 16: 160, 32: 160, 64: 160}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", cs.FLEET_N)
+def test_kernel_matches_plain_at_fleet_batches_on_card(dev, n):
+    """chip_smoke.py's check of the stage kernel (check_stage) at the
+    batches of schedulebench (n = 3, 4), batchbench (8, 16, 32, 64) and
+    the T159 leg (64), each in its default launch geometry."""
+    grid = lgrid.LESGrid()
+    assert lesstage.stage_geometry(n, 160, 64, 64).tz == FLEET_TZ[n]
+    cur, base, frc, dt = cs.stage_inputs(grid, n, 7 + n)
+    cs.check_stage(lesstage.stage_fused_cuda, grid, lstep.LESPhysics(), cur,
+                   base, frc, dt)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("inputs", ["split_inputs", "rough_split_inputs"])
 @pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])

@@ -64,6 +64,11 @@ MODULES = (
     "sp_coupler_tpu_torch.verify.hs_bisect",
     "sp_coupler_tpu_torch.verify.moist_endurance",
     "sp_coupler_tpu_torch.verify.parity_report",
+    "sp_coupler_tpu_torch.ops.bounds",
+    "sp_coupler_tpu_torch.bench",
+    "sp_coupler_tpu_torch.runtime.t159bench",
+    "sp_coupler_tpu_torch.runtime.schedulebench",
+    "sp_coupler_tpu_torch.runtime.batchbench",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
