@@ -188,7 +188,24 @@ are ranks, and compare rank 0's file with the single process's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
+``--cards N`` (N = 2 or 4; cards_main) runs the distributed layers over
+nccl instead, one card a rank (run_rank_set(backend="nccl")), each phase
+against one process on card 0 of the same machine: (a) phase 13 on 2
+cards; (b) phase 15 (c), the T159 regional case with les = 4 and 4 GCM
+bands, against one card's first step (t159_first_step); (c) phase 15
+(a), the T159 GCM on 4 bands; (d) phase 14 (b)-(c) with BASELINE config
+4's 4 x 128x128x160 (config4_fleet) on 2 x 2 blocks of 64x64x160; (e)
+kernels #1-#3, whole-plane and in halo mode, against their plain
+versions on every card (card_kernels_rank); (f) runtime/scalebench.py
+--sizes 1,2,4 at 16 x 64x64x160 a card. Every rank reports its backend
+and the CUDA tensors its collectives took through the host (0 under
+nccl). It raises with fewer than N cards; with N = 2, (b)-(d) do not
+run. Every phase runs; any failure fails the run at the end, and ranks
+that hang end it at once. Its last line is {"ok": true, "device": {...,
+"count": N}}; summary in chiprun_out/chip_smoke_cards.json.
+
 Run: python3 chip_smoke.py   (needs a CUDA card, nvcc and this checkout)
+     python3 chip_smoke.py --cards 4   (4 cards)
 """
 
 import json
@@ -198,6 +215,7 @@ from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -1619,7 +1637,7 @@ def mesh_rank(odir, conf, report):
                    substeps=runner.substeps, launches=launches,
                    own_substeps=int(sum(s[p] for s in runner.substeps
                                         for p in pos)),
-                   bench=bench)
+                   bench=bench, **transport())
     finally:
         pmesh.shutdown()
     with open("%s.%d.json" % (report, rank), "w") as f:
@@ -1627,34 +1645,91 @@ def mesh_rank(odir, conf, report):
     return 0
 
 
-def run_rank_set(tag, n, timeout, argv, store, threads=None):
-    """Start n ranks of this script (``chip_smoke.py ARGV``, SPTPU_DIST_*
-    set) on this card, gloo (the card shared), meeting through the file
-    store; each must exit 0 within timeout s, else every rank is killed
-    and the phase fails. Their logs go to OUT_DIR/<tag>_rank<r>.log.
-    Returns the seconds they took."""
+class RanksTimedOut(AssertionError):
+    """A rank set that did not finish in its time (a hung collective)."""
+
+
+def rank_env(n, rank, store, backend, threads=None):
+    """The environment of rank `rank` of n meeting through the file store:
+    under "gloo" the ranks share this card (SPTPU_DIST_BACKEND=gloo); under
+    "nccl" (the port's default on the card) each rank takes its own card,
+    cuda:LOCAL_RANK, and SPTPU_DIST_BACKEND is unset."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError("backend %r (gloo or nccl)" % backend)
+    env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
+               SPTPU_DIST_NPROCS=str(n), SPTPU_DIST_PROC_ID=str(rank))
+    env.pop("SPTPU_DIST_BACKEND", None)
+    if backend == "gloo":
+        env["SPTPU_DIST_BACKEND"] = "gloo"
+    else:
+        env.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
+        env.setdefault("NCCL_DEBUG", "WARN")     # nccl's faults in the log
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return env
+
+
+def transport():
+    """A rank's process group backend and the CUDA tensors its collectives
+    took through host memory (counted since the process started)."""
+    import torch.distributed as dist
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    return dict(backend=dist.get_backend(), staged=pmesh.staged_tensors)
+
+
+def check_transport(what, reps, backend):
+    """Every rank ran `backend`; under nccl rank r ran on cuda:r and its
+    collectives took no CUDA tensor through host memory."""
+    for rep in reps:
+        r = rep["rank"]
+        if rep["backend"] != backend:
+            raise AssertionError("%s: rank %d ran %s, not %s"
+                                 % (what, r, rep["backend"], backend))
+        if backend == "nccl" and (rep["device"] != "cuda:%d" % r
+                                  or rep["staged"]):
+            raise AssertionError(
+                "%s: rank %d ran on %s (want cuda:%d) and staged %d CUDA "
+                "tensors through the host" % (what, r, rep["device"], r,
+                                              rep["staged"]))
+
+
+def where(backend, n):
+    """How n ranks sit on the cards, for the logs."""
+    return ("%d ranks sharing one card (gloo)" % n if backend == "gloo"
+            else "%d ranks on %d cards, one card a rank (nccl)" % (n, n))
+
+
+def run_rank_set(tag, n, timeout, argv, store, threads=None, backend="gloo",
+                 module=None):
+    """Start n ranks of this script (``chip_smoke.py ARGV``, or ``python -m
+    MODULE ARGV``; SPTPU_DIST_* set, rank_env), meeting through the file
+    store: under gloo on this card (shared), under nccl one card a rank.
+    Each must exit 0 within timeout s, else every rank is killed and the
+    phase fails; a rank that fails ends the set at once (its peers would
+    wait for it in a collective). Their logs go to
+    OUT_DIR/<tag>_rank<r>.log. Returns the seconds they took."""
     os.makedirs(OUT_DIR, exist_ok=True)
     here = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-m", module] if module else
+           [sys.executable, os.path.join(here, "chip_smoke.py")])
     procs, logs = [], []
     for rank in range(n):
-        env = dict(os.environ, SPTPU_DIST_COORD="file://" + store,
-                   SPTPU_DIST_NPROCS=str(n), SPTPU_DIST_PROC_ID=str(rank),
-                   SPTPU_DIST_BACKEND="gloo")
-        if threads:
-            env["OMP_NUM_THREADS"] = str(threads)
+        env = rank_env(n, rank, store, backend, threads)
         logs.append(open(os.path.join(OUT_DIR, "%s_rank%d.log" % (tag, rank)),
                          "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py")]
-            + [str(a) for a in argv], cwd=here, env=env, stdout=logs[-1],
+            cmd + [str(a) for a in argv], cwd=here, env=env, stdout=logs[-1],
             stderr=subprocess.STDOUT))
     t0 = time.time()
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
-    except subprocess.TimeoutExpired:
-        raise AssertionError("%s: the ranks did not finish in %d s (logs in "
-                             "%s/%s_rank*.log)" % (tag, timeout, OUT_DIR, tag))
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.time() - t0 > timeout:
+                raise RanksTimedOut(
+                    "%s: the ranks did not finish in %d s (logs in "
+                    "%s/%s_rank*.log)" % (tag, timeout, OUT_DIR, tag))
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1664,7 +1739,8 @@ def run_rank_set(tag, n, timeout, argv, store, threads=None):
             f.close()
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        with open(os.path.join(OUT_DIR, "%s_rank%d.log" % (tag, bad[0]))) as f:
+        first = ([r for r in bad if procs[r].returncode > 0] or bad)[0]
+        with open(os.path.join(OUT_DIR, "%s_rank%d.log" % (tag, first))) as f:
             tail = f.read()[-3000:]
         raise AssertionError("%s: rank(s) %s exited %s:\n%s"
                              % (tag, bad, [procs[r].returncode for r in bad],
@@ -1672,51 +1748,34 @@ def run_rank_set(tag, n, timeout, argv, store, threads=None):
     return time.time() - t0
 
 
-def phase_mesh(card):
-    """The bench case on 2 ranks sharing this card (gloo, --mesh_les 2)
-    against one process in the same call: rank 0's records and the GCM
-    state equal the single process's, the GCM state is the same on both
-    ranks, each rank launches lesstage 3 x its own substeps; the walls of
-    both, and scalebench's sizes 1 and 2 (structural: one card). Returns
-    the launch counts of both runs (the ranks' summed) and the single
-    process's records, substeps, walls and GCM state (phase_spatial's
-    reference)."""
+def phase_mesh(card, backend="gloo"):
+    """The bench case on 2 ranks (--mesh_les 2; under gloo sharing this
+    card, under nccl on 2 cards) against one process in the same call:
+    rank 0's records and the GCM state equal the single process's, the
+    GCM state is the same on both ranks, each rank launches lesstage 3 x
+    its own substeps; the walls of both, and scalebench's sizes 1 and 2
+    (structural). Returns the launch counts of both runs (the ranks'
+    summed) and the single process's records, substeps, walls and GCM
+    state (phase_spatial's reference)."""
     import tempfile
     from sp_coupler_tpu_torch.ops import _build
     _build.load("lesstage")         # built before the ranks start
     with tempfile.TemporaryDirectory() as tmp:
-        conf = os.path.join(tmp, "mesh.json")
-        with open(conf, "w") as f:
-            json.dump(MESH_CONF, f)
-        single_dir = os.path.join(tmp, "single")
-        runner, walls1, launches1 = cli_leg(bench_argv(single_dir, conf),
-                                            tee_writer())
-        if runner.sp_cols != BENCH_COLS:
-            raise AssertionError("the bench points selected %s, not %s"
-                                 % (runner.sp_cols, BENCH_COLS))
-        check_leg_launches("mesh single", runner, launches1,
-                           PATH_KERNELS["tke"])
-        times1, groups1 = read_records(os.path.join(single_dir, "spifs.nc"))
-        gcm1, sub1 = gcm_leaves(runner), runner.substeps
-        grid = runner.fleet.grid
-        # bytes an instance the coupled step's all_gather moves: its slab
-        # profiles and its substep and clamp counts
-        from sp_coupler_tpu_torch.models.les import diag as ldiag
-        prof = ldiag.slab_profiles(grid, runner.fleet.state)
-        row_bytes = 4 * (sum(v.numel() for v in prof.values())
-                         // runner.fleet.n + 2)
-        del runner, prof
-        torch.cuda.empty_cache()
-
+        conf, single, launches1, grid, row_bytes = bench_single(tmp)
+        times1, groups1, gcm1, sub1, walls1 = (
+            single[k] for k in ("times", "groups", "gcm", "substeps",
+                                "walls"))
         report = os.path.join(tmp, "rank")
+        tag = "mesh" if backend == "gloo" else "cards_mesh"
         ranks_wall = run_rank_set(
-            "mesh", MESH_RANKS, MESH_TIMEOUT,
+            tag, MESH_RANKS, MESH_TIMEOUT,
             ["--mesh-rank", os.path.join(tmp, "mesh"), conf, report],
-            os.path.join(tmp, "store"))
+            os.path.join(tmp, "store"), backend=backend)
         reps = []
         for r in range(MESH_RANKS):
             with open("%s.%d.json" % (report, r)) as f:
                 reps.append(json.load(f))
+        check_transport(tag, reps, backend)
         gcms = [np.load("%s.%d.gcm.npz" % (report, r))
                 for r in range(MESH_RANKS)]
         gcms = [[g["arr_%d" % i] for i in range(len(g.files))] for g in gcms]
@@ -1758,38 +1817,69 @@ def phase_mesh(card):
                         "its %d substeps)" % (rep["rank"], k, count, want,
                                               rep["own_substeps"]))
                 total[k] += count
-        log("mesh: 2 ranks on one card (gloo, --mesh_les 2), bench case "
-            "T21/L19 + 2 x %dx%dx%d, columns %s: rank 0's %d records == the "
-            "single process's, bit for bit (%d variables), the GCM state the "
-            "same on both ranks and the single process; positions %s, "
-            "lesstage launches %s = 3 x own substeps %s; the step's "
-            "all_gather moves %d B an instance on %s"
-            % (grid.nx, grid.ny, grid.nz, BENCH_COLS, len(times1), len(keys),
+        log("%s: %s, --mesh_les 2, bench case T21/L19 + 2 x %dx%dx%d, "
+            "columns %s: rank 0's %d records == the single process's, bit "
+            "for bit (%d variables), the GCM state the same on both ranks "
+            "and the single process; ranks on %s, CUDA tensors staged "
+            "through the host %s; positions %s, lesstage launches %s = 3 x "
+            "own substeps %s; the step's all_gather moves %d B an instance "
+            "on %s"
+            % (tag, where(backend, MESH_RANKS), grid.nx, grid.ny, grid.nz,
+               BENCH_COLS, len(times1), len(keys),
+               [r["device"] for r in reps], [r["staged"] for r in reps],
                [r["positions"] for r in reps],
                [r["launches"]["lesstage"] for r in reps],
                [r["own_substeps"] for r in reps], row_bytes, card))
         for i in range(len(walls1)):
-            log("mesh step %d walls (one shared card, not a scaling number): "
-                "rank 0 %.3f s, rank 1 %.3f s; single process %.3f s; "
-                "substeps %s" % (i, reps[0]["walls"][i], reps[1]["walls"][i],
-                                 walls1[i], sub1[i]))
+            log("%s step %d walls (%s): rank 0 %.3f s, rank 1 %.3f s; "
+                "single process %.3f s; substeps %s"
+                % (tag, i, where(backend, MESH_RANKS), reps[0]["walls"][i],
+                   reps[1]["walls"][i], walls1[i], sub1[i]))
         b = reps[0]["bench"]
-        log("mesh scalebench %s, %d x %s instances a rank, %d substeps "
-            "(structural: both ranks share one card): updates/s %s, "
-            "efficiency %s on %s" % (b["mode"], b["per_device_instances"],
-                                     b["grid"], b["substeps"],
-                                     b["updates_per_s"], b["efficiency"],
-                                     card))
-        res = dict(card=card, single=dict(walls=walls1, substeps=sub1,
-                                          launches=launches1),
+        log("%s scalebench %s, %d x %s instances a rank, %d substeps (%s; "
+            "structural): updates/s %s, efficiency %s on %s"
+            % (tag, b["mode"], b["per_device_instances"], b["grid"],
+               b["substeps"], where(backend, MESH_RANKS),
+               b["updates_per_s"], b["efficiency"], card))
+        res = dict(card=card, backend=backend,
+                   single=dict(walls=walls1, substeps=sub1,
+                               launches=launches1),
                    ranks=reps, ranks_wall_s=ranks_wall, bitwise=True,
                    gather_bytes_per_instance=row_bytes)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_mesh.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, "chip_smoke_%s.json" % tag), "w") as f:
         json.dump(res, f, indent=1)
-    single = dict(times=times1, groups=groups1, substeps=sub1, walls=walls1,
-                  gcm=gcm1)
     return [launches1, total], single
+
+
+def bench_single(tmp):
+    """The bench case through the CLI in this process, its conf
+    (MESH_CONF) and output in the directory tmp: phase_mesh's single
+    process. Returns (the conf's path, {times, groups: its records,
+    substeps, walls, gcm: the GCM state's leaves}, its launches, the LES
+    grid, the bytes an instance the coupled step's all_gather moves)."""
+    from sp_coupler_tpu_torch.models.les import diag as ldiag
+    conf = os.path.join(tmp, "mesh.json")
+    with open(conf, "w") as f:
+        json.dump(MESH_CONF, f)
+    single_dir = os.path.join(tmp, "single")
+    runner, walls, launches = cli_leg(bench_argv(single_dir, conf),
+                                      tee_writer())
+    if runner.sp_cols != BENCH_COLS:
+        raise AssertionError("the bench points selected %s, not %s"
+                             % (runner.sp_cols, BENCH_COLS))
+    check_leg_launches("mesh single", runner, launches, PATH_KERNELS["tke"])
+    times, groups = read_records(os.path.join(single_dir, "spifs.nc"))
+    grid = runner.fleet.grid
+    # the all_gather's row: the slab profiles, the substep and clamp counts
+    prof = ldiag.slab_profiles(grid, runner.fleet.state)
+    row_bytes = 4 * (sum(v.numel() for v in prof.values())
+                     // runner.fleet.n + 2)
+    single = dict(times=times, groups=groups, substeps=runner.substeps,
+                  walls=walls, gcm=gcm_leaves(runner))
+    del runner, prof
+    torch.cuda.empty_cache()
+    return conf, single, launches, grid, row_bytes
 
 
 # ---- intra-LES spatial decomposition: blocks of the plane --------------
@@ -1808,6 +1898,9 @@ SPATIAL_TIMEOUT = 600
 # 2 s, 2 x 2 blocks against one process, at its atol/rtol 2e-3
 EVOLVE_SUBSTEPS, EVOLVE_DT = 20, 2.0
 EVOLVE_TOL = dict(atol=2e-3, rtol=2e-3)
+# under nccl (--cards 4) (b) evolves BASELINE config 4's fleet instead,
+# CONFIG4_N x 128x128x160 (phase_t255's), on 2 x 2 blocks of 64x64x160
+CONFIG4_N = 4
 # (c): the bench case through the CLI with --lesprocs 4 against phase_mesh's
 # single process (its records within verify/parity.py's PROFILE_TOL of
 # max|ref| by step), and phase_cli's small Smagorinsky + nudge leg with
@@ -2034,11 +2127,11 @@ def one_instance(dev):
 
 def spatial_rank(odir, report):
     """One rank of phase_spatial (``chip_smoke.py --spatial-rank ODIR
-    REPORT``, SPTPU_DIST_* set): (b) one_instance's evolve on 2 x 2
-    blocks, then (c) the bench case through the CLI with SPATIAL_ARGS and
-    the small Smagorinsky + nudge leg with SMAG_SPATIAL; writes
-    REPORT.<rank>.json (+ rank 0's fields and records, each rank's GCM
-    state)."""
+    REPORT``, SPTPU_DIST_* set): (b) the evolve of ODIR/evolve.pt's fleet
+    on 2 x 2 blocks, then (c) the bench case through the CLI with
+    SPATIAL_ARGS and the small Smagorinsky + nudge leg with SMAG_SPATIAL;
+    writes REPORT.<rank>.json (+ rank 0's fields and records, each rank's
+    GCM state)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
     from sp_coupler_tpu_torch.models.les import step as lstep
@@ -2049,7 +2142,7 @@ def spatial_rank(odir, report):
         rank = pmesh.rank()
         dev = torch.device("cuda", torch.cuda.current_device())
         # (b)
-        grid, st, frc = one_instance(dev)
+        grid, st, frc = load_case(os.path.join(odir, "evolve.pt"), dev)
         mesh = pmesh.make_mesh(1, 2, 2)
         plane = pplane.for_mesh(mesh, grid.ny, grid.nx)
         local = pmesh.shard_fleet(st, mesh, plane)
@@ -2060,6 +2153,9 @@ def spatial_rank(odir, report):
                            EVOLVE_SUBSTEPS, plane=plane)
         torch.cuda.synchronize()
         ev = dict(wall=time.time() - t0, launches=read_launches())
+        ev["warm"] = device_split(lambda: lstep.evolve(
+            grid, lstep.LESPhysics(), local, frc, EVOLVE_DT,
+            EVOLVE_SUBSTEPS, plane=plane))[1]       # the same again, warm
         whole = plane.gather_fields(out)
         if rank == 0:
             np.savez(report + ".evolve.npz",
@@ -2106,7 +2202,7 @@ def spatial_rank(odir, report):
                                  for a in g.values())
             smag["n_rec"] = len(times)
         rep = dict(rank=rank, device=str(dev), evolve=ev, bench=bench,
-                   smag=smag)
+                   smag=smag, **transport())
     finally:
         pmesh.shutdown()
     with open("%s.%d.json" % (report, rank), "w") as f:
@@ -2151,44 +2247,94 @@ def record_diffs(ref_times, ref_groups, rec):
     return out
 
 
-def phase_spatial(card, single):
-    """Intra-LES spatial decomposition on the card: (a) the halo-mode
-    kernels in this process; (b) one 64x64x160 instance evolved on 2 x 2
-    blocks by 4 ranks sharing the card against one process; (c) the bench
-    case through the CLI with --lesprocs 4 against phase_mesh's single
-    process (``single``), and a small Smagorinsky + nudge leg with
-    --mesh_les 2 --lesprocs 2 whose split-kernel launches are in halo
-    mode. Returns (kernels-line stats, the ranks' launch counts)."""
+def save_case(path, grid, st, frc):
+    """Write an evolve case (its grid's extents and spacings, the fleet
+    state and forcing, on the CPU) for load_case."""
+    torch.save(dict(grid=dict(nx=grid.nx, ny=grid.ny, nz=grid.nz,
+                              dx=grid.dx, dy=grid.dy, dz=grid.dz),
+                    state=[x.cpu() for x in st],
+                    forcing=[x.cpu() for x in frc]), path)
+
+
+def load_case(path, dev):
+    """save_case's (grid, state, forcing), the tensors on dev."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, state as lstate
+    d = torch.load(path, weights_only=False)
+    return (lgrid.LESGrid(**d["grid"]),
+            lstate.LESState(*[x.to(dev) for x in d["state"]]),
+            lstate.LESForcing(*[x.to(dev) for x in d["forcing"]]))
+
+
+def config4_fleet(dev):
+    """BASELINE config 4's instances as phase_t255 starts them
+    (runtime/t255bench.py at T255_ARGV: T255/L19 SL hybrid from seed 0,
+    4 columns, 128x128x160 LES at 100 m, seed_les), with
+    one_instance's surface fluxes as forcing."""
+    from sp_coupler_tpu_torch.models.gcm import model as gcm_model
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, state as lstate
+    from sp_coupler_tpu_torch.runtime import t255bench
+    core = gcm_model.GCMCore(gcm_model.GCMConfig(
+        trunc=255, nlev=19, dt=900.0, hybrid=True, advection="sl"),
+        device=dev)
+    grid = lgrid.LESGrid(nx=128, ny=128, nz=160, dx=100.0, dy=100.0,
+                         dz=25.0)
+    cols = t255bench.columns(core, CONFIG4_N)
+    st = t255bench.seed_les(core, core.initial_state(seed=0), grid, cols)
+    frc = lstate.LESForcing.zeros(CONFIG4_N, grid.nz, device=dev)
+    full = lambda v: torch.full((CONFIG4_N,), v, device=dev)
+    return grid, st, frc._replace(wthl=full(0.012), wqt=full(4e-5))
+
+
+def phase_spatial(card, single, backend="gloo"):
+    """Intra-LES spatial decomposition on the card: (a) under gloo, the
+    halo-mode kernels in this process (under nccl each card checks them,
+    phase_card_kernels); (b) an evolve on 2 x 2 blocks by 4 ranks against
+    one process: under gloo one 64x64x160 instance (one_instance) on
+    ranks sharing the card, under nccl BASELINE config 4's 4 x
+    128x128x160 (config4_fleet) on 4 cards; (c) the bench case through
+    the CLI with --lesprocs 4 against phase_mesh's single process
+    (``single``), and a small Smagorinsky + nudge leg with --mesh_les 2
+    --lesprocs 2 whose split-kernel launches are in halo mode. Returns
+    (kernels-line stats or None, the ranks' launch counts)."""
     import tempfile
     from sp_coupler_tpu_torch.models.les import step as lstep
     t_phase = time.time()
-    stats = spatial_kernels(card)
+    stats = spatial_kernels(card) if backend == "gloo" else None
+    tag = "spatial" if backend == "gloo" else "cards_spatial"
     # (b)'s single process, on the card
-    grid, st, frc = one_instance(torch.device("cuda"))
+    case = one_instance if backend == "gloo" else config4_fleet
+    grid, st, frc = case(torch.device("cuda"))
     torch.cuda.synchronize()
     t0 = time.time()
     ref = lstep.evolve(grid, lstep.LESPhysics(), st, frc, EVOLVE_DT,
                        EVOLVE_SUBSTEPS)
     torch.cuda.synchronize()
     ref_wall = time.time() - t0
+    ref_warm = device_split(lambda: lstep.evolve(
+        grid, lstep.LESPhysics(), st, frc, EVOLVE_DT, EVOLVE_SUBSTEPS))[1]
     with tempfile.TemporaryDirectory() as tmp:
+        save_case(os.path.join(tmp, "evolve.pt"), grid, st, frc)
+        del st, frc
+        ref = {k: getattr(ref, k).cpu().numpy() for k in STAGE_NAMES}
+        torch.cuda.empty_cache()
         with open(os.path.join(tmp, "mesh.json"), "w") as f:
             json.dump(MESH_CONF, f)
         with open(os.path.join(tmp, "small.json"), "w") as f:
             json.dump(SMAG_CONF, f)
         report = os.path.join(tmp, "rank")
         ranks_wall = run_rank_set(
-            "spatial", SPATIAL_RANKS, SPATIAL_TIMEOUT,
+            tag, SPATIAL_RANKS, SPATIAL_TIMEOUT,
             ["--spatial-rank", tmp, report], os.path.join(tmp, "store"),
-            threads=2)
+            threads=2, backend=backend)
         reps = []
         for r in range(SPATIAL_RANKS):
             with open("%s.%d.json" % (report, r)) as f:
                 reps.append(json.load(f))
+        check_transport(tag, reps, backend)
         got = np.load(report + ".evolve.npz")
         errs = {}
         for k in STAGE_NAMES:
-            a = getattr(ref, k).cpu().numpy()
+            a = ref[k]
             b = got[k]
             np.testing.assert_allclose(b, a, err_msg="spatial (b) " + k,
                                        **EVOLVE_TOL)
@@ -2200,13 +2346,20 @@ def phase_spatial(card, single):
                                      "lesstage_halo %d" % (
                                          rep["rank"], la,
                                          3 * EVOLVE_SUBSTEPS))
-        log("spatial (b): one 64x64x160 instance, %d substeps of %g s on 2 x "
-            "2 blocks, 4 gloo ranks sharing the card, against one process: "
-            "max abs diff %s (atol/rtol 2e-3); rank walls %s s, one process "
-            "%.3f s (one shared card: not a scaling number) on %s"
-            % (EVOLVE_SUBSTEPS, EVOLVE_DT, {k: float("%.3g" % v)
-                                            for k, v in errs.items()},
+        log("%s (b): %d x %dx%dx%d, %d substeps of %g s on 2 x 2 blocks "
+            "of %dx%dx%d, %s, against one process: max abs diff %s "
+            "(atol/rtol 2e-3); ranks on %s, CUDA tensors staged through "
+            "the host %s; rank walls %s s, one process %.3f s on %s"
+            % (tag, got["u"].shape[0], grid.nx, grid.ny, grid.nz,
+               EVOLVE_SUBSTEPS, EVOLVE_DT, grid.nx // 2, grid.ny // 2,
+               grid.nz, where(backend, SPATIAL_RANKS),
+               {k: float("%.3g" % v) for k, v in errs.items()},
+               [r["device"] for r in reps], [r["staged"] for r in reps],
                ["%.3f" % r["evolve"]["wall"] for r in reps], ref_wall, card))
+        log("%s (b) the same evolve again, warm, under torch.profiler: "
+            "ranks %s; one process %s" % (
+                tag, "; ".join(split_text(r["evolve"]["warm"])
+                               for r in reps), split_text(ref_warm)))
 
         # (c) the bench case: substeps, records, the GCM, launches
         gcms = [np.load("%s.%d.gcm.npz" % (report, r))
@@ -2246,8 +2399,8 @@ def phase_spatial(card, single):
             raise AssertionError("spatial (c) smag: records %s"
                                  % reps[0]["smag"])
         b0 = reps[0]["bench"]
-        log("spatial (c): the bench case (T21/L19 + 2 x 64x64x160) through "
-            "the CLI with --lesprocs 4 on 4 gloo ranks sharing the card: "
+        log("%s (c): the bench case (T21/L19 + 2 x 64x64x160) through "
+            "the CLI with --lesprocs 4 on %s: "
             "blocks %s, substeps %s == the single process's, rank 0's %d "
             "records within PROFILE_TOL (largest: %s %.3g of max|ref|), the "
             "GCM state the same on every rank (%.3g of max|ref| from the "
@@ -2255,7 +2408,8 @@ def phase_spatial(card, single):
             "substeps %s; the Smagorinsky + nudge leg (T10/L8 + 2 x "
             "16x16x32, --mesh_les 2 --lesprocs 2): blocks %s, lesflat/lesmom "
             "halo launches %s on %s"
-            % (b0["block"], b0["substeps"], len(single["times"]), worst[0],
+            % (tag, where(backend, SPATIAL_RANKS), b0["block"],
+               b0["substeps"], len(single["times"]), worst[0],
                worst[1], gcm_diff,
                [r["bench"]["launches"]["lesstage_halo"] for r in reps],
                [r["bench"]["own_substeps"] for r in reps],
@@ -2263,20 +2417,22 @@ def phase_spatial(card, single):
                [(r["smag"]["launches"]["lesflat_halo"],
                  r["smag"]["launches"]["lesmom_halo"]) for r in reps], card))
         for i in range(len(single["walls"])):
-            log("spatial step %d walls (4 ranks sharing one card, gloo: not "
-                "a scaling number): ranks %s s; single process %.3f s"
-                % (i, ["%.3f" % r["bench"]["walls"][i] for r in reps],
+            log("%s step %d walls (%s): ranks %s s; single process %.3f s"
+                % (tag, i, where(backend, SPATIAL_RANKS),
+                   ["%.3f" % r["bench"]["walls"][i] for r in reps],
                    single["walls"][i]))
-        res = dict(card=card, kernels={k: v for k, v in stats.items()},
-                   evolve=dict(ref_wall=ref_wall, max_abs_diff=errs),
+        res = dict(card=card, backend=backend, kernels=stats,
+                   evolve=dict(ref_wall=ref_wall, ref_warm=ref_warm,
+                               max_abs_diff=errs,
+                               shape=list(got["u"].shape)),
                    ranks=reps, ranks_wall_s=ranks_wall,
                    record_diffs=diffs, gcm_rel_diff=gcm_diff,
                    single_walls=single["walls"],
                    phase_s=time.time() - t_phase)
-    with open(os.path.join(OUT_DIR, "chip_smoke_spatial.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, "chip_smoke_%s.json" % tag), "w") as f:
         json.dump(res, f, indent=1, default=str)
-    log("spatial: the phase took %.1f s (the ranks %.1f s)"
-        % (res["phase_s"], ranks_wall))
+    log("%s: the phase took %.1f s (the ranks %.1f s)"
+        % (tag, res["phase_s"], ranks_wall))
     return stats, launches
 
 
@@ -2559,7 +2715,8 @@ def phase_t159(card):
     log("t159: T159/L19 SL + %d x %dx%dx%d through t159bench, launches %s "
         "for %d substeps of the batched loop, peak memory %.2f GiB on %s"
         % (args.n, args.nx, args.ny, nz, launches, calls, peak, card))
-    first_step = dict(nsub=steps[0]["substeps"], prof=extras["first_prof"])
+    first_step = dict(nsub=steps[0]["substeps"], prof=extras["first_prof"],
+                      wall_s=steps[0]["wall_s"])
     return rec, first_step
 
 
@@ -2625,6 +2782,36 @@ def cuda_event_ms(fn):
     return out, a.elapsed_time(b), 1e3 * (time.time() - t0)
 
 
+def device_split(fn):
+    """fn() under torch.profiler, after a synchronise: (its result, {wall_ms:
+    the host clock to the synchronise after it; kernel_ms: the summed
+    device time of every kernel and copy it ran; nccl_ms: of nccl's
+    kernels, which also wait for the slowest peer; gemm_ms: of the GEMMs
+    and GEMVs, the projection's solves and the transforms' products})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    split = dict(wall_ms=1e3 * wall, kernel_ms=0.0, nccl_ms=0.0, gemm_ms=0.0)
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            name = e.name.lower()
+            split["kernel_ms"] += ms
+            split["nccl_ms"] += ms * ("nccl" in name)
+            split["gemm_ms"] += ms * ("gemm" in name or "gemv" in name)
+    return out, split
+
+
+def split_text(d):
+    """device_split's numbers for the logs."""
+    return "wall %.1f, kernels %.1f (nccl %.1f, GEMM %.1f) ms" % (
+        d["wall_ms"], d["kernel_ms"], d["nccl_ms"], d["gemm_ms"])
+
+
 def bands_rank(odir, report):
     """One rank of phase_gcm_bands (``chip_smoke.py --bands-rank ODIR
     REPORT``, SPTPU_DIST_* set, BANDS_RANKS ranks): (a) the T159 SL GCM
@@ -2661,12 +2848,13 @@ def bands_rank(odir, report):
                               sums=len(core.bands.sums) - n0,
                               sum_bytes=sum(core.bands.sums[n0:])))
         rows = int(s.grid.T.shape[-2])
+        split = device_split(lambda: core.step(s))[1]     # result dropped
         for i, leaf in enumerate(tree.flatten(core.replicated(s))[0]):
             arrays["spec_%d" % i] = leaf.cpu().numpy()
         gridT = core.whole_state(s).grid.T
         if rank == 0:
             arrays["gridT"] = gridT.cpu().numpy()
-        gcm = dict(steps=steps, rows=rows,
+        gcm = dict(steps=steps, rows=rows, split=split,
                    band=[core.bands.r0, core.bands.r1])
         del core, s, start, gridT
         torch.cuda.empty_cache()
@@ -2694,6 +2882,18 @@ def bands_rank(odir, report):
             return substep(*a, **kw)
 
         lstep.substep = counting_substep
+        # the rank's own evolve, timed between synchronises
+        evolve_s, evolve_to = [0.0], fn._evolve_to
+
+        def timed_evolve(*a):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = evolve_to(*a)
+            torch.cuda.synchronize()
+            evolve_s[0] += time.time() - t0
+            return out
+
+        fn._evolve_to = timed_evolve
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -2709,7 +2909,8 @@ def bands_rank(odir, report):
             if rank == 0:
                 arrays["prof_" + k] = v.cpu().numpy()
         regional = dict(
-            wall_s=host_ms / 1e3, cuda_ms=ev_ms, loop_substeps=calls[0],
+            wall_s=host_ms / 1e3, cuda_ms=ev_ms, evolve_s=evolve_s[0],
+            loop_substeps=calls[0],
             launches=launches, positions=mesh.positions(len(cols)),
             nsub=[int(x) for x in fn.unpack_diag(diag)["n_substeps"]],
             held=int(les.u.shape[0]), rows=int(gs.grid.T.shape[-2]),
@@ -2717,7 +2918,8 @@ def bands_rank(odir, report):
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         for i, leaf in enumerate(tree.flatten(core.replicated(gs))[0]):
             arrays["t159_spec_%d" % i] = leaf.cpu().numpy()
-        rep = dict(rank=rank, device=str(dev), gcm=gcm, regional=regional)
+        rep = dict(rank=rank, device=str(dev), gcm=gcm, regional=regional,
+                   **transport())
     finally:
         pmesh.shutdown()
     np.savez("%s.%d.npz" % (report, rank), **arrays)
@@ -2790,9 +2992,10 @@ def beyond(got, ref, atol, rtol):
     return float(np.max(err)), bool(np.any(err > atol + rtol * np.abs(ref)))
 
 
-def phase_gcm_bands(card, single, t159_first):
-    """The GCM on latitude bands (--gcmprocs) on the card, ranks sharing
-    it over gloo (not a scaling number): (a) the T159/L19 SL GCM on hybrid
+def phase_gcm_bands(card, single, t159_first, backend="gloo"):
+    """The GCM on latitude bands (--gcmprocs), ranks sharing the card over
+    gloo (not a scaling number) or under nccl one card a rank (then
+    without (b)): (a) the T159/L19 SL GCM on hybrid
     levels, 4 bands of 60 rows, BANDS_STEPS steps against one process
     here: spectral vort, div, T, q and grid T at the JAX tests'
     tolerances, the spectral state the same on every rank, the step's
@@ -2835,6 +3038,7 @@ def phase_gcm_bands(card, single, t159_first):
         for i in range(BANDS_STEPS):
             s, ev_ms, _ = cuda_event_ms(lambda: core.step(s, first=i == 0))
             one_ms.append(ev_ms)
+        one_split = device_split(lambda: core.step(s))[1]
         ref_now = {k: getattr(s.now, k).cpu().numpy()
                    for k in ("vort", "div", "T", "q")}
         ref_T = s.grid.T.cpu().numpy()
@@ -2843,14 +3047,20 @@ def phase_gcm_bands(card, single, t159_first):
         torch.cuda.empty_cache()
 
         report = os.path.join(tmp, "bands")
+        tag = "bands" if backend == "gloo" else "cards_bands"
         ranks_wall = run_rank_set(
-            "bands", BANDS_RANKS, BANDS_TIMEOUT,
-            ["--bands-rank", tmp, report], os.path.join(tmp, "store"))
+            tag, BANDS_RANKS, BANDS_TIMEOUT,
+            ["--bands-rank", tmp, report], os.path.join(tmp, "store"),
+            backend=backend)
         reps, arrays = [], []
         for r in range(BANDS_RANKS):
             with open("%s.%d.json" % (report, r)) as f:
                 reps.append(json.load(f))
             arrays.append(dict(np.load("%s.%d.npz" % (report, r))))
+        try:
+            check_transport(tag, reps, backend)
+        except AssertionError as e:
+            fails.append(str(e))
         nb = nlat // BANDS_RANKS
         for rep in reps:
             for leg in ("gcm", "regional"):
@@ -2872,22 +3082,27 @@ def phase_gcm_bands(card, single, t159_first):
                              "abs err %.3g)" % (k, tol["atol"], tol["rtol"],
                                                 errs[k]))
         steps = [r["gcm"]["steps"] for r in reps]
-        log("bands (a): T159/L19 SL hybrid GCM on %d bands of %d rows (4 "
-            "gloo ranks sharing the card), %d steps from the CPU-built "
+        log("%s (a): T159/L19 SL hybrid GCM on %d bands of %d rows (%s), "
+            "%d steps from the CPU-built "
             "start, against one process: max abs err %s; spectral state "
             "the same on every rank: %s; %s all_reduces a step moving %s "
-            "B; step CUDA-event ms: ranks %s, one process %s (one shared "
-            "card: not a scaling number) on %s"
-            % (BANDS_RANKS, nb, BANDS_STEPS,
+            "B; step CUDA-event ms: ranks %s, one process %s on %s"
+            % (tag, BANDS_RANKS, nb, where(backend, BANDS_RANKS),
+               BANDS_STEPS,
                {k: float("%.3g" % v) for k, v in errs.items()},
                not same_on_ranks(arrays, "spec_"),
                [st["sums"] for st in steps[0]],
                [st["sum_bytes"] for st in steps[0]],
                [["%.1f" % st["cuda_ms"] for st in rs] for rs in steps],
                ["%.1f" % x for x in one_ms], card))
-        res["a"] = dict(errors=errs, one_process_ms=one_ms, ranks=[
-            dict(band=r["gcm"]["band"], steps=r["gcm"]["steps"])
-            for r in reps])
+        log("%s (a): a 4th step under torch.profiler: ranks %s; one process "
+            "%s" % (tag, "; ".join(split_text(r["gcm"]["split"])
+                                   for r in reps), split_text(one_split)))
+        res["a"] = dict(errors=errs, one_process_ms=one_ms,
+                        one_process_split=one_split, ranks=[
+                            dict(band=r["gcm"]["band"],
+                                 steps=r["gcm"]["steps"],
+                                 split=r["gcm"]["split"]) for r in reps])
 
         # (c)
         fails += ["bands (c): %s differs" % d
@@ -2913,86 +3128,326 @@ def phase_gcm_bands(card, single, t159_first):
                              "beyond PROFILE_TOL %g"
                              % (k, prof_err[k], PROFILE_TOL[0]))
         worst = max(prof_err.items(), key=lambda kv: kv[1])
-        log("bands (c): the T159 regional case (T159/L19 SL + 64 x "
-            "64x64x160), les = 4 ranks x 16 instances, the GCM on 4 bands "
-            "of %d rows, one coupled step: per-instance substeps against "
-            "phase_t159's first step's: %d of 64 differ (by %s), %d in "
+        log("%s (c): the T159 regional case (T159/L19 SL + 64 x "
+            "64x64x160), les = 4 ranks x 16 instances (%s), the GCM on 4 "
+            "bands of %d rows, one coupled step: per-instance substeps "
+            "against one card's first step: %d of 64 differ (by %s), %d in "
             "all against %d; profiles: largest %s %.3g of max|ref| "
             "(PROFILE_TOL[0] %g); ranks' batched-loop substeps %s, lesstage "
-            "%s; walls %s s, peak memory %s GiB, %s all_reduces moving %s B "
-            "(one shared card: not a scaling number) on %s"
-            % (nb, int(np.count_nonzero(dsub)),
+            "%s; step walls %s s (one card's %.2f s), the slowest rank's "
+            "own evolve %.2f s (ranks %s s), peak memory %s GiB, %s "
+            "all_reduces moving %s B on %s"
+            % (tag, where(backend, BANDS_RANKS), nb,
+               int(np.count_nonzero(dsub)),
                sorted(set(dsub[dsub != 0].tolist())),
                int(np.sum(reg[0]["nsub"])), int(np.sum(want)), worst[0],
                worst[1], PROFILE_TOL[0],
                [r["loop_substeps"] for r in reg],
                [r["launches"]["lesstage"] for r in reg],
                ["%.2f" % r["wall_s"] for r in reg],
+               t159_first.get("wall_s", float("nan")),
+               max(r["evolve_s"] for r in reg),
+               ["%.2f" % r["evolve_s"] for r in reg],
                ["%.2f" % r["peak_memory_gib"] for r in reg],
                [r["sums"] for r in reg], [r["sum_bytes"] for r in reg],
                card))
         res["c"] = dict(profile_rel_err=prof_err, ranks=reg,
                         substep_diff=dsub.tolist())
 
-        # (b)
-        conf = os.path.join(tmp, "mesh.json")
-        with open(conf, "w") as f:
-            json.dump(MESH_CONF, f)
-        report = os.path.join(tmp, "cli")
-        cli_wall = run_rank_set(
-            "bands_cli", MESH_RANKS, BANDS_CLI_TIMEOUT,
-            ["--bands-cli-rank", os.path.join(tmp, "cli_out"), conf, report],
-            os.path.join(tmp, "store_cli"))
-        reps, arrays = [], []
-        for r in range(MESH_RANKS):
-            with open("%s.%d.json" % (report, r)) as f:
-                reps.append(json.load(f))
-            arrays.append(dict(np.load("%s.%d.npz" % (report, r))))
-        fails += ["bands (b): %s differs" % d
-                  for d in same_on_ranks(arrays, "spec_")]
-        want_rows = spharm.GRID_FOR_TRUNC[21][1] // MESH_RANKS
-        for rep in reps:
-            if rep["rows"] != want_rows:
-                fails.append("bands (b): rank %d's grid has %d rows, want %d"
-                             % (rep["rank"], rep["rows"], want_rows))
-            if rep["substeps"][0] != single["substeps"][0]:
-                fails.append("bands (b): rank %d's step 1 substeps %s, "
-                             "single %s" % (rep["rank"], rep["substeps"][0],
-                                            single["substeps"][0]))
-            check_launches("b", rep["rank"], rep["launches"],
-                           rep["own_substeps"])
-        try:
-            diffs = record_diffs(single["times"], single["groups"],
-                                 np.load(report + ".records.npz"))
-            worst = max(diffs.items(), key=lambda kv: kv[1])
-        except AssertionError as e:
-            diffs, worst = {}, ("(failed)", float("nan"))
-            fails.append("bands (b): %s" % e)
-        log("bands (b): the bench case (T21/L19 + 2 x 64x64x160) through the "
-            "CLI with --mesh_les 2 --gcmprocs 2 on 2 gloo ranks sharing the "
-            "card, bands %s: substeps %s (single %s), rank 0's %d records: "
-            "largest difference %s %.3g of max|ref|; spectral state the same "
-            "on both ranks: %s; lesstage %s, own substeps %s; step walls %s "
-            "s, single %s s (not a scaling number) on %s"
-            % ([r["band"] for r in reps], reps[0]["substeps"],
-               single["substeps"], len(single["times"]), worst[0], worst[1],
-               not same_on_ranks(arrays, "spec_"),
-               [r["launches"]["lesstage"] for r in reps],
-               [r["own_substeps"] for r in reps],
-               [["%.3f" % w for w in r["walls"]] for r in reps],
-               ["%.3f" % w for w in single["walls"]], card))
-        res["b"] = dict(record_diffs=diffs, ranks=reps,
-                        single_walls=single["walls"])
+        # (b), under gloo only
+        cli_wall = None
+        if backend == "gloo":
+            conf = os.path.join(tmp, "mesh.json")
+            with open(conf, "w") as f:
+                json.dump(MESH_CONF, f)
+            report = os.path.join(tmp, "cli")
+            cli_wall = run_rank_set(
+                "bands_cli", MESH_RANKS, BANDS_CLI_TIMEOUT,
+                ["--bands-cli-rank", os.path.join(tmp, "cli_out"), conf,
+                 report],
+                os.path.join(tmp, "store_cli"))
+            reps, arrays = [], []
+            for r in range(MESH_RANKS):
+                with open("%s.%d.json" % (report, r)) as f:
+                    reps.append(json.load(f))
+                arrays.append(dict(np.load("%s.%d.npz" % (report, r))))
+            fails += ["bands (b): %s differs" % d
+                      for d in same_on_ranks(arrays, "spec_")]
+            want_rows = spharm.GRID_FOR_TRUNC[21][1] // MESH_RANKS
+            for rep in reps:
+                if rep["rows"] != want_rows:
+                    fails.append("bands (b): rank %d's grid has %d rows, "
+                                 "want %d" % (rep["rank"], rep["rows"],
+                                              want_rows))
+                if rep["substeps"][0] != single["substeps"][0]:
+                    fails.append("bands (b): rank %d's step 1 substeps "
+                                 "%s, single %s"
+                                 % (rep["rank"], rep["substeps"][0],
+                                    single["substeps"][0]))
+                check_launches("b", rep["rank"], rep["launches"],
+                               rep["own_substeps"])
+            try:
+                diffs = record_diffs(single["times"], single["groups"],
+                                     np.load(report + ".records.npz"))
+                worst = max(diffs.items(), key=lambda kv: kv[1])
+            except AssertionError as e:
+                diffs, worst = {}, ("(failed)", float("nan"))
+                fails.append("bands (b): %s" % e)
+            log("bands (b): the bench case (T21/L19 + 2 x 64x64x160) "
+                "through the CLI with --mesh_les 2 --gcmprocs 2 on 2 gloo "
+                "ranks sharing the card, bands %s: substeps %s (single %s), "
+                "rank 0's %d records: largest difference %s %.3g of "
+                "max|ref|; spectral state the same on both ranks: %s; "
+                "lesstage %s, own substeps %s; step walls %s s, single %s s "
+                "(not a scaling number) on %s"
+                % ([r["band"] for r in reps], reps[0]["substeps"],
+                   single["substeps"], len(single["times"]), worst[0],
+                   worst[1],
+                   not same_on_ranks(arrays, "spec_"),
+                   [r["launches"]["lesstage"] for r in reps],
+                   [r["own_substeps"] for r in reps],
+                   [["%.3f" % w for w in r["walls"]] for r in reps],
+                   ["%.3f" % w for w in single["walls"]], card))
+            res["b"] = dict(record_diffs=diffs, ranks=reps,
+                            single_walls=single["walls"])
         res.update(ranks_wall_s=ranks_wall, cli_wall_s=cli_wall,
                    phase_s=time.time() - t_phase, fails=fails)
-    with open(os.path.join(OUT_DIR, "chip_smoke_bands.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, "chip_smoke_%s.json" % tag), "w") as f:
         json.dump(res, f, indent=1, default=str)
-    log("bands: the phase took %.1f s (the 4 ranks %.1f s, the CLI ranks "
-        "%.1f s)" % (res["phase_s"], ranks_wall, cli_wall))
+    log("%s: the phase took %.1f s (the 4 ranks %.1f s, the CLI ranks %s "
+        "s)" % (tag, res["phase_s"], ranks_wall, cli_wall))
     if fails:
         raise AssertionError("bands: %d check(s) failed: %s"
                              % (len(fails), "; ".join(fails)))
     return launches
+
+
+# ---- nccl, one card a rank (--cards N) ---------------------------------
+
+# chip_smoke.py --cards N runs the three distributed layers over nccl, one
+# card a rank, each against one process on one card of the same machine:
+# (a) the les axis (phase_mesh on 2 cards); (b) the T159 regional case
+# with --mesh_les 4 --gcmprocs 4 and (c) the T159 GCM on 4 bands
+# (phase_gcm_bands); (d) the x/y blocks (phase_spatial: the bench case
+# with --lesprocs 4, config 4's fleet on 2 x 2 blocks, the Smagorinsky
+# leg); (e) kernels #1-#3 on every card (phase_card_kernels); (f)
+# runtime/scalebench.py at SCALE_SIZES (phase_scaling). With N = 2, (b),
+# (c) and (d), which take 4 ranks, do not run.
+CARD_COUNTS = (2, 4)
+CARDS_TIMEOUT = 300
+# (f): 16 instances of 64x64x160 a card, each size's evolve on every rank
+# of the size (weak scaling), against BASELINE.md's >= 80 % target
+SCALE_SIZES = (1, 2, 4)
+SCALE_ARGV = ["--nx", "64", "--nz", "160", "--per-dev", "16"]
+SCALE_TARGET = 0.8
+
+
+def t159_first_step(card):
+    """One card's first coupled step of the T159 regional case
+    (t159bench.case, batched), phase_t159's first step without its CPU
+    check and later steps: the per-instance substeps, the profiles after
+    the step and its wall."""
+    from sp_coupler_tpu_torch.runtime import t159bench
+    fn, (gs, les, prof, rain) = t159bench.case(torch.device("cuda"),
+                                               "batched")
+    out, _, host_ms = cuda_event_ms(
+        lambda: fn(gs, les, prof, rain, 0, first=True))
+    nsub = [int(x) for x in fn.unpack_diag(out[4])["n_substeps"]]
+    first = dict(nsub=nsub, wall_s=host_ms / 1e3,
+                 prof={k: v.cpu().numpy() for k, v in out[2].items()})
+    log("t159 first step on one card: %.2f s, %d instance-substeps (%d..%d "
+        "an instance) on %s" % (first["wall_s"], sum(nsub), min(nsub),
+                                max(nsub), card))
+    del fn, gs, les, prof, rain, out
+    torch.cuda.empty_cache()
+    return first
+
+
+def card_kernels_rank(report):
+    """One rank of phase_card_kernels (``chip_smoke.py --card-kernels-rank
+    REPORT``): on this rank's own card, kernels #1-#3 against their plain
+    versions at SPATIAL_GRID, n = SPATIAL_N, for both inputs (check_stage,
+    check_arrays), then in halo mode on its 32x32x160 blocks
+    (spatial_kernels, which times them); writes REPORT.<rank>.json."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch import card_line
+    from sp_coupler_tpu_torch.models.les import grid as lgrid, step as lstep
+    from sp_coupler_tpu_torch.ops import lesstage
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    try:
+        pmesh.init_distributed(torch.device("cuda"))
+        rank = pmesh.rank()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        card = card_line(dev)
+        nx, ny, nz = SPATIAL_GRID
+        n = SPATIAL_N
+        grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+        reset_launches()
+        whole = {"lesstage": 0.0}
+        for inputs in (stage_inputs, rough_inputs):
+            cur, base, frc, dt = inputs(grid, n, 7 + n)
+            out = lesstage.stage_fused_cuda(grid, lstep.LESPhysics(), cur,
+                                            base, frc, 0.5, dt)
+            if cur.u.device != dev or out[0].device != dev:
+                raise AssertionError("rank %d: inputs on %s, outputs on %s, "
+                                     "not %s" % (rank, cur.u.device,
+                                                 out[0].device, dev))
+            err = check_stage(lesstage.stage_fused_cuda, grid,
+                              lstep.LESPhysics(), cur, base, frc, dt)[0]
+            whole["lesstage"] = max(whole["lesstage"], err)
+        for name, launch, plain, args_of, tol, _ in split_kernels():
+            if name == "advect":
+                continue
+            whole[name] = 0.0
+            for inputs in (split_inputs, rough_split_inputs):
+                args = args_of(inputs(grid, n, 11 + n), grid)
+                got, ref = launch(*args), plain(*args)
+                if output_arrays(got)[0].device != dev:
+                    raise AssertionError("rank %d: %s output on %s"
+                                         % (rank, name, got.device))
+                check_arrays(name, got, ref, tol)
+                whole[name] = max([whole[name]] + [
+                    float((a - b).abs().max())
+                    for a, b in zip(output_arrays(got), output_arrays(ref))])
+        halo = spatial_kernels(card)
+        torch.cuda.synchronize()
+        rep = dict(rank=rank, device=str(dev), card=card, whole=whole,
+                   halo=halo, launches=read_launches(), **transport())
+    finally:
+        pmesh.shutdown()
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def phase_card_kernels(card, n_cards):
+    """(e): kernels #1-#3 on every card, one rank a card
+    (card_kernels_rank): each whole-plane kernel and each halo-mode one
+    held against its plain version on the rank's own card, with the halo
+    mode's device time there. Returns {card index: report}."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "kern")
+        run_rank_set("cards_kernels", n_cards, CARDS_TIMEOUT,
+                     ["--card-kernels-rank", report],
+                     os.path.join(tmp, "store"), backend="nccl")
+        reps = []
+        for r in range(n_cards):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+    check_transport("cards_kernels", reps, "nccl")
+    for rep in reps:
+        la = rep["launches"]
+        if not all(la[k] > 0 for k in ("lesstage", "lesflat", "lesmom",
+                                       "lesstage_halo", "lesflat_halo",
+                                       "lesmom_halo")):
+            raise AssertionError("cards_kernels: rank %d launches %s"
+                                 % (rep["rank"], la))
+        log("cards_kernels (e): %s (%s): kernels #1-#3 at %dx%dx%d n=%d "
+            "against their plain versions, max abs err %s; in halo mode on "
+            "%dx%d blocks, max abs err %s, device ms %s; launches %s"
+            % (rep["device"], rep["card"], *SPATIAL_GRID, SPATIAL_N,
+               {k: float("%.3g" % v) for k, v in rep["whole"].items()},
+               SPATIAL_GRID[0] // SPLIT[0], SPATIAL_GRID[1] // SPLIT[1],
+               {k: float("%.3g" % v["max_abs_err"])
+                for k, v in rep["halo"].items()},
+               {k: float("%.4g" % v["times"][4])
+                for k, v in rep["halo"].items()}, la))
+    return {r: rep for r, rep in enumerate(reps)}
+
+
+def phase_scaling(card, n_cards):
+    """(f): ``python -m sp_coupler_tpu_torch.runtime.scalebench --sizes
+    SCALE_SIZES SCALE_ARGV`` on n_cards ranks, one card a rank (weak
+    scaling; sizes up to n_cards): every size's efficiency, recorded
+    beside SCALE_TARGET (not claimed). Returns scalebench's result."""
+    import tempfile
+    sizes = [m for m in SCALE_SIZES if m <= n_cards]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scale.json")
+        wall = run_rank_set(
+            "cards_scale", n_cards, CARDS_TIMEOUT,
+            ["--sizes", ",".join(map(str, sizes))] + SCALE_ARGV
+            + ["--out", out], os.path.join(tmp, "store"), backend="nccl",
+            module="sp_coupler_tpu_torch.runtime.scalebench")
+        with open(out) as f:
+            res = json.load(f)
+    eff = [res["efficiency"][str(m)] for m in sizes]
+    if (res["mode"] != "weak" or res["ranks"] != n_cards
+            or res["sizes"] != sizes
+            or not all(np.isfinite(e) and e > 0 for e in eff)):
+        raise AssertionError("cards_scale: %s" % res)
+    log("cards_scale (f): scalebench weak scaling, %d x %s instances a "
+        "card, %d substeps: updates/s %s, efficiency %s (BASELINE.md's "
+        "target >= %.2f: recorded, not claimed); %.1f s on %s"
+        % (res["per_device_instances"], res["grid"], res["substeps"],
+           res["updates_per_s"], res["efficiency"], SCALE_TARGET, wall,
+           card))
+    return res
+
+
+def cards_main(n_cards):
+    """``chip_smoke.py --cards N``: the nccl phases (a)-(f) on N cards,
+    one card a rank. Raises without a card or with fewer than N cards
+    (never runs on fewer, nor over gloo). The last line is the contract's
+    {"ok": true, ...} with the count of cards used."""
+    if n_cards not in CARD_COUNTS:
+        raise ValueError("--cards %d: 2 or 4" % n_cards)
+    phase_env()
+    have = torch.cuda.device_count()
+    if have < n_cards:
+        raise RuntimeError("--cards %d on a machine of %d card(s): the nccl "
+                           "phases take one card a rank" % (n_cards, have))
+    lines = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[:n_cards]
+    card = "; ".join("cuda:%d %s" % kv for kv in enumerate(lines))
+    log("cards:", card)
+    t0 = time.time()
+    phase_build()
+    res, fails = dict(cards=lines), []
+
+    def attempt(name, fn, *args):
+        """fn(*args); a failure is printed and recorded, and fails the run
+        after the phases that do not need this one's result. Ranks that
+        hang end the run at once: the next set would hang too."""
+        try:
+            return fn(*args)
+        except RanksTimedOut:
+            raise
+        except Exception as e:          # every phase runs; the run fails
+            traceback.print_exc()
+            fails.append("%s: %s" % (name, e))
+            return None
+
+    a = attempt("(a)", phase_mesh, card, "nccl")
+    res["a"], single = a if a else (None, None)
+    if n_cards >= BANDS_RANKS:
+        if single is None:              # (d)'s reference, (a) having failed
+            import tempfile
+            with tempfile.TemporaryDirectory() as tmp:
+                single = bench_single(tmp)[1]
+        first = attempt("t159 first step", t159_first_step, card)
+        if first is not None:
+            res["bc"] = attempt("(b), (c)", phase_gcm_bands, card, single,
+                                first, "nccl")
+        res["d"] = attempt("(d)", phase_spatial, card, single, "nccl")
+    else:
+        log("cards: (b)-(d) take 4 ranks: python3 chip_smoke.py --cards 4")
+    res["e"] = attempt("(e)", phase_card_kernels, card, n_cards)
+    res["f"] = attempt("(f)", phase_scaling, card, n_cards)
+    res.update(seconds=time.time() - t0, fails=fails)
+    with open(os.path.join(OUT_DIR, "chip_smoke_cards.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    if fails:
+        raise AssertionError("cards: %d phase(s) failed: %s"
+                             % (len(fails), "; ".join(fails)))
+    log("cards: every phase passed in %.1f s" % res["seconds"])
+    print(lines[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n_cards}}))
+    return 0
 
 
 # ---- the golden replay and the columns bench ----------------------------
@@ -3257,6 +3712,9 @@ def write_t159(gcm_sl, t159):
 
 def main():
     card = phase_env()
+    log("the multi-rank phases here are gloo ranks sharing this card; the "
+        "nccl phases, one card a rank, are in `python3 chip_smoke.py "
+        "--cards 4`")
     phase_build()
     worst, times = phase_kernel(card)
     split = phase_split_kernels(card)
@@ -3316,6 +3774,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_main(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--card-kernels-rank"]:
+        sys.exit(card_kernels_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--spatial-rank"]:

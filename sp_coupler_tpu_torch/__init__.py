@@ -59,11 +59,16 @@ def device_name(device):
 
 def card_line(device):
     """The CUDA card's name and power limit as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them: of
+    device's card, or for ``torch.device("cuda")`` of the current card (a
+    rank's own)."""
+    index = device.index
+    if index is None and torch.cuda.is_available():
+        index = torch.cuda.current_device()
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout
-    return out.strip().splitlines()[device.index or 0]
+    return out.strip().splitlines()[index or 0]
 
 
 def generator(*key):

@@ -6,7 +6,8 @@ lives in ``sp_coupler_tpu_torch/_build/<name>-<hash>.so`` (git-ignored),
 keyed by a hash of the source, the shared headers ``csrc/*.cuh`` and the
 compile command, so a fresh checkout builds everything on its first call
 and later calls reuse it. A failed build raises with the compiler's
-output. ``function`` and ``check_cuda`` serve the kernel wrappers.
+output. ``function``, ``check_cuda`` and ``launch`` serve the kernel
+wrappers.
 """
 
 import ctypes
@@ -113,8 +114,14 @@ def check_cuda(x, shape, name):
     return x.data_ptr()
 
 
-def raise_on_error(err, what):
-    """Raise if a C entry returned a CUDA error code other than 0."""
+def launch(fn, args, device, what):
+    """Call the C entry ``fn(*args, stream)`` with device's card current and
+    its current stream, so that a rank on cuda:1 launches on cuda:1 (the
+    entries keep their shared-memory allowance per card, by
+    cudaGetDevice). Raises if the entry returned a CUDA error code other
+    than 0."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (what, err))

@@ -127,11 +127,8 @@ def launch_scalars(entry, u, v, w, Ks, scalars, rhobf, rhobh, dx, dy, dz,
     out = torch.empty((n, S, nz, ny, nx), dtype=scalars.dtype,
                       device=scalars.device)
     fn = _build.function("lesflat", entry, _ARGTYPES)
-    _build.raise_on_error(
-        fn(*ptrs, out.data_ptr(), n, S, nz, ny, nx, geom.tz, geom.smem,
-           halo, dx, dy, dz,
-           torch.cuda.current_stream(u.device).cuda_stream),
-        entry)
+    _build.launch(fn, ptrs + (out.data_ptr(), n, S, nz, ny, nx, geom.tz,
+                              geom.smem, halo, dx, dy, dz), u.device, entry)
     return out
 
 

@@ -110,11 +110,9 @@ def momentum_tendencies_cuda(u, v, w, Km, rhobf, rhobh, dx, dy, dz,
                                 device=u.device)
     du, dv, dw = emp(nz), emp(nz), emp(nz + 1)
     fn = _build.function("lesmom", "lesmom_tend", _ARGTYPES)
-    _build.raise_on_error(
-        fn(*ptrs, du.data_ptr(), dv.data_ptr(), dw.data_ptr(), n, nz, ny, nx,
-           geom.tz, geom.smem, halo, dx, dy, dz,
-           torch.cuda.current_stream(u.device).cuda_stream),
-        "lesmom")
+    _build.launch(fn, ptrs + (du.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                              n, nz, ny, nx, geom.tz, geom.smem, halo, dx, dy,
+                              dz), u.device, "lesmom")
     if halo:
         halo_launches += 1
     else:

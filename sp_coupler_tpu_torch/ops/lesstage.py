@@ -194,9 +194,7 @@ def _stage_args(grid, phys, cur, base, forcing, frac_dt, dt, tz, halo):
 def _launch(entry, a, dev):
     fn = _build.function("lesstage", entry,
                          [ctypes.c_void_p, ctypes.c_void_p])
-    _build.raise_on_error(
-        fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream),
-        "lesstage")
+    _build.launch(fn, (ctypes.byref(a),), dev, "lesstage")
 
 
 def _result(outs, aux):

@@ -20,11 +20,14 @@ instead).
   extraction bit for bit.
 
 Every operation is a collective of the group: every rank calls it, in the
-same order. Under gloo a CUDA tensor goes through host memory.
+same order. Under gloo a CUDA tensor goes through host memory; under nccl
+it stays on the card (``mesh.staged``).
 """
 
 import torch
 import torch.distributed as dist
+
+from .mesh import staged
 
 
 class Bands:
@@ -49,12 +52,9 @@ class Bands:
 
     # ---- collectives -----------------------------------------------------
 
-    def _staged(self, x):
-        return x.is_cuda and dist.get_backend(self.group) == "gloo"
-
     def sum_(self, t):
         """t summed over the bands' ranks, in place (t contiguous)."""
-        if self._staged(t):
+        if staged(t, self.group):
             h = t.cpu()
             dist.all_reduce(h, group=self.group)
             t.copy_(h)
@@ -65,12 +65,12 @@ class Bands:
     def gather(self, f):
         """The whole grid [..., nlat, nlon] of the bands f [..., nb, nlon],
         on every rank."""
-        staged = self._staged(f)
-        src = (f.cpu() if staged else f).contiguous()
+        host = staged(f, self.group)
+        src = (f.cpu() if host else f).contiguous()
         parts = [torch.empty_like(src) for _ in range(self.P)]
         dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts, dim=-2)
-        return out.to(f.device) if staged else out
+        return out.to(f.device) if host else out
 
     def columns(self, fields, col_idx):
         """Each of fields [..., nb, nlon] (this rank's band) at the flat

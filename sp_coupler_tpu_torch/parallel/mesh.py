@@ -22,7 +22,8 @@ torchrun's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``. On the
 card the backend is ``nccl`` with one card per rank (``cuda:LOCAL_RANK``);
 on the CPU it is ``gloo``. ``SPTPU_DIST_BACKEND=gloo`` on the card lets
 ranks share cards; the collectives then go through host memory
-(``sharding.gather_rows``).
+(``staged``). Under nccl every tensor of a collective stays on the rank's
+card: a CPU tensor, or one on another card, raises (``staged``).
 """
 
 import datetime
@@ -67,7 +68,8 @@ def init_distributed(device):
 
     device: the run's torch device (its type picks the backend). On the
     card each rank takes its own card as the current device (``cuda:
-    LOCAL_RANK``; under gloo ``LOCAL_RANK`` modulo the cards). Returns
+    LOCAL_RANK``; under gloo ``LOCAL_RANK`` modulo the cards). nccl with
+    fewer cards than ranks raises; it never falls back to gloo. Returns
     whether a world of more than one rank is up; False, and nothing
     done, outside a multi-process launch."""
     if dist.is_initialized():
@@ -89,12 +91,47 @@ def init_distributed(device):
     backend = pick_backend(device.type, env.get("SPTPU_DIST_BACKEND"),
                            local_ranks, n_cards)
     if device.type == "cuda":
+        if backend == "nccl" and local_rank >= n_cards:
+            raise ValueError("nccl: local rank %d on a host of %d cards (one "
+                             "card a rank)" % (local_rank, n_cards))
         torch.cuda.set_device(local_rank % n_cards)
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank, timeout=TIMEOUT)
     log.info("process group up: rank %d of %d, backend %s", rank, world,
              backend)
     return world > 1
+
+
+# CUDA tensors the collectives took through host memory (gloo) in this
+# process since the count was last set to 0; under nccl it stays 0
+staged_tensors = 0
+
+
+def staged(x, group=None):
+    """Whether a collective of group takes the tensor x through host
+    memory: a CUDA tensor under gloo, which moves CPU tensors only. Under
+    any other backend (nccl) x stays where it is, and must lie on this
+    rank's card: a CPU tensor, or one on another card, raises ValueError
+    (nccl moves neither)."""
+    global staged_tensors
+    backend = dist.get_backend(group)
+    if backend == "gloo":
+        staged_tensors += int(x.is_cuda)
+        return x.is_cuda
+    if not x.is_cuda or x.device.index != torch.cuda.current_device():
+        raise ValueError("a %s collective takes tensors on this rank's card, "
+                         "not a %s tensor on %s"
+                         % (backend, x.dtype, x.device))
+    return False
+
+
+def barrier(group=None):
+    """dist.barrier over group (None: the world); under nccl on this
+    rank's card."""
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
 
 
 def shutdown():

@@ -18,7 +18,8 @@ plane group, ``LesMesh.plane_group``) move data explicitly:
   and this rank's cut of a whole plane.
 
 Every operation is a collective of the plane group: every rank of it calls
-it, in the same order. Under gloo a CUDA tensor goes through host memory.
+it, in the same order. Under gloo a CUDA tensor goes through host memory;
+under nccl it stays on the card (``mesh.staged``).
 
 ``WHOLE`` offers the same reductions on a whole plane in one tensor: the
 plain torch reductions, so a run without spatial blocks is today's code,
@@ -28,6 +29,8 @@ interior only: a mean over a padded block must not count the halo).
 
 import torch
 import torch.distributed as dist
+
+from .mesh import staged
 
 Y, X = -2, -1
 
@@ -94,11 +97,8 @@ class Plane:
 
     # ---- collectives -----------------------------------------------------
 
-    def _staged(self, x):
-        return x.is_cuda and dist.get_backend(self.group) == "gloo"
-
     def _all_reduce(self, t, op):
-        if self._staged(t):
+        if staged(t, self.group):
             h = t.cpu()
             dist.all_reduce(h, op=op, group=self.group)
             t.copy_(h)
@@ -115,12 +115,12 @@ class Plane:
 
     def _all_gather(self, t):
         """[G, *t.shape]: t of every rank of the plane, in group order."""
-        staged = self._staged(t)
-        src = (t.cpu() if staged else t).contiguous()
+        host = staged(t, self.group)
+        src = (t.cpu() if host else t).contiguous()
         parts = [torch.empty_like(src) for _ in self.ranks]
         dist.all_gather(parts, src, group=self.group)
         out = torch.stack(parts)
-        return out.to(t.device) if staged else out
+        return out.to(t.device) if host else out
 
     # ---- reductions over the plane ---------------------------------------
 
@@ -171,18 +171,26 @@ class Plane:
 
     def _swap(self, lo, hi, to_lo, to_hi, tag):
         """Send lo (this block's low edge) to rank to_lo and hi to to_hi;
-        return (what to_lo sent as its hi, what to_hi sent as its lo)."""
-        staged = self._staged(lo)
-        lo_s, hi_s = ((x.cpu() if staged else x).contiguous()
+        return (what to_lo sent as its hi, what to_hi sent as its lo).
+
+        One batch of point-to-point operations. nccl ignores tags and
+        matches the messages between two ranks in the order they were
+        posted, so the receives follow the peers' sends: every rank sends
+        its lo, then its hi, and so receives first from to_hi (that
+        rank's lo), then from to_lo (its hi). This holds where to_lo and
+        to_hi are one rank (2 blocks on the axis); gloo matches the same
+        messages by their tags."""
+        host = staged(lo, self.group)
+        lo_s, hi_s = ((x.cpu() if host else x).contiguous()
                       for x in (lo, hi))
         from_lo, from_hi = torch.empty_like(hi_s), torch.empty_like(lo_s)
-        reqs = [dist.irecv(from_lo, to_lo, group=self.group, tag=tag + 1),
-                dist.irecv(from_hi, to_hi, group=self.group, tag=tag),
-                dist.isend(lo_s, to_lo, group=self.group, tag=tag),
-                dist.isend(hi_s, to_hi, group=self.group, tag=tag + 1)]
-        for r in reqs:
+        ops = [dist.P2POp(dist.isend, lo_s, to_lo, self.group, tag),
+               dist.P2POp(dist.isend, hi_s, to_hi, self.group, tag + 1),
+               dist.P2POp(dist.irecv, from_hi, to_hi, self.group, tag),
+               dist.P2POp(dist.irecv, from_lo, to_lo, self.group, tag + 1)]
+        for r in dist.batch_isend_irecv(ops):
             r.wait()
-        if staged:
+        if host:
             from_lo, from_hi = (x.to(lo.device) for x in (from_lo, from_hi))
         return from_lo, from_hi
 

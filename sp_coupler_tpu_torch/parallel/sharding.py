@@ -14,7 +14,7 @@ explicitly:
   over the les axis in the coupled step's ``_post``).
 
 Under gloo a CUDA tensor goes through host memory (gloo gathers CPU
-tensors); under nccl it stays on the card.
+tensors); under nccl it stays on the card (``mesh.staged``).
 """
 
 import math
@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils import tree as tree_util
+from .mesh import staged
 
 
 def spatial_axes(mesh):
@@ -48,12 +49,12 @@ def local_rows(tree, mesh, n):
 def all_rows(x, mesh):
     """[L, *x.shape]: x of every slot of the mesh, in slot order, on x's
     device. Every slot's x has the same shape and dtype."""
-    staged = x.is_cuda and dist.get_backend(mesh.group) == "gloo"
-    src = (x.cpu() if staged else x).contiguous()
+    host = staged(x, mesh.group)
+    src = (x.cpu() if host else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.les)]
     dist.all_gather(parts, src, group=mesh.group)
     out = torch.stack(parts)
-    return out.to(x.device) if staged else out
+    return out.to(x.device) if host else out
 
 
 def _as_f32(x):

@@ -194,7 +194,7 @@ class SPRunner:
         clobber = (not cfg.restart and os.path.isdir(cfg.output_dir)
                    and os.listdir(cfg.output_dir))
         if pmesh.world_size() > 1:
-            torch.distributed.barrier()
+            pmesh.barrier()
         if clobber:
             raise RuntimeError("output dir %s exists" % cfg.output_dir)
         os.makedirs(cfg.output_dir, exist_ok=True)

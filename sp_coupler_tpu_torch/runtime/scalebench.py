@@ -103,7 +103,7 @@ def measure(sizes=None, per_dev=2, nx=32, ny=32, nz=64, substeps=12,
 
         def barrier():
             if group is not None:
-                dist.barrier(group=group)
+                pmesh.barrier(group)
 
         out = evolve(state)              # builds the kernels, warms up
         _sync(device)

@@ -120,11 +120,11 @@ def pair_rows(cpu, card, jax):
 
 def card_name(card):
     """The card's line: --card, else nvidia-smi's name and power limit of
-    the first card on this machine."""
+    this process's current card (a rank's own)."""
     if card:
         return card
     try:
-        return card_line(torch.device("cuda", 0))
+        return card_line(torch.device("cuda"))
     except (OSError, subprocess.CalledProcessError, IndexError):
         raise ValueError("nvidia-smi names no card here: name the card of "
                          "the run with --card") from None
