@@ -28,11 +28,11 @@ the scalar and momentum kernels):
      (chip_smoke.tensor_bytes); then their device time at several levels
      per z-chunk (SPLIT_TZ_SWEEP; the default geometry's marked);
   7. (mode tl639 only) the TL639 jet run of runtime/tl639.py stepped one
-     step at a time for each of TL639_PROBES: per step max|u| and the
-     level and latitude where it sits, the largest vertical Courant
-     number of the explicit vertical advection (|eta-dot| x 2 dt over the
-     layer's thickness, from the state the step starts from) and where,
-     the temperature extrema and the non-finite counts of u, v, T, lnps;
+     step at a time for each of TL639_PROBES: per step the row of
+     verify/tl639_rows.py (max|u| and its level, the largest vertical
+     Courant number of the explicit vertical advection, |eta-dot| x 2 dt
+     over the layer's thickness, from the state the step starts from,
+     and its level, the temperature extrema, which fields are finite);
      the run stops at its first non-finite step.
   8. (mode sass only) the static SASS of each built kernel (cuobjdump
      -sass of the .so phase_build made): per device function, the count
@@ -41,6 +41,22 @@ the scalar and momentum kernels):
      the compiler fused (FFMA against FADD + FMUL) reads against the
      data sheet's 67 TFLOP/s of ops/bounds.py, which counts an FFMA as
      two operations.
+  9. (mode tl639cpu only) the TL639 jet run's GCM in float32 on the card
+     and on the port's CPU, each against the same core in float64 on the
+     card (tl639_rows.as_double: the float32 core's coefficients, float64
+     arithmetic). Part "float64": the card's run in float32, in float64
+     and in float32 without spharm.card_sums (plain_sums, the card's
+     path before the TL639 repair), each to its first non-finite step,
+     their rows against the committed CPU rows and against each other.
+     Part "sums": the card's analysis against float64 beside the CPU's,
+     with and without card_sums. Part "steps": from the card's states
+     after TL639_FROM_STEPS leapfrog steps, one step of each core, the
+     grid view's u, v, T and lnps as max|err| / max against the float64
+     step (and the card's step from the state moved by one rounding
+     against its own); then each SL stage of that step
+     (semilag.SL_STAGES), each from the CPU's inputs, on the card in
+     float32 and in float64, the CPU's and the card's float32 stages
+     against the float64 ones.
   6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
      SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
      step, one first=False coupled step with the fleet batched and one
@@ -58,8 +74,12 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_profile.py t159    (phase 6 only; not part of "all")
      python3 chip_profile.py tl639   (phase 7 only; not part of "all")
      python3 chip_profile.py sass    (phase 8 only; not part of "all")
+     python3 chip_profile.py tl639cpu [float64] [steps] [sums]
+                                     (phase 9 only; not part of "all";
+                                      float64 and steps by default)
 """
 
+import contextlib
 import json
 import os
 import re
@@ -68,7 +88,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -382,35 +401,11 @@ def phase_t159(card):
     return out
 
 
-def tl639_row(core, state, dt, lat):
-    """The probe's numbers of one step of the jet run: the step from
-    state, and the vertical Courant numbers of the state it starts
-    from."""
-    from sp_coupler_tpu_torch.models.gcm import semilag
-    from sp_coupler_tpu_torch.runtime import tl639
-    m = semilag.sl_mid_grid(core.sht.whole, core.vc, core.slg, state.now)
-    sd = m["sdot"].abs()
-    cz = dt * (sd[1:] + sd[:-1]) / m["dpt_full"]     # 2 dt x mean |eta-dot|
-    cz = cz.expand(core.cfg.nlev, core.nlat, core.nlon)
-    del m, sd
-    state = core.step(tl639.strip(state))
-    g = state.grid
-    bad = {k: int((~torch.isfinite(getattr(g, k))).sum())
-           for k in ("u", "v", "T", "lnps")}
-    ua = g.u.abs().nan_to_num(0.0)
-    iu = np.unravel_index(int(ua.argmax()), tuple(ua.shape))
-    iz = np.unravel_index(int(cz.nan_to_num(0.0).argmax()), tuple(cz.shape))
-    row = dict(umax=float(ua.max()), u_level=int(iu[0]),
-               u_lat=float(lat[iu[1]]), courant_z=float(cz.max()),
-               courant_level=int(iz[0]), courant_lat=float(lat[iz[1]]),
-               Tmin=float(g.T.min()), Tmax=float(g.T.max()), nonfinite=bad)
-    return state, row
-
-
 def phase_tl639(card):
     """The jet run of runtime/tl639.py, step by step (TL639_PROBES)."""
     from sp_coupler_tpu_torch.models.gcm import semilag
     from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
     out = []
     for trunc, nlev, dt, split, method, steps in TL639_PROBES:
         core = tl639.build(trunc, nlev, dt, split_phases=split,
@@ -419,21 +414,20 @@ def phase_tl639(card):
             kc = core.slg.k_chunk
             core.slg = semilag.SLGrid(core.sht, method=method, dt=dt)
             core.slg.k_chunk = kc
-        lat = np.degrees(np.arcsin(core.sht.mu.cpu().numpy()))
         state = core.step(tl639.start(core, 60.0), first=True)
         rows = []
         t0 = time.time()
         for i in range(steps):
-            state, row = tl639_row(core, state, dt, lat)
-            rows.append(dict(step=i + 1, **row))
+            state, row = tl639_rows.step(core, state, dt, i + 1)
+            rows.append(row)
             cs.log("tl639 T%d/L%d dt %g split %s %s step %d: max|u| %.1f "
-                   "(level %d, lat %.1f), vertical Courant %.3g (level %d, "
-                   "lat %.1f), T %.1f..%.1f, non-finite %s"
+                   "(level %d), vertical Courant %.3g (level %d), T "
+                   "%.1f..%.1f, finite %s"
                    % (trunc, nlev, dt, split, method, i + 1, row["umax"],
-                      row["u_level"], row["u_lat"], row["courant_z"],
-                      row["courant_level"], row["courant_lat"], row["Tmin"],
-                      row["Tmax"], row["nonfinite"]))
-            if any(row["nonfinite"].values()):
+                      row["u_level"], row["courant_z"],
+                      row["courant_level"], row["Tmin"], row["Tmax"],
+                      row["finite_by_field"]))
+            if not row["finite"]:
                 break
         torch.cuda.synchronize()
         out.append(dict(trunc=trunc, nlev=nlev, dt=dt, split_phases=split,
@@ -443,8 +437,285 @@ def phase_tl639(card):
         torch.cuda.empty_cache()
     cs.log("tl639 probes on %s: %s" % (card, [
         (p["trunc"], p["dt"], p["split_phases"], p["method"], p["steps_run"],
-         any(any(r["nonfinite"].values()) for r in p["rows"]))
-        for p in out]))
+         not p["rows"][-1]["finite"]) for p in out]))
+    return out
+
+
+def moved(x, device, dtype=None):
+    """A copy of a state or a tree of stages (NamedTuples, dicts, tuples,
+    tensors, None) on device; with dtype, its float32 tensors as dtype."""
+    if isinstance(x, torch.Tensor):
+        if dtype is not None and x.dtype == torch.float32:
+            return x.to(device, dtype, copy=True)
+        return x.to(device, copy=True)
+    if isinstance(x, tuple) and hasattr(x, "_asdict"):
+        return type(x)(**{k: moved(v, device, dtype)
+                          for k, v in x._asdict().items()})
+    if isinstance(x, (tuple, list)):
+        return type(x)(moved(v, device, dtype) for v in x)
+    if isinstance(x, dict):
+        return {k: moved(v, device, dtype) for k, v in x.items()}
+    return x
+
+
+# where phase 9 computes its differences
+DIFFS_ON = "cuda"
+
+
+def tree_diffs(got, ref, path="", device=None):
+    """{path: (tl639_rows.max_diff's fraction, index of the largest
+    difference)} over the tensors of two trees of one structure."""
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    if isinstance(ref, torch.Tensor):
+        frac, idx = tl639_rows.max_diff(got, ref, device)
+        return {path: (frac, list(idx))}
+    if isinstance(ref, tuple) and hasattr(ref, "_asdict"):
+        got, ref = got._asdict(), ref._asdict()
+    if isinstance(ref, (tuple, list)):
+        got, ref = dict(enumerate(got)), dict(enumerate(ref))
+    out = {}
+    if isinstance(ref, dict):
+        for k in ref:
+            out.update(tree_diffs(got[k], ref[k], "%s/%s" % (path, k),
+                                  device))
+    return out
+
+
+def grid_diffs(got, ref):
+    """max_diff of the grid view's u, v, T and lnps, each with the level
+    of the largest difference (None for lnps)."""
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    out = {}
+    for k in ("u", "v", "T", "lnps"):
+        frac, idx = tl639_rows.max_diff(getattr(got.grid, k),
+                                        getattr(ref.grid, k), DIFFS_ON)
+        out[k] = (frac, idx[0] if k != "lnps" else None)
+    return out
+
+
+class OnDevice(dict):
+    """A stage mapping for semilag.sl_step's keep: each stage is stored as
+    a copy on device (as dtype)."""
+
+    def __init__(self, device, dtype=None):
+        super().__init__()
+        self.device, self.dtype = device, dtype
+
+    def __setitem__(self, k, v):
+        super().__setitem__(k, moved(v, self.device, self.dtype))
+
+
+class Given:
+    """A stage mapping for semilag.sl_step's given: each stage of src,
+    moved to device as dtype when it is read (the last one cached)."""
+
+    def __init__(self, src, device, dtype=None):
+        self.src, self.device, self.dtype = src, device, dtype
+        self.key = self.value = None
+
+    def __getitem__(self, k):
+        if k != self.key:
+            self.key = None
+            self.value = moved(self.src[k], self.device, self.dtype)
+            self.key = k
+        return self.value
+
+
+class Compared:
+    """A stage mapping for semilag.sl_step's keep: each stage is held,
+    when it is made, against each run of refs ({name: stages}); the
+    results gather in .diffs[name][stage path]."""
+
+    def __init__(self, refs):
+        self.refs, self.diffs = refs, {name: {} for name in refs}
+
+    def __setitem__(self, k, v):
+        for name, ref in self.refs.items():
+            self.diffs[name].update(tree_diffs(v, ref[k], "/" + k,
+                                               DIFFS_ON))
+
+
+def step_kept(core, state, keep=None, given=None):
+    """A leapfrog step of core from state whose SL stages go to keep, each
+    from given's inputs where given is set (semilag.sl_step)."""
+    return core.phase_b(core.phase_cloud(core.phase_a(state, keep=keep,
+                                                      given=given)))
+
+
+def ulp_perturbed(state, seed=0):
+    """state with every spectral coefficient of now and prev moved by one
+    float32 rounding (x (1 +- 2^-24), the sign from a seeded CPU
+    generator)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def nudge(s):
+        return type(s)(**{
+            k: v * (1.0 + 2.0 ** -24 * (2.0 * torch.randint(
+                0, 2, v.shape, generator=gen) - 1.0)).to(v.device, v.dtype)
+            for k, v in s._asdict().items()})
+    now = nudge(state.now)
+    return state._replace(now=now, prev=nudge(state.prev), new=now)
+
+
+# phase 9's "steps": the card's states the three cores step once from,
+# by the leapfrog steps taken (0: the Euler state); the vertical Courant
+# number passes 1 at step 12
+TL639_FROM_STEPS = (0, 12, 14)
+
+
+@contextlib.contextmanager
+def plain_sums():
+    """spharm.card_sums replaced by the plain float32 einsum: the card's
+    path before the TL639 repair."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    kept = spharm.card_sums
+    spharm.card_sums = lambda eq, x, table: torch.einsum(eq, x, table)
+    try:
+        yield
+    finally:
+        spharm.card_sums = kept
+
+
+def tl639_sums(card, dev):
+    """The card's TL639 analysis of the jet run's Euler state against
+    float64 beside the CPU's (tl639_rows.analysis_vs_float64), with
+    spharm.card_sums and with the plain float32 einsums (plain_sums)."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    g = dev.step(tl639.start(dev, 60.0), first=True).grid
+    cpu = spharm.SpectralTransform(dev.cfg.trunc, device="cpu")
+    out = dict(card_sums=tl639_rows.analysis_vs_float64(dev.sht, cpu, g.u,
+                                                        g.v, g.T))
+    with plain_sums():
+        out["float32"] = tl639_rows.analysis_vs_float64(dev.sht, cpu, g.u,
+                                                        g.v, g.T)
+    for name, res in out.items():
+        cs.log("tl639cpu: analysis against float64 (max err / max) with "
+               "%s, card / CPU: %s on %s" % (name, "; ".join(
+                   "%s %.3g / %.3g" % (k, r["device"], r["cpu"])
+                   for k, r in res.items()), card))
+    return out
+
+
+def tl639_float64(card, dev, dev64):
+    """The jet run on the card in float32 and in float64
+    (tl639_rows.as_double), each
+    to its first non-finite step, and each against the committed CPU rows
+    and against the other (tl639_rows.parted at chip_smoke's
+    TL639_ROW_TOL): the per-step row differences and the first step past
+    the tolerance."""
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    with open(tl639_rows.REF) as f:
+        ref = json.load(f)["rows"]
+    runs = {}
+    for name, core in (("card32", dev), ("card64", dev64),
+                       ("card32_plain", dev)):
+        start = moved(tl639.start(dev, 60.0), "cuda",
+                      torch.float64 if core is dev64 else None)
+        with (plain_sums() if name == "card32_plain"
+              else contextlib.nullcontext()):
+            runs[name] = tl639_rows.rows(core, 40, start=start)
+        del start
+        torch.cuda.empty_cache()
+    out = dict(rows=runs)
+    for a, b in (("cpu", "card64"), ("cpu", "card32"),
+                 ("card64", "card32"), ("cpu", "card32_plain"),
+                 ("card64", "card32_plain")):
+        diffs, first = tl639_rows.parted(ref if a == "cpu" else runs[a],
+                                         runs[b], cs.TL639_ROW_TOL)
+        out["%s_vs_%s" % (b, a)] = dict(diffs=diffs, parted=first)
+        cs.log("tl639cpu: rows %s against %s: row difference by step %s; "
+               "past %g from step %s" % (b, a, " ".join(
+                   "%.3g" % d for d in diffs), cs.TL639_ROW_TOL, first))
+    out["first_nonfinite"] = dict(cpu=next(
+        (r["step"] for r in ref if not r["finite"]), None), **{
+        k: next((r["step"] for r in v if not r["finite"]), None)
+        for k, v in runs.items()})
+    cs.log("tl639cpu: first non-finite steps %s; max|u| by step, float64 "
+           "%s on %s" % (out["first_nonfinite"], " ".join(
+               "%.4g" % r["umax"] for r in runs["card64"]), card))
+    return out
+
+
+def tl639_onestep(card, dev, dev64, cpu, state, n):
+    """One leapfrog step from the card's state after step n on the card
+    (float32), on the card in float64 and on the CPU (float32): the grid
+    view's u, v, T and lnps of each float32 step against the float64 one
+    and against each other, the card's step from the state moved by one
+    rounding against its own; then every SL stage (semilag.SL_STAGES),
+    each from the CPU's inputs, on the card in float32 and in float64,
+    and the CPU's and the card's float32 stages against the float64
+    ones."""
+    st_cpu = {}
+    l_cpu = step_kept(cpu, moved(state, "cpu"), keep=st_cpu)
+    l_dev = dev.step(state)
+    l_64 = dev64.step(moved(state, "cuda", torch.float64))
+    out = dict(from_step=n, step={
+        "card32_vs_card64": grid_diffs(l_dev, l_64),
+        "cpu32_vs_card64": grid_diffs(l_cpu, l_64),
+        "card32_vs_cpu32": grid_diffs(l_dev, l_cpu),
+        "card32_ulp_vs_card32": grid_diffs(dev.step(ulp_perturbed(state)),
+                                           l_dev)})
+    del l_cpu, l_dev, l_64
+    torch.cuda.empty_cache()
+    cs.log("tl639cpu: one step from the card's state after step %d, "
+           "against the card's float64 step (max err / max, level): card "
+           "%s; CPU %s; card against CPU %s; the card's step from the "
+           "state moved by one rounding against its own %s"
+           % (n, out["step"]["card32_vs_card64"],
+              out["step"]["cpu32_vs_card64"],
+              out["step"]["card32_vs_cpu32"],
+              out["step"]["card32_ulp_vs_card32"]))
+    st_64 = OnDevice("cpu")
+    step_kept(dev64, moved(state, "cuda", torch.float64), keep=st_64,
+              given=Given(st_cpu, "cuda", torch.float64))
+    torch.cuda.empty_cache()
+    card = Compared(dict(cpu32=st_cpu, card64=st_64))
+    step_kept(dev, state, keep=card, given=Given(st_cpu, "cuda"))
+    torch.cuda.empty_cache()
+    out["stages"] = dict(card32_vs_cpu32=card.diffs["cpu32"],
+                         card32_vs_card64=card.diffs["card64"],
+                         cpu32_vs_card64=tree_diffs(st_cpu, st_64, "",
+                                                    DIFFS_ON))
+    del st_cpu, st_64
+    for k in sorted(out["stages"]["card32_vs_card64"]):
+        cs.log("tl639cpu: from step %d, stage %s from the CPU's inputs, "
+               "against float64: card %.3g, CPU %.3g; card against CPU "
+               "%.3g" % (n, k, out["stages"]["card32_vs_card64"][k][0],
+                         out["stages"]["cpu32_vs_card64"][k][0],
+                         out["stages"]["card32_vs_cpu32"][k][0]))
+    return out
+
+
+def phase_tl639_cpu(card, parts=("float64", "steps")):
+    """Phase 9: the TL639 jet run's GCM on the card (float32), on the card
+    in float64 (tl639_rows.as_double) and on the port's CPU (float32).
+    parts: "float64" (tl639_float64), "steps" (tl639_onestep from the
+    card's states after TL639_FROM_STEPS) and "sums" (tl639_sums)."""
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    dev = tl639.build(device="cuda")
+    out = dict(card=card)
+    if "sums" in parts:
+        out["sums"] = tl639_sums(card, dev)
+    if not {"float64", "steps"} & set(parts):
+        return out
+    dev64 = tl639_rows.as_double(tl639.build(device="cuda"))
+    if "float64" in parts:
+        out["float64"] = tl639_float64(card, dev, dev64)
+    if "steps" in parts:
+        cpu = tl639.build(device="cpu")
+        out.update(threads=torch.get_num_threads(), steps=[])
+        state = dev.step(tl639.start(dev, 60.0), first=True)
+        for n in range(max(TL639_FROM_STEPS) + 1):
+            if n:
+                state = dev.step(tl639.strip(state))
+            if n in TL639_FROM_STEPS:
+                state = tl639.strip(state)
+                out["steps"].append(tl639_onestep(card, dev, dev64, cpu,
+                                                  state, n))
     return out
 
 
@@ -496,9 +767,9 @@ def phase_sass(card):
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
     if mode not in ("all", "path", "stage", "split", "t159", "tl639",
-                    "sass"):
+                    "sass", "tl639cpu"):
         raise SystemExit("usage: chip_profile.py [path | stage | split | "
-                         "t159 | tl639 | sass]")
+                         "t159 | tl639 | sass | tl639cpu]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -516,6 +787,9 @@ def main():
         out.update(tl639=phase_tl639(card))
     if mode == "sass":
         out.update(sass=phase_sass(card))
+    if mode == "tl639cpu":
+        out.update(tl639cpu=phase_tl639_cpu(card, sys.argv[2:]
+                                            or ("float64", "steps")))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

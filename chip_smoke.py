@@ -77,8 +77,9 @@ Phases (any failure raises and exits non-zero):
   9. the parity harness at full width (verify/parity.py, real mode:
      T21/L19 + 2 x 64x64x160, dt 600 s, dt_les 5 s) on the card through
      the stage kernel, held by parity.compare against the committed CPU
-     run of the port and reported against the JAX package's (verify/ref/,
-     PARITY_REFS); the stage kernel launches 3 x the substeps; writes
+     run of the port and reported against the JAX package's and the
+     port's CPU run from JAX's start (verify/ref/, PARITY_REFS); the
+     stage kernel launches 3 x the substeps; writes
      chip_smoke_parity.json, parity_real_h100.npz and the report of
      verify/parity_report.py (PARITY_H100.md) into OUT_DIR;
   10. the chunked step: one coupled step of the main path's case with
@@ -173,7 +174,13 @@ Phases (any failure raises and exits non-zero):
   19. BASELINE config 5's GCM (phase_tl639): runtime/tl639.py at its
      defaults (TL639/L60, dt 720 s, +-60 m/s jets, split phases) for
      TL639_STEPS steps, which must pass its PASS rule (the full 600-step
-     run does not: it goes non-finite by step ~19);
+     run does not: it goes non-finite); the card's analysis of the run's
+     Euler state against float64, no further from it than the CPU's
+     (tl639_analysis, spharm.card_sums); then the same run one row a step
+     (verify/tl639_rows.py) to its first non-finite step, held against
+     the port's CPU rows (verify/ref/tl639_rows_cpu.json) within
+     TL639_ROW_TOL through TL639_AGREE_STEP, with both runs' first
+     non-finite steps reported; writes tl639_rows_card.json;
   20. BASELINE config 4 (phase_t255): runtime/t255bench.py at full width,
      T255/L19 SL + 4 x 128x128x160 (TKE), batched, a warm step and a
      timed one: the stage kernel launches 3 x the substeps of the batched
@@ -969,9 +976,14 @@ def phase_seed(card):
 # from other draws (jax.random for the GCM's vorticity perturbation and
 # the LES noise) and leaves PROFILE_TOL on the CPU already (the GCM's
 # winds differ by up to 43 m/s at the start: PARITY_H100.md), so the
-# card's run is only reported against it
+# card's run is only reported against it. The port's CPU run from JAX's
+# whole start (tests/parity_from_jax_gcm.py --les-from-jax) stays inside
+# PROFILE_TOL of JAX's, prof_U within 3.2e-4 (PARITY_FROM_JAX.md); it
+# starts from JAX's draws, not the card's, so it too is reported only
 PARITY_REFS = (("torch", "parity_real_torch_cpu.npz", True),
-               ("jax", "parity_real_jax_cpu.npz", False))
+               ("jax", "parity_real_jax_cpu.npz", False),
+               ("torch_from_jax", "parity_real_torch_cpu_from_jax.npz",
+                False))
 
 
 def phase_parity(card):
@@ -3584,6 +3596,19 @@ def phase_columns(card):
 # model days (Held-Suarez with a day of spin-up, the moist run)
 GCM_SCALE, GCM_SCALE_REPEATS = (159, 255, 639), 3
 TL639_STEPS = 10
+# the card's steps of the same jet run, one row a step (verify/
+# tl639_rows.py), held against the port's CPU rows
+# (verify/ref/tl639_rows_cpu.json): every row through TL639_AGREE_STEP
+# within TL639_ROW_TOL of the CPU's (max|u| and max|v| overall and on
+# each level, Tmin, Tmax and the range of lnps, each as a fraction of
+# the CPU's). Measured on an H100 80GB HBM3 at 700 W (chip_profile.py
+# tl639cpu float64): 3.3e-4 to 6.6e-4 through step 6, 1.77e-3 at step 7,
+# 5.1e-3 at step 8; without spharm.card_sums 3.05e-3 at step 1. Float32
+# on either device parts from the same run in float64 by step 6, and the
+# vertical Courant number passes 1 at step 12: the card goes non-finite
+# at step 22, the CPU at step 23, float64 at step 36 (reported, not held)
+TL639_ROW_TOL = 2e-3
+TL639_AGREE_STEP = 6
 T255_ARGV = ["--n", "4", "--les_schedule", "batched", "--steps", "1"]
 CLIMATE_DAYS = 2
 
@@ -3621,11 +3646,77 @@ def phase_tl639(card):
         raise AssertionError("tl639: %s" % line)
     log("tl639: T%d/L%d, dt %g s, %d steps PASS: %.3f s a step, core built "
         "in %.1f s, peak %.2f GiB on %s; the full 600-step run FAILS, "
-        "non-finite by step ~19 (verify/TL639_H100.md, chip_profile.py "
+        "non-finite by step ~22 (verify/TL639_H100.md, chip_profile.py "
         "tl639)"
         % (line["trunc"], line["nlev"], line["dt_s"], line["steps"],
            line["step_s"], line["init_s"], line["peak_gib"], card))
+    line["rows_vs_cpu"] = tl639_rows_vs_cpu(card)
     return line
+
+
+def tl639_rows_vs_cpu(card):
+    """The jet run on the card one row a step to its first non-finite
+    step, held against the committed CPU rows (TL639_ROW_TOL through
+    TL639_AGREE_STEP); both runs' first non-finite steps are reported.
+    Writes chiprun_out/tl639_rows_card.json; returns the comparison."""
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    with open(tl639_rows.REF) as f:
+        ref = json.load(f)
+    core = tl639.build(ref["trunc"], ref["nlev"], ref["dt"], device="cuda")
+    analysis = tl639_analysis(card, core, ref["jet"])
+    rows = tl639_rows.rows(core, len(ref["rows"]), ref["jet"])
+    del core
+    diffs, parted = tl639_rows.parted(ref["rows"], rows, TL639_ROW_TOL)
+    first = lambda rs: next((r["step"] for r in rs if not r["finite"]),
+                            None)
+    res = dict(card=card, tol=TL639_ROW_TOL, agree_step=TL639_AGREE_STEP,
+               parted=parted, diffs=diffs, first_nonfinite=first(rows),
+               cpu_first_nonfinite=first(ref["rows"]), analysis=analysis,
+               rows=rows)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "tl639_rows_card.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    log("tl639 rows: the card's jet run against the CPU's "
+        "(verify/ref/tl639_rows_cpu.json), row difference by step: %s; "
+        "parted past %.0e at step %s (must hold through step %d); first "
+        "non-finite step %s on the card, %s on the CPU; %.3f s a step on %s"
+        % (" ".join("%d:%.2g" % (r["step"], d)
+                    for r, d in zip(rows, diffs)),
+           TL639_ROW_TOL, parted, TL639_AGREE_STEP, res["first_nonfinite"],
+           res["cpu_first_nonfinite"],
+           float(np.mean([r["wall_s"] for r in rows])), card))
+    if len(rows) < TL639_AGREE_STEP or (parted is not None
+                                        and parted <= TL639_AGREE_STEP):
+        raise AssertionError("tl639 rows: %d rows; the card parts from the "
+                             "CPU at step %s, by step %d" % (
+                                 len(rows), parted, TL639_AGREE_STEP))
+    return {k: v for k, v in res.items() if k != "rows"}
+
+
+def tl639_analysis(card, core, jet):
+    """The card's TL639 analysis of the jet run's Euler state (vorticity
+    and divergence from u and v, and T) against float64, beside the
+    CPU's of the same float32 fields (tl639_rows.analysis_vs_float64):
+    the card's error must not pass the CPU's. Without spharm.card_sums
+    the card's solve lay 3.8x to 11x further from float64 than the
+    CPU's (verify/TL639_H100.md)."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    g = core.step(tl639.start(core, jet), first=True).grid
+    cpu = spharm.SpectralTransform(core.cfg.trunc, device="cpu")
+    res = tl639_rows.analysis_vs_float64(core.sht, cpu, g.u, g.v, g.T)
+    del g, cpu
+    torch.cuda.empty_cache()
+    log("tl639 analysis against float64 (max err / max), card / CPU: %s "
+        "on %s" % ("; ".join("%s %.3g / %.3g" % (k, r["device"], r["cpu"])
+                             for k, r in res.items()), card))
+    bad = [k for k, r in res.items() if not r["device"] <= r["cpu"]]
+    if bad:
+        raise AssertionError("tl639 analysis: the card's %s further from "
+                             "float64 than the CPU's: %s" % (bad, res))
+    return res
 
 
 def phase_t255(card):

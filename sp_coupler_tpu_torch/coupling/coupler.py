@@ -194,7 +194,7 @@ class CoupledStepFn:
         core = self.core
         dt = core.cfg.dt
         if not skip_half:
-            gcm_state = core._phase_a_body(gcm_state, first)
+            gcm_state = core.phase_a(gcm_state, first)
             gcm_state = core.phase_cloud(gcm_state)
 
         prof = core.column_profiles(gcm_state, self.cols)

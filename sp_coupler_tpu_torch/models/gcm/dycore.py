@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sp_coupler_tpu_torch import constants as c, default_device
+from . import spharm
 
 
 class SpectralState(NamedTuple):
@@ -195,7 +196,7 @@ def semi_implicit_step(sht, vc, now: SpectralState, prev: SpectralState,
     corr = prev.div - 2.0 * now.div
     Acorr = (h * h) * lam[None] * _lev(GW, corr)
     x = rhs + Acorr
-    div_new = torch.einsum("nlj,jmnc->lmnc", Minv, x)
+    div_new = spharm.card_sums("nlj,jmnc->lmnc", Minv, x)
 
     dDiv = div_new + prev.div - 2.0 * now.div
     T_new = T_star + h * _lev(W, dDiv)

@@ -74,9 +74,9 @@ class GCMConfig:
     sl_coriolis: str = "auto"    # "midpoint" | "trapezoid" | "auto"
                                  # (midpoint unless the polar f tau
                                  # approaches its bound; semilag.sl_step)
-    split_phases: bool = False   # phase A's dynamics, the SL stages and
-                                 # the physics as separate calls, each
-                                 # intermediate dropped when consumed
+    split_phases: bool = False   # the SL window interpolation in level
+                                 # chunks (k_chunk); sl_step drops each
+                                 # stage's intermediates in either mode
     phys: physics.PhysicsParams = physics.PhysicsParams()
 
 
@@ -187,41 +187,16 @@ class GCMCore:
 
     # ---- phases ------------------------------------------------------------
 
-    def phase_a(self, state: GCMState, first: bool = False) -> GCMState:
-        """Phase A. Under split_phases the SL dynamics runs as its stages
-        in the JAX package's order (mid-grid, mid-terms, trajectories,
-        departure stack, departure interpolation, arrivals, solve), each
-        intermediate dropped as soon as the next stage has consumed it:
-        the caching allocator then reuses its memory, in stream order, so
-        no stage's working set outlives it."""
-        if not (self.cfg.split_phases and self.slg is not None):
-            return self._phase_a_body(state, first)
-        cfg, sht, vc, slg = self.cfg, self.sht, self.vc, self.slg
-        whole = sht.whole       # the source fields span the whole grid
-        dt2 = cfg.dt if first else 2.0 * cfg.dt
-        mg = semilag.sl_mid_grid(whole, vc, slg, state.now)
-        mid = semilag.sl_mid_terms(whole, vc, slg, state.now, mg,
-                                   coriolis=self.sl_cor)
-        del mg
-        traj = semilag.sl_trajectories(whole, vc, slg, state.now, dt2)
-        stack = semilag.sl_dep_stack(whole, vc, slg, state.now, state.prev,
-                                     dt2, decenter=cfg.sl_decenter,
-                                     coriolis=self.sl_cor)
-        angm = traj["angm"]
-        dep_vals, pi_dep = semilag.sl_interp_dep(
-            slg, stack["dep"], stack["pi_comb"], *traj["angd"])
-        del stack, traj
-        arr = semilag.sl_arrivals(slg, mid["mid"], mid["N_pi"], *angm,
-                                  dep_vals, pi_dep, dt2,
-                                  coriolis=self.sl_cor)
-        del mid, angm, dep_vals, pi_dep
-        new = semilag.sl_solve(sht, vc, *arr, dt2, decenter=cfg.sl_decenter)
-        del arr
-        new = dycore.hyperdiffuse(sht, new, cfg.dt, cfg.diffusion_tau,
-                                  damp_lnps=True)
-        return self._phase_a_phys(state, new)
+    def phase_a(self, state: GCMState, first: bool = False, keep=None,
+                given=None) -> GCMState:
+        """Dynamics step + pre-cloud physics (radiation, vdiff). ``first``
+        selects the Euler start (dt window) over the leapfrog (2 dt).
+        keep and given reach the SL stages (semilag.sl_step)."""
+        return self._phase_a_phys(state, self._phase_a_dyn(state, first,
+                                                           keep, given))
 
-    def _phase_a_dyn(self, state: GCMState, first: bool):
+    def _phase_a_dyn(self, state: GCMState, first: bool, keep=None,
+                     given=None):
         """Dynamics half of phase A: the provisional spectral state over
         the leapfrog window (dt on the Euler start), hyperdiffused."""
         cfg, sht, vc = self.cfg, self.sht, self.vc
@@ -229,18 +204,14 @@ class GCMCore:
         if self.slg is not None:
             new = semilag.sl_step(sht, vc, self.slg, state.now, state.prev,
                                   dt2, decenter=cfg.sl_decenter,
-                                  coriolis=self.sl_cor)
+                                  coriolis=self.sl_cor, keep=keep,
+                                  given=given)
         else:
             N, _ = dycore.tendencies(sht, vc, state.now, self.fcor)
             new = dycore.semi_implicit_step(sht, vc, state.now, state.prev,
                                             N, dt2)
         return dycore.hyperdiffuse(sht, new, cfg.dt, cfg.diffusion_tau,
                                    damp_lnps=self.slg is not None)
-
-    def _phase_a_body(self, state: GCMState, first: bool = False) -> GCMState:
-        """Dynamics step + pre-cloud physics (radiation, vdiff). ``first``
-        selects the Euler start (dt window) over the leapfrog (2 dt)."""
-        return self._phase_a_phys(state, self._phase_a_dyn(state, first))
 
     def _phase_a_phys(self, state: GCMState, new) -> GCMState:
         """Physics half of phase A on the provisional spectral state."""

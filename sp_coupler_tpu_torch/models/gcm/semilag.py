@@ -25,9 +25,8 @@ taps and weights.
 The pipeline functions (``sl_mid_grid`` -> ``sl_mid_terms`` ->
 ``sl_trajectories`` -> ``sl_dep_stack`` -> ``sl_interp_dep`` ->
 ``sl_arrivals`` -> ``sl_solve``; ``sl_finish`` is the last two) are the
-stages of ``sl_step``; the core's ``split_phases`` mode calls them one by
-one and drops each intermediate as soon as the next stage has consumed
-it.
+stages of ``sl_step``, which calls them one by one and drops each
+intermediate as soon as the next stage has consumed it.
 
 On latitude bands (--gcmprocs, the transform's ``bands``) the source
 fields the trajectories and interpolations read (``sl_mid_grid``,
@@ -43,7 +42,7 @@ import numpy as np
 import torch
 
 from sp_coupler_tpu_torch import constants as c
-from . import dycore
+from . import dycore, spharm
 
 
 def _cross(a, b):
@@ -649,7 +648,7 @@ def sl_solve(sht, vc, u_t, v_t, T_t, q_t, ql_t, qi_t, a_t, pi_t, tau,
     lam_op = (-sht.laplacian)[..., None]                 # +n(n+1)/a^2
     rhs = D_tilde + ha * lam_op[None] * (
         dycore._lev(vc.G, T_tilde) + c.rd * vc.tref * pi_tilde[None])
-    div_new = torch.einsum("nlj,jmnc->lmnc", Minv, rhs)
+    div_new = spharm.card_sums("nlj,jmnc->lmnc", Minv, rhs)
     T_new = T_tilde + ha * dycore._lev(vc.W, div_new)
     pi_new = pi_tilde - ha * _einsum_lev(vc.b, div_new)
     mask = sht.mask[..., None]
@@ -670,7 +669,7 @@ def sl_finish(sht, vc, slg: SLGrid, mid_fields, N_pi, lam_m, phi_m,
 
 
 def sl_step(sht, vc, slg: SLGrid, now, prev, tau, decenter=0.1,
-            coriolis="midpoint"):
+            coriolis="midpoint", keep=None, given=None):
     """One 3TL semi-Lagrangian semi-implicit step: prev -> new over tau.
 
     Replaces dycore.tendencies + semi_implicit_step when
@@ -683,14 +682,41 @@ def sl_step(sht, vc, slg: SLGrid, now, prev, tau, decenter=0.1,
     ``coriolis``: "midpoint" evaluates -f r x V with the explicit terms,
     centered in time (stable for f tau < 2); "trapezoid" splits the
     rotation into an explicit departure half and an implicit arrival half
-    (stable for any f dt, but it damps synoptic eddies)."""
+    (stable for any f dt, but it damps synoptic eddies).
+
+    The stages (SL_STAGES) run in the JAX package's split order, each
+    intermediate dropped as soon as the next stage has consumed it: the
+    caching allocator then reuses its memory, in stream order, so no
+    stage's working set outlives it. ``keep``: a mapping that receives
+    each stage's output under its name. ``given``: another run's stages
+    by name; each stage then takes its inputs from given, so that its
+    output shows its own difference from that run's."""
     whole = sht.whole
-    prep = sl_dep_stack(whole, vc, slg, now, prev, tau, decenter, coriolis)
-    prep.update(sl_trajectories(whole, vc, slg, now, tau))
-    prep.update(sl_mid_terms(whole, vc, slg, now,
-                             sl_mid_grid(whole, vc, slg, now), coriolis))
-    dep_vals, pi_dep = sl_interp_dep(slg, prep["dep"], prep["pi_comb"],
-                                     *prep["angd"])
-    return sl_finish(sht, vc, slg, prep["mid"], prep["N_pi"],
-                     *prep["angm"], dep_vals, pi_dep, tau, decenter,
-                     coriolis)
+    st = {}
+
+    def put(name, value):
+        st[name] = value
+        if keep is not None:
+            keep[name] = value
+
+    src = st if given is None else given
+    put("mg", sl_mid_grid(whole, vc, slg, now))
+    put("mid", sl_mid_terms(whole, vc, slg, now, src["mg"], coriolis))
+    put("traj", sl_trajectories(whole, vc, slg, now, tau))
+    put("stack", sl_dep_stack(whole, vc, slg, now, prev, tau, decenter,
+                              coriolis))
+    st.pop("mg")
+    put("dep", sl_interp_dep(slg, src["stack"]["dep"],
+                             src["stack"]["pi_comb"], *src["traj"]["angd"]))
+    st.pop("stack")
+    put("arr", sl_arrivals(slg, src["mid"]["mid"], src["mid"]["N_pi"],
+                           *src["traj"]["angm"], *src["dep"], tau,
+                           coriolis))
+    st.pop("mid"), st.pop("traj"), st.pop("dep")
+    put("new", sl_solve(sht, vc, *src["arr"], tau, decenter=decenter))
+    st.pop("arr")
+    return st.pop("new")
+
+
+# the stages of sl_step, in order
+SL_STAGES = ("mg", "mid", "traj", "stack", "dep", "arr", "new")

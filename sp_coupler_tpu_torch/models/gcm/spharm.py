@@ -19,7 +19,8 @@ transform over the same tables (itself without bands).
 Conventions: packed-real spectral coefficients [..., M, N, 2] with M = T+1,
 N = T+2 (the n = T+1 row is recurrence workspace); grid arrays
 [..., nlat, nlon] with latitude running north -> south. Products run in
-full float32 (TF32 off, as the JAX package's HIGHEST precision).
+full float32 (TF32 off, as the JAX package's HIGHEST precision); on the
+card the analysis sums in float64 (``card_sums``).
 """
 
 import copy
@@ -51,6 +52,21 @@ def gaussian_latitudes(nlat):
     mu, w = np.polynomial.legendre.leggauss(nlat)
     order = np.argsort(-mu)
     return mu[order], w[order]
+
+
+def card_sums(eq, x, table):
+    """torch.einsum(eq, x, table), where on the card a float32 contraction
+    is summed in float64 from the same float32 values and rounded back
+    once. The card's float32 GEMMs sum the analysis (the longitude sums
+    over 1280 points at TL639, the Legendre sums) and the semi-implicit
+    product less accurately than the CPU's: from the same inputs the
+    card's TL639 solve lay 3.8x (vorticity) to 11x (divergence at n ~
+    614) further from float64 than the CPU's, and its jet run went
+    non-finite at step 19 against the CPU's 23; with these sums, at step
+    22 (verify/TL639_H100.md)."""
+    if x.is_cuda and x.dtype == torch.float32 and table.dtype == x.dtype:
+        return torch.einsum(eq, x.double(), table.double()).float()
+    return torch.einsum(eq, x, table)
 
 
 @functools.lru_cache(maxsize=8)
@@ -208,7 +224,7 @@ class SpectralTransform:
 
     def _fft(self, f):
         """[..., nlat, nlon] -> packed zonal spectra [..., nlat, M, 2]."""
-        return torch.einsum("...i,imc->...mc", f, self.Ffwd)
+        return card_sums("...i,imc->...mc", f, self.Ffwd)
 
     def _ifft(self, fm):
         """packed zonal spectra [..., nlat, M, 2] -> grid [..., nlat, nlon]."""
@@ -265,8 +281,8 @@ class SpectralTransform:
             fmw_e, fmw_o = self._fold(fmw, 1.0), self._fold(fmw, -1.0)
         else:
             fmw_e = fmw_o = fmw
-        return (torch.einsum("...jmc,jmk->...mkc", fmw_e, self.Pe),
-                torch.einsum("...jmc,jmk->...mkc", fmw_o, self.Po))
+        return (card_sums("...jmc,jmk->...mkc", fmw_e, self.Pe),
+                card_sums("...jmc,jmk->...mkc", fmw_o, self.Po))
 
     def _ana_many(self, *fmws):
         """_ana of each of fmws; under bands one all_reduce adds the ranks'

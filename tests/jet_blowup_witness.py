@@ -13,16 +13,29 @@ state the step starts from (2 dt x mean |eta-dot| over the layer, as
 T between the two, as a fraction of JAX's max. It imports both
 packages, as the tests do, and runs on the CPU.
 
+Mode ``onestep`` takes one state the port's jet run saved
+(``python -m sp_coupler_tpu_torch.verify.tl639_rows --save K
+--save-dir DIR``), steps JAX's core once from it, frees that core, then
+steps the port's once from it, and prints the largest differences of u,
+T and lnps as fractions of JAX's max, each with its level, and the peak
+RSS after each package's step. One process a state keeps one package's
+core in memory at a time.
+
 Usage (at T85/L60 both packages go non-finite at step 13 at dt 2160 s,
 ~2 min on 4 cores, and at step 52 at dt 1440 s, ~6 min):
     JAX_PLATFORMS=cpu python tests/jet_blowup_witness.py \\
         [TRUNC NLEV DT STEPS [JET [SPLIT]]]   (default 85 60 2160 14 60;
                                             SPLIT 1 or 0)
+    JAX_PLATFORMS=cpu python tests/jet_blowup_witness.py onestep \\
+        DIR/tl639_state_K.pt [SPLIT]   (SPLIT from the truncation, as
+                                       above)
 """
 
+import gc
 import importlib.util
 import json
 import os
+import resource
 import sys
 
 import numpy as np
@@ -31,15 +44,99 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+def _peak_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _max_diff(got, ref):
+    """tl639_rows.max_diff's fraction and the level (first axis of a 3-D
+    field; None for 2-D) where the difference is largest."""
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    frac, idx = tl639_rows.max_diff(got, ref)
+    return frac, idx[0] if len(idx) == 3 else None
+
+
+def onestep(path, split=None):
+    """One step of each package from the port's state saved at path
+    (``tl639_rows.save_state``): JAX's first (its core then freed), then
+    the port's. Returns a dict: the state's step and size, the largest
+    differences (du, dT, dlnps as fractions of JAX's max, with levels),
+    both packages' max|u| and finiteness, and the peak RSS (GiB) after
+    each step."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+    from sp_coupler_tpu.models.gcm import dycore as jdycore
+    from sp_coupler_tpu.models.gcm import model as jmodel
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+
+    saved = torch.load(path)
+    trunc, nlev, dt = saved["trunc"], saved["nlev"], saved["dt"]
+    del saved
+    if split is None:
+        split = trunc >= 400
+    step_k = int(os.path.basename(path).rsplit("_", 1)[1].split(".")[0])
+    tc = tl639.build(trunc, nlev, dt, split_phases=split, device="cpu")
+    ts = tl639_rows.load_state(tc, path)
+    spec = lambda s: jdycore.SpectralState(**{
+        k: jnp.asarray(v.numpy()) for k, v in s._asdict().items()})
+    # every leaf its own buffer: JAX's split phases donate the state
+    js = jmodel.GCMState(now=spec(ts.now), prev=spec(ts.prev),
+                         new=spec(ts.now), grid=None, sfc=None,
+                         sp_tend={k: jnp.zeros((), jnp.float32)
+                                  for k in jmodel._zero_sp_tend()},
+                         vdiff_mask=jnp.asarray(ts.vdiff_mask.numpy()),
+                         time=jnp.asarray(ts.time.numpy()))
+    del ts, tc
+    gc.collect()
+    jc = jmodel.GCMCore(jmodel.GCMConfig(
+        trunc=trunc, nlev=nlev, dt=dt, hybrid=True, advection="sl",
+        split_phases=split))
+    js = jc.step(js)
+    ref = {k: np.array(getattr(js.grid, k)) for k in ("u", "T", "lnps")}
+    jax_peak = _peak_gib()
+    del js, jc
+    jax.clear_caches()
+    gc.collect()
+
+    tc = tl639.build(trunc, nlev, dt, split_phases=split, device="cpu")
+    ts = tc.step(tl639_rows.load_state(tc, path))
+    got = {k: getattr(ts.grid, k).numpy() for k in ("u", "T", "lnps")}
+    row = dict(step=step_k + 1, from_step=step_k, trunc=trunc, nlev=nlev,
+               dt=dt, split_phases=split, k_chunk=tc.slg.k_chunk,
+               jax_peak_rss_gib=jax_peak, peak_rss_gib=_peak_gib())
+    for k in ("u", "T", "lnps"):
+        row["d" + k], row["d%s_level" % k] = _max_diff(got[k], ref[k])
+    for name, f in (("jax", ref), ("port", got)):
+        row[name] = dict(umax=float(np.nanmax(np.abs(f["u"]))),
+                         finite=bool(all(np.isfinite(f[k]).all()
+                                         for k in f)))
+    print("from step %d (T%d/L%d, split_phases %s): max|du| %.3g (level "
+          "%s), max|dT| %.3g (level %s), max|dlnps| %.3g of JAX's max; "
+          "max|u| JAX %.6g, port %.6g; peak RSS %.2f GiB after JAX's step, "
+          "%.2f GiB after the port's"
+          % (step_k, trunc, nlev, split, row["du"], row["du_level"],
+             row["dT"], row["dT_level"], row["dlnps"], row["jax"]["umax"],
+             row["port"]["umax"], jax_peak, row["peak_rss_gib"]),
+          flush=True)
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main(argv):
+    if argv and argv[0] == "onestep":
+        return onestep(argv[1], *([argv[2] == "1"] if len(argv) > 2
+                                  else []))
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import torch
     from sp_coupler_tpu.models.gcm import model as jmodel
     from sp_coupler_tpu_torch import interop
-    from sp_coupler_tpu_torch.models.gcm import semilag
     from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
 
     trunc, nlev, dt, steps = (int(argv[0]), int(argv[1]), float(argv[2]),
                               int(argv[3])) if argv else (85, 60, 2160.0, 14)
@@ -65,11 +162,7 @@ def main(argv):
           % (trunc, nlev, dt, jet, tc.cfg.split_phases), flush=True)
     rows = []
     for i in range(steps):
-        m = semilag.sl_mid_grid(tc.sht.whole, tc.vc, tc.slg, ts.now)
-        sd = m["sdot"].abs()
-        cz = float((dt * (sd[1:] + sd[:-1]) / m["dpt_full"])
-                   .nan_to_num(0.0).max())
-        del m, sd
+        cz = tl639_rows.courant(tc, ts, dt)[0]
         js = jc.step(strip(js))
         ts = tc.step(tl639.strip(ts))
         row = dict(step=i + 1, courant_z=cz)
@@ -84,11 +177,8 @@ def main(argv):
                              finite=ok)
             finite &= ok
         for k in ("u", "T"):
-            ref = np.asarray(getattr(js.grid, k), np.float64)
-            got = getattr(ts.grid, k).numpy().astype(np.float64)
-            with np.errstate(invalid="ignore", over="ignore"):
-                row["d" + k] = float(np.nanmax(np.abs(got - ref))
-                                     / np.nanmax(np.abs(ref)))
+            row["d" + k] = _max_diff(getattr(ts.grid, k),
+                                     np.asarray(getattr(js.grid, k)))[0]
         rows.append(row)
         print("step %2d  max|u| JAX %.6g (level %d), port %.6g (level %d); "
               "vertical Courant %.3f; max|du| %.3g, max|dT| %.3g of JAX's max"

@@ -69,6 +69,7 @@ MODULES = (
     "sp_coupler_tpu_torch.runtime.t159bench",
     "sp_coupler_tpu_torch.runtime.schedulebench",
     "sp_coupler_tpu_torch.runtime.batchbench",
+    "sp_coupler_tpu_torch.verify.tl639_rows",
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
