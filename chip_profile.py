@@ -57,6 +57,15 @@ the scalar and momentum kernels):
      (semilag.SL_STAGES), each from the CPU's inputs, on the card in
      float32 and in float64, the CPU's and the card's float32 stages
      against the float64 ones.
+  10. (mode gemms only) the GCM's float32 products beyond TL639: at
+     T159/L60 and T255/L60 (GEMM_TRUNCS) the SL core's analysis of the
+     jet's Euler state, with and without card_sums, and its step and
+     every SL stage from the card's states after GEMM_FROM_STEPS (phase
+     9's "sums" and "steps" at that truncation), and the Eulerian core's
+     synthesis, explicit tendencies, semi-implicit solve and whole step
+     (euler_gemms), each on the card and on the CPU in float32 against
+     float64 on the card; every stage whose card error exceeds
+     GEMM_RATIO x the CPU's is listed.
   6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
      SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
      step, one first=False coupled step with the fleet batched and one
@@ -77,6 +86,7 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_profile.py tl639cpu [float64] [steps] [sums]
                                      (phase 9 only; not part of "all";
                                       float64 and steps by default)
+     python3 chip_profile.py gemms   (phase 10 only; not part of "all")
 """
 
 import contextlib
@@ -689,34 +699,156 @@ def tl639_onestep(card, dev, dev64, cpu, state, n):
     return out
 
 
-def phase_tl639_cpu(card, parts=("float64", "steps")):
+def phase_tl639_cpu(card, parts=("float64", "steps"), trunc=639, nlev=60,
+                    dt=720.0, from_steps=TL639_FROM_STEPS):
     """Phase 9: the TL639 jet run's GCM on the card (float32), on the card
     in float64 (tl639_rows.as_double) and on the port's CPU (float32).
     parts: "float64" (tl639_float64), "steps" (tl639_onestep from the
-    card's states after TL639_FROM_STEPS) and "sums" (tl639_sums)."""
+    card's states after from_steps) and "sums" (tl639_sums). trunc, nlev
+    and dt set the core (phase 10 runs it at T159 and T255)."""
     from sp_coupler_tpu_torch.runtime import tl639
     from sp_coupler_tpu_torch.verify import tl639_rows
-    dev = tl639.build(device="cuda")
-    out = dict(card=card)
+    dev = tl639.build(trunc, nlev, dt, device="cuda")
+    out = dict(card=card, trunc=trunc, nlev=nlev, dt=dt)
     if "sums" in parts:
         out["sums"] = tl639_sums(card, dev)
     if not {"float64", "steps"} & set(parts):
         return out
-    dev64 = tl639_rows.as_double(tl639.build(device="cuda"))
+    dev64 = tl639_rows.as_double(tl639.build(trunc, nlev, dt, device="cuda"))
     if "float64" in parts:
         out["float64"] = tl639_float64(card, dev, dev64)
     if "steps" in parts:
-        cpu = tl639.build(device="cpu")
+        cpu = tl639.build(trunc, nlev, dt, device="cpu")
         out.update(threads=torch.get_num_threads(), steps=[])
         state = dev.step(tl639.start(dev, 60.0), first=True)
-        for n in range(max(TL639_FROM_STEPS) + 1):
+        for n in range(max(from_steps) + 1):
             if n:
                 state = dev.step(tl639.strip(state))
-            if n in TL639_FROM_STEPS:
+            if n in from_steps:
                 state = tl639.strip(state)
                 out["steps"].append(tl639_onestep(card, dev, dev64, cpu,
                                                   state, n))
     return out
+
+
+# phase 10: the truncations, levels and steps (s) of the GCM's float32
+# products held against float64 beyond TL639: gcmscale's L60 rows at
+# T159 and T255, the SL core at their dt (1800 s), the Eulerian core at
+# GEMM_EULER_DT (an advective Courant number below 0.4 for the 60 m/s
+# jets on the T255 grid's 0.47 degrees); the SL stages from the card's
+# states after GEMM_FROM_STEPS leapfrog steps; a card stage more than
+# GEMM_RATIO x the CPU's error off float64 is at fault
+GEMM_TRUNCS = (159, 255)
+GEMM_NLEV = 60
+GEMM_SL_DT = 1800.0
+GEMM_EULER_DT = 300.0
+GEMM_FROM_STEPS = (0, 12)
+GEMM_RATIO = 3.0
+
+
+def euler_gemms(card, trunc, nlev, dt):
+    """The Eulerian core's float32 products at trunc/nlev on the card and
+    on the CPU against the same core in float64 on the card, from the
+    card's state after the jet run's Euler step (tl639.start): the
+    synthesis of the state (dycore.to_grid), the explicit tendencies
+    (dycore.tendencies: synthesis, gradients and the analysis of the
+    nonlinear terms), the semi-implicit solve (dycore.semi_implicit_step,
+    from the CPU's tendencies) and one whole leapfrog step. Returns
+    {stage: {"card", "cpu": (max|err| / max, index)}} for every tensor of
+    each stage's output."""
+    from sp_coupler_tpu_torch.models.gcm import dycore, model as gm
+    from sp_coupler_tpu_torch.runtime import tl639
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    cfg = gm.GCMConfig(trunc=trunc, nlev=nlev, dt=dt, hybrid=True,
+                       advection="eulerian")
+    cores = dict(card=gm.GCMCore(cfg, device="cuda"),
+                 cpu=gm.GCMCore(cfg, device="cpu"))
+    c64 = tl639_rows.as_double(gm.GCMCore(cfg, device="cuda"))
+    state = tl639.strip(cores["card"].step(
+        tl639.start(cores["card"], 60.0), first=True))
+    s64 = moved(state, "cuda", torch.float64)
+    ref = dict(to_grid=dycore.to_grid(c64.sht, c64.vc, s64.now),
+               tendencies=dycore.tendencies(c64.sht, c64.vc, s64.now,
+                                            c64.fcor)[0])
+    st = {name: moved(state, "cuda" if name == "card" else "cpu")
+          for name in cores}
+    N_cpu = dycore.tendencies(cores["cpu"].sht, cores["cpu"].vc,
+                              st["cpu"].now, cores["cpu"].fcor)[0]
+    ref["semi_implicit"] = dycore.semi_implicit_step(
+        c64.sht, c64.vc, s64.now, s64.prev, moved(N_cpu, "cuda",
+                                                  torch.float64), 2 * dt)
+    ref["step"] = c64.step(s64).grid
+    out = {k: {} for k in ref}
+    for name, core in cores.items():
+        s, d = st[name], core.device
+        got = dict(to_grid=dycore.to_grid(core.sht, core.vc, s.now),
+                   tendencies=dycore.tendencies(core.sht, core.vc, s.now,
+                                                core.fcor)[0],
+                   semi_implicit=dycore.semi_implicit_step(
+                       core.sht, core.vc, s.now, s.prev, moved(N_cpu, d),
+                       2 * dt),
+                   step=core.step(s).grid)
+        for k in ref:
+            for path, r in tree_diffs(got[k], ref[k], "", DIFFS_ON).items():
+                out[k].setdefault(path, {})[name] = r
+        del got
+        torch.cuda.empty_cache()
+    for k, paths in out.items():
+        for path, r in sorted(paths.items()):
+            cs.log("gemms T%d/L%d eulerian %s%s against float64: card %.3g, "
+                   "CPU %.3g on %s" % (trunc, nlev, k, path, r["card"][0],
+                                       r["cpu"][0], card))
+    return out
+
+
+def gemm_verdicts(res):
+    """[(where, card err, CPU err)] of every stage of phase 10's results
+    whose card error off float64 exceeds GEMM_RATIO x the CPU's."""
+    rows = []
+    for trunc, r in res.items():
+        for k, paths in r["eulerian"].items():
+            for path, e in paths.items():
+                rows.append(("T%s eulerian %s%s" % (trunc, k, path),
+                             e["card"][0], e["cpu"][0]))
+        for name, a in r["sl"]["sums"]["card_sums"].items():
+            rows.append(("T%s analysis %s" % (trunc, name), a["device"],
+                         a["cpu"]))
+        for st in r["sl"]["steps"]:
+            for k, e in st["step"]["card32_vs_card64"].items():
+                rows.append(("T%s sl step from %d %s" % (trunc, st["from_step"],
+                                                         k), e[0],
+                             st["step"]["cpu32_vs_card64"][k][0]))
+            for k, e in st["stages"]["card32_vs_card64"].items():
+                rows.append(("T%s sl stage from %d %s" % (
+                    trunc, st["from_step"], k), e[0],
+                    st["stages"]["cpu32_vs_card64"][k][0]))
+    return [x for x in rows
+            if x[1] == x[1] and x[1] > GEMM_RATIO * max(x[2], 1e-12)]
+
+
+def phase_gemms(card):
+    """Phase 10: the GCM's float32 products (the analysis, the synthesis,
+    the Eulerian tendencies, the semi-implicit solves, every SL stage) at
+    GEMM_TRUNCS/L60 on the card and on the CPU against float64 on the
+    card: the SL core's analysis of the jet's Euler state and its steps
+    and stages from the card's states after GEMM_FROM_STEPS
+    (phase_tl639_cpu's "sums" and "steps"), and the Eulerian core's
+    stages (euler_gemms). Lists every stage whose card error exceeds
+    GEMM_RATIO x the CPU's."""
+    res = {}
+    for trunc in GEMM_TRUNCS:
+        t0 = time.time()
+        res[trunc] = dict(
+            sl=phase_tl639_cpu(card, ("sums", "steps"), trunc, GEMM_NLEV,
+                               GEMM_SL_DT, GEMM_FROM_STEPS),
+            eulerian=euler_gemms(card, trunc, GEMM_NLEV, GEMM_EULER_DT))
+        res[trunc]["wall_s"] = time.time() - t0
+        cs.log("gemms T%d/L%d: %.1f s" % (trunc, GEMM_NLEV,
+                                          res[trunc]["wall_s"]))
+    bad = gemm_verdicts(res)
+    cs.log("gemms: stages whose card error off float64 exceeds %g x the "
+           "CPU's: %s on %s" % (GEMM_RATIO, bad or "none", card))
+    return dict(results={str(k): v for k, v in res.items()}, at_fault=bad)
 
 
 # float32 opcodes of the SASS histogram (phase 8)
@@ -767,9 +899,9 @@ def phase_sass(card):
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
     if mode not in ("all", "path", "stage", "split", "t159", "tl639",
-                    "sass", "tl639cpu"):
+                    "sass", "tl639cpu", "gemms"):
         raise SystemExit("usage: chip_profile.py [path | stage | split | "
-                         "t159 | tl639 | sass | tl639cpu]")
+                         "t159 | tl639 | sass | tl639cpu | gemms]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -790,6 +922,8 @@ def main():
     if mode == "tl639cpu":
         out.update(tl639cpu=phase_tl639_cpu(card, sys.argv[2:]
                                             or ("float64", "steps")))
+    if mode == "gemms":
+        out.update(gemms=phase_gemms(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

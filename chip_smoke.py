@@ -54,6 +54,20 @@ Phases (any failure raises and exits non-zero):
      LESPhysics(subgrid="smagorinsky"); the scalar and momentum kernels'
      launch counts must each equal 3 x the substeps taken, and the stage
      kernel must not run;
+  6b. the split path at full width on other grids (phase_split_grids,
+     SPLIT_GRIDS): the bench case for one coupled step with (a) the
+     Smagorinsky closure at 64x64x150 (nz not a multiple of 16), (b) at
+     60x60x160 (3,600 points a plane, ragged 32x8 tiles), (c) TKE with
+     cd2 and (d) TKE with hybrid62 at 64x64x160, each through the kernels
+     (lesflat and lesmom launch 3 x the substep calls with hybrid52,
+     lesmom alone with cd2 and hybrid62) and through the plain split path:
+     finite profiles, the substeps within SPLIT_SUBSTEP_SLACK, the profile
+     change within phase 4's bounds, walls and gridpoint-updates/s; on the
+     fleet states of (a) and (b) kernels #2 and #3 against their plain
+     versions (at the JAX tests' tolerance, and each array against the
+     plain version's float64 run within F32_RATIO x the float32 plain
+     version's error) with CUDA-event and device times beside the bound;
+     writes chip_smoke_split_grids.json;
   7. the CLI (phase_cli), as a user runs the port: run_T21.sh's flags
      (T21/L19 + 2 x 64x64x160, columns 824/888, --cplsurf) through
      spmaster for 2 coupled steps, the second through call_phased; the
@@ -317,6 +331,17 @@ COUPLED_FRAC = 1e-2
 SCALAR_TOL = dict(atol=2e-4, rtol=1e-4)
 MOM_TOL = dict(atol=5e-5, rtol=1e-4)
 ARRAY_FRAC = 1e-4
+# On a coupled run's fleet state (phase_split_grids) the float32 plain
+# version itself is not that close: the thl tendency is the sum of flux
+# divergences of thl ~300 K that cancel to ~1e-3 K/s, and the plain
+# version lies 2e-3 to 4e-3 of its max|ref| off its float64 run (a
+# Smagorinsky step at 16x16x30 and 32x32x40 on the CPU); e12, which the
+# Smagorinsky closure does not step, has tendencies of rounding alone.
+# There each array is held against the float64 run, at the larger of
+# ARRAY_FRAC of its max and F32_RATIO x the float32 plain version's own
+# error: a float32 path more than 3x further from float64 than another is
+# at fault (chip_profile.py's GEMM_RATIO holds the card's GCM sums so)
+F32_RATIO = 3.0
 
 
 def log(*a):
@@ -646,11 +671,17 @@ def phase_kernel(card):
 
 def split_inputs(grid, n, seed, dev="cuda"):
     """Inputs of kernels #2-#4 as the Smagorinsky path makes them from the
-    stage_inputs state: u, v, w, the scalar stack [thl, qt, qr, e12] with
-    Ks = [Kh, Kh, Kh, 2 Km] from the Smagorinsky closure, rhobf, rhobh and
-    Km. The CPU tests build the same inputs with dev="cpu"."""
+    stage_inputs state (state_split_inputs). The CPU tests build the same
+    inputs with dev="cpu"."""
+    return state_split_inputs(grid, stage_inputs(grid, n, seed, dev)[0])
+
+
+def state_split_inputs(grid, cur):
+    """Inputs of kernels #2-#4 as the Smagorinsky path makes them from the
+    LES state cur: u, v, w, the scalar stack [thl, qt, qr, e12] with Ks =
+    [Kh, Kh, Kh, 2 Km] from the Smagorinsky closure, rhobf, rhobh and
+    Km."""
     from sp_coupler_tpu_torch.models.les import step as lstep, subgrid
-    cur = stage_inputs(grid, n, seed, dev)[0]
     Km, Kh = subgrid.eddy_viscosity(grid, cur, lstep.thermodynamics(cur)[3])
     return dict(u=cur.u, v=cur.v, w=cur.w,
                 Ks=torch.stack([Kh, Kh, Kh, 2.0 * Km], dim=1),
@@ -869,11 +900,13 @@ def phase_small_coupled(card, subgrid="tke", scheme="hybrid52"):
     return launches
 
 
-def main_path_case(subgrid="tke"):
+def main_path_case(subgrid="tke", grid=None, scheme="hybrid52",
+                   use_kernel=True):
     """The bench.py case on the port: T21/L19 + 2 x 64x64x160 (RICO),
     columns 1208/1272, adaptive with dt_les 15 s, with the given LES
-    closure. Returns the step function and its start (gcm state, LES
-    fleet, profiles, rain)."""
+    closure and advection scheme, on another LES grid if one is given (the
+    GCM columns' profiles set on its levels). Returns the step function
+    and its start (gcm state, LES fleet, profiles, rain)."""
     from sp_coupler_tpu_torch.models.gcm import model as gcm_model
     from sp_coupler_tpu_torch.runtime import t255bench
     from sp_coupler_tpu_torch.models.les import (grid as lgrid, step as lstep,
@@ -883,12 +916,13 @@ def main_path_case(subgrid="tke"):
                                                  dt=900.0))
     if core.device.type != "cuda":
         raise AssertionError("GCMCore took %s, not the card" % core.device)
-    grid = lgrid.LESGrid()
+    grid = grid or lgrid.LESGrid()
     cols = [1208, 1272]
     gs = core.initial_state(seed=0)
     les = t255bench.seed_les(core, gs, grid, cols)
-    fn = CoupledStepFn(core, grid, lstep.LESPhysics(subgrid=subgrid), cols,
-                       dt_les=15.0, n_substeps=0)
+    phys = lstep.LESPhysics(subgrid=subgrid, scheme=scheme,
+                            use_kernel=use_kernel)
+    fn = CoupledStepFn(core, grid, phys, cols, dt_les=15.0, n_substeps=0)
     prof = ldiag.slab_profiles(grid, les)
     return fn, (gs, les, prof, torch.zeros(len(cols), device=core.device))
 
@@ -940,6 +974,189 @@ def phase_main(card, subgrid="tke"):
         json.dump(dict(card=card, subgrid=subgrid, steps=steps,
                        launches=launches), f, indent=1)
     return launches, steps
+
+
+# the split path at full width off the TPU's lane rule and with its other
+# schemes (phase_split_grids): (tag, closure, scheme, (nx, ny, nz)). (a)
+# nz not a multiple of 16; (b) 3,600 points a plane, not a multiple of
+# 128, and ragged 32x8 tiles; (c), (d) cd2 and hybrid62 on the bench grid
+SPLIT_GRIDS = (("a", "smagorinsky", "hybrid52", (64, 64, 150)),
+               ("b", "smagorinsky", "hybrid52", (60, 60, 160)),
+               ("c", "tke", "cd2", (64, 64, 160)),
+               ("d", "tke", "hybrid62", (64, 64, 160)))
+# the kernel path against the plain split path over one coupled step: the
+# adaptive dt is cfl / (the fleet's largest rate), and the two paths part
+# at float32 rounding, so the sum of an instance's dts over the 900 s
+# parts by ~1e-6 of it: the instance can take one substep more or fewer
+# (its last, partial one), never two. The profiles' change over the step
+# is held as phase_small_coupled holds it (COUPLED_FRAC)
+SPLIT_SUBSTEP_SLACK = 1
+
+
+def one_step(fn, start):
+    """One coupled step (first=True) from start, its wall (synchronised)
+    and the substep calls it made: (outputs, wall s, calls)."""
+    gs, les, prof, rain = start
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out, calls = counted_substeps(lambda: fn(gs, les, prof, rain, 0,
+                                             first=True))
+    torch.cuda.synchronize()
+    return out, time.time() - t0, calls
+
+
+def check_arrays_f64(name, got, ref, ref64):
+    """Hold each output array of got against the plain version's float64
+    run ref64: within the larger of ARRAY_FRAC of its max|ref64| and
+    F32_RATIO x the float32 plain version's (ref's) own max error against
+    ref64. Returns each array's (kernel, plain) max error against ref64
+    as fractions of its max|ref64|."""
+    fracs = []
+    for j, (a, b, c) in enumerate(zip(output_arrays(got), output_arrays(ref),
+                                      output_arrays(ref64))):
+        scale = float(c.abs().max()) or 1.0
+        plain_err = float((b.double() - c).abs().max())
+        err = check_close("%s array %d vs float64" % (name, j), a.double(),
+                          c, max(ARRAY_FRAC * scale, F32_RATIO * plain_err),
+                          0.0)
+        fracs.append((err / scale, plain_err / scale))
+    return fracs
+
+
+def split_grid_kernels(card, tag, grid, les):
+    """Kernels #2 and #3 against their plain versions on SPLIT_GRIDS' grid
+    of run tag: for phase 3b's two inputs (check_arrays), then on the
+    fleet state les (one call each) at the JAX tests' tolerance
+    (SCALAR_TOL, MOM_TOL) and each array against the plain version's
+    float64 run (check_arrays_f64), with CUDA-event and device times
+    beside the bound. Returns {name: (max abs err against the
+    plain version, ms, device ms, plain ms, bound ms, bound by, the
+    arrays' errors against float64)}."""
+    a = state_split_inputs(grid, les)
+    n = les.u.shape[0]
+    out = {}
+    for name, launch, plain, args_of, tol, geom_of in split_kernels()[:2]:
+        for inputs in (split_inputs, rough_split_inputs):
+            args = args_of(inputs(grid, n, 11 + n, les.u.device.type),
+                           grid)
+            fracs = check_arrays(name, launch(*args), plain(*args), tol)
+            log("(%s) kernel %s %dx%dx%d n=%d, %s: ok, err / max|ref| per "
+                "array: %s" % (tag, name, grid.nx, grid.ny, grid.nz, n,
+                               inputs.__name__,
+                               " ".join("%.2g" % f for f in fracs)))
+        args = args_of(a, grid)
+        got, ref = launch(*args), plain(*args)
+        ref64 = plain(*[x.double() if torch.is_tensor(x) else x
+                        for x in args])
+        torch.cuda.synchronize()
+        for j, (x, y) in enumerate(zip(output_arrays(got),
+                                       output_arrays(ref))):
+            check_close("%s array %d" % (name, j), x, y, **tol)
+        fracs = check_arrays_f64(name, got, ref, ref64)
+        del ref64
+        err = max(float((x - y).abs().max())
+                  for x, y in zip(output_arrays(got), output_arrays(ref)))
+        ms = cuda_ms(lambda: launch(*args))
+        dev_ms = device_ms(lambda: launch(*args), DEVICE_KERNELS[name])
+        plain_ms = cuda_ms(lambda: plain(*args), reps=5, warm=1)
+        b_ms, by = bound_ms(tensor_bytes(args, got), KERNEL_OPS[name] * n
+                            * grid.nz * grid.ny * grid.nx)
+        g = geom_of(args, None)
+        out[name] = (err, ms, dev_ms, plain_ms, b_ms, by, fracs)
+        log("(%s) kernel %s on the fleet state %dx%dx%d n=%d (tile %dx%d, "
+            "tz %d, %d blocks): ok, err / max|float64| per array, kernel "
+            "(plain float32): %s; %.3f ms by CUDA events, %.4f ms of device "
+            "time (plain PyTorch %.3f ms); bound %.4f ms (%s), %.1f %% of "
+            "the device time, on %s"
+            % (tag, name, grid.nx, grid.ny, grid.nz, n, g.tx, g.ty, g.tz,
+               g.blocks, " ".join("%.2g (%.2g)" % f for f in fracs), ms,
+               dev_ms, plain_ms, b_ms, by, 100 * b_ms / dev_ms, card))
+    return out
+
+
+def phase_split_grids(card):
+    """The split path at full width on SPLIT_GRIDS: the bench case (T21/L19
+    + 2 instances, columns 1208/1272, adaptive, dt_les 15 s, the GCM
+    columns' profiles on the grid's levels) for one coupled step through
+    the kernels, then the same step through the plain split path
+    (use_kernel=False). The kernel run's path kernels (path_kernels:
+    lesflat and lesmom with hybrid52, lesmom alone with cd2 and hybrid62)
+    launch 3 x its substep calls, the others not at all; the plain run
+    launches none; its profiles are finite; the substeps agree within
+    SPLIT_SUBSTEP_SLACK and the THL/QT/U/V change over the step within
+    phase_small_coupled's bounds. On (a) and (b) kernels #2 and #3 are
+    held against their plain versions and its float64 run on the fleet
+    state after the step (split_grid_kernels). Returns (the kernel runs'
+    launch counts, the summary)."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    t_phase = time.time()
+    runs, summary = [], []
+    for tag, subgrid, scheme, (nx, ny, nz) in SPLIT_GRIDS:
+        grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+        kernels = path_kernels(subgrid, scheme)
+        outs = []
+        for use_kernel in (True, False):
+            fn, start = main_path_case(subgrid, grid, scheme, use_kernel)
+            reset_launches()
+            out, wall, calls = one_step(fn, start)
+            counts = read_launches()
+            what = "(%s) %s/%s %dx%dx%d %s path" % (
+                tag, subgrid, scheme, nx, ny, nz,
+                "kernel" if use_kernel else "plain")
+            check_launches(what, counts, calls,
+                           kernels if use_kernel else ())
+            prof = out[2]
+            for k in ("THL", "QT", "U", "V"):
+                if not bool(torch.isfinite(prof[k]).all()):
+                    raise AssertionError("%s: non-finite %s" % (what, k))
+            if tuple(prof["THL"].shape) != (2, nz):
+                raise AssertionError("%s: THL profile shape %s"
+                                     % (what, tuple(prof["THL"].shape)))
+            nsub = [int(x) for x in fn.unpack_diag(out[4])["n_substeps"]]
+            if min(nsub) <= 0:
+                raise AssertionError("%s: no substeps taken: %s"
+                                     % (what, nsub))
+            rate = nx * ny * nz * sum(nsub) / wall
+            log("%s: %.3f s, substeps %s (%d substep calls), %.4g LES "
+                "gridpoint-updates/s, launches %s, on %s"
+                % (what, wall, nsub, calls, rate,
+                   {k: v for k, v in counts.items() if v}, card))
+            outs.append(dict(prof0=start[2], out=out, nsub=nsub, wall=wall,
+                             rate=rate, launches=counts))
+        k_run, p_run = outs
+        runs.append(k_run["launches"])
+        dsub = np.asarray(k_run["nsub"]) - np.asarray(p_run["nsub"])
+        if np.any(np.abs(dsub) > SPLIT_SUBSTEP_SLACK):
+            raise AssertionError("(%s) substeps: kernel %s, plain %s" % (
+                tag, k_run["nsub"], p_run["nsub"]))
+        gaps = {}
+        for k in ("THL", "QT", "U", "V"):
+            got, ref = k_run["out"][2][k], p_run["out"][2][k]
+            scale = float(ref.abs().max())
+            check_close("(%s) %s" % (tag, k), got, ref, 2e-3 * scale, 2e-3)
+            gaps[k] = check_increment("(%s) %s" % (tag, k), got, ref,
+                                      k_run["prof0"][k], COUPLED_FRAC, 0.0)
+        log("(%s) kernel path == plain path: substeps %s / %s; profile "
+            "change err / max|change|: %s"
+            % (tag, k_run["nsub"], p_run["nsub"],
+               " ".join("%s %.2g" % kv for kv in gaps.items())))
+        held = (split_grid_kernels(card, tag, grid, k_run["out"][1])
+                if "lesflat" in kernels else {})
+        summary.append(dict(
+            tag=tag, subgrid=subgrid, scheme=scheme, grid=[nx, ny, nz],
+            kernel=dict(wall_s=k_run["wall"], substeps=k_run["nsub"],
+                        gridpoint_updates_per_s=k_run["rate"],
+                        launches=k_run["launches"]),
+            plain=dict(wall_s=p_run["wall"], substeps=p_run["nsub"],
+                       gridpoint_updates_per_s=p_run["rate"]),
+            change_err=gaps, kernels=held))
+    wall = time.time() - t_phase
+    log("phase_split_grids: %.1f s on %s" % (wall, card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_split_grids.json"),
+              "w") as f:
+        json.dump(dict(card=card, wall_s=wall, runs=summary), f, indent=1)
+    return runs, summary
 
 
 def phase_seed(card):
@@ -3812,6 +4029,7 @@ def main():
     runs = [phase_small_coupled(card, *path) for path in SMALL_PATHS]
     tke, main_steps = phase_main(card)
     runs += [tke, phase_main(card, "smagorinsky")[0]]
+    runs += phase_split_grids(card)[0]
     runs += phase_cli(card, main_steps)
     phase_seed(card)
     runs.append(phase_parity(card))

@@ -6,10 +6,11 @@ the physics the fused stage implements (``ops.lesstage.supported``: TKE
 closure, hybrid52), a stage is ``ops.lesstage.stage_fused``; otherwise it
 is the split ``tendencies`` path plus the RK axpy, whose scalar and
 momentum advection + diffusion go through ``ops.lesflat`` and
-``ops.lesmom`` under ``use_kernel`` on the grids the JAX package takes
-them on. Every kernel wrapper runs the CUDA kernel on a CUDA tensor and
-its plain PyTorch version on a CPU tensor. ``use_kernel=False`` is the
-plain split path on either device.
+``ops.lesmom`` under ``use_kernel`` on every grid, the physics alone
+choosing the branch, as it chooses the fused stage. Every kernel wrapper
+runs the CUDA kernel on a CUDA tensor and its plain PyTorch version on a
+CPU tensor. ``use_kernel=False`` is the plain split path on either
+device.
 
 The adaptive loop runs on the host: the exit test ``time < t_end - 1e-3``
 is evaluated in float32 on the device and read back once per substep, and
@@ -107,14 +108,27 @@ def tendencies(grid, phys, state, forcing, dt, plane=None):
     """All non-pressure tendencies (dict keyed like the state). ``dt``:
     the substep length, [n] tensor or python float (microphysics limits).
 
-    Under ``use_kernel``, on the grids ``lesflat.supported`` accepts (the
-    whole plane's grid, so a run takes the same path with and without
-    blocks), the scalar (hybrid52 only) and momentum advection + diffusion
-    go through the kernel wrappers, and the prescribed surface fluxes are
-    added on plane 0 afterwards, as in the JAX package under
-    ``use_pallas``. With a plane the state is this rank's block: it is
-    padded (``padded``), the stencils run on the padded block (the kernels
-    in their halo mode) and the tendencies are the block's.
+    Under ``use_kernel`` the scalar advection + diffusion (hybrid52: the
+    scalar kernel has no other scheme) and the momentum advection +
+    diffusion (every scheme) go through the kernel wrappers on every
+    grid, and the prescribed surface fluxes are added on plane 0
+    afterwards, as in the JAX package under ``use_pallas``. The JAX
+    package takes its kernels only on the TPU's lane grids (ny*nx a
+    multiple of 128, nz of 16) and elsewhere adds the fluxes inside
+    ``diffuse_scalar``: the same sum in another order. The grid limits
+    are the wrappers': on a CUDA tensor they raise for a (block's)
+    nx or ny below 4 and, in halo mode, a halo below 3; on a CPU tensor
+    they run their plain versions.
+
+    With a plane the state is this rank's block: it is padded (``padded``,
+    HALO = 3 points, the least the kernels' halo mode takes), the
+    stencils run on the padded block (the kernels in their halo mode) and
+    the tendencies are the block's. The branch depends on the physics
+    alone, so a run takes the same branch with blocks as without them.
+    ``Plane.halo`` takes blocks of at least HALO points a side, the
+    kernels at least 4: on the card a block of 3 points raises (as a
+    whole plane of 3 does), so split a plane into blocks of at least
+    4 x 4 there.
     """
     dt = _bcast(dt)
     red, state = padded(plane, state)
@@ -133,10 +147,9 @@ def tendencies(grid, phys, state, forcing, dt, plane=None):
     # surface fluxes enter thl and qt through the bottom face
     scalars = (state.thl, state.qt, state.qr, state.e12)
     Ks = (Kh, Kh, Kh, 2.0 * Km)
-    kernels = phys.use_kernel and lesflat.supported(grid)
     # a bottom-face flux F adds rhobh[0] F / (rhobf[0] dz) on plane 0
     corr = (rhobh[:, 0] / (rhobf[:, 0] * grid.dz))[:, None, None]
-    if kernels and phys.scheme == "hybrid52":
+    if phys.use_kernel and phys.scheme == "hybrid52":
         fused = lesflat.advect_diffuse_scalars(
             state.u, state.v, state.w, torch.stack(Ks, dim=1),
             torch.stack(scalars, dim=1), rhobf, rhobh,
@@ -155,7 +168,7 @@ def tendencies(grid, phys, state, forcing, dt, plane=None):
             for s, K, sf in zip(scalars, Ks,
                                 (forcing.wthl, forcing.wqt, zero, zero)))
 
-    if kernels:
+    if phys.use_kernel:
         ustar, fu, fv = subgrid.surface_momentum_fluxes(grid, state,
                                                         forcing.z0m, red)
         du, dv, dw = lesmom.momentum_tendencies(

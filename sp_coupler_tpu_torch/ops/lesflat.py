@@ -3,8 +3,9 @@ its plain PyTorch version.
 
 ``advect_diffuse_scalars`` replaces ``sp_coupler_tpu/ops/lesflat_pallas.py::
 advect_diffuse_scalars`` (the Pallas TPU kernel ``_kernel``), which the
-split ``tendencies`` path runs for thl, qt, qr and e12 when the scheme is
-hybrid52 and ``supported(grid)`` holds. On CUDA tensors it launches the
+split ``tendencies`` path runs for thl, qt, qr and e12 under
+``use_kernel`` when the scheme is hybrid52, on every grid (the grid
+limits are the launch's: nx, ny >= 4). On CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/lesflat.cu`` (built at first use,
 ops/_build.py) and raises if the launch fails; on CPU tensors it runs
 ``advect_diffuse_scalars_reference``. The kernel is bounded by memory
@@ -30,8 +31,6 @@ from ..models.les import advect, subgrid
 
 launches = 0        # kernel launches made by advect_diffuse_scalars
 halo_launches = 0   # ... of them in halo mode
-
-LANE = 128     # the TPU kernel's lane width, for supported()
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 3 + [ctypes.c_void_p])
@@ -72,12 +71,6 @@ def scalar_geometry(n, S, nz, ny, nx, tz=None):
     return tiling.tile_geometry("scalar", n, nz, ny, nx, TX, TY,
                                 shared_bytes(), RESIDENT, CHUNK_START_LEVELS,
                                 tz, groups=-(-S // SMAX))
-
-
-def supported(grid):
-    """The JAX package's rule for this kernel (ny*nx a multiple of 128, nz
-    of 16), so that the port takes the JAX package's path on each grid."""
-    return (grid.ny * grid.nx) % LANE == 0 and grid.nz % 16 == 0
 
 
 def interior(f, halo):

@@ -3,10 +3,11 @@ PyTorch version.
 
 ``momentum_tendencies`` replaces ``sp_coupler_tpu/ops/lesmom_pallas.py::
 momentum_tendencies`` (the Pallas TPU kernel ``_kernel``), which the split
-``tendencies`` path runs for u, v and w whenever ``lesflat.supported(grid)``
-holds, whatever the scheme. On CUDA tensors it launches the hand-written
-Hopper kernel ``csrc/lesmom.cu`` (built at first use, ops/_build.py) and
-raises if the launch fails; on CPU tensors it runs
+``tendencies`` path runs for u, v and w under ``use_kernel``, whatever
+the scheme, on every grid (the grid limits are the launch's: nx, ny >=
+4). On CUDA tensors it launches the hand-written Hopper kernel
+``csrc/lesmom.cu`` (built at first use, ops/_build.py) and raises if the
+launch fails; on CPU tensors it runs
 ``momentum_tendencies_reference``. The kernel is bounded by memory
 traffic; the note at the top of the CUDA source says what its design (a
 block per tile of columns marching up a z-chunk, each face flux computed

@@ -176,6 +176,32 @@ def test_split_kernel_matches_plain_at_128_planes_on_card(dev, kernel,
     cs.check_arrays(name, got, ref, tol)
 
 
+# the full-width grids of chip_smoke.py's phase_split_grids off the TPU's
+# lane rule: nz = 150 (not a multiple of 16; default z-chunks that do not
+# divide it), and 60x60 (3,600 points a plane, ragged 32x8 tiles)
+SPLIT_GRIDS = [(64, 64, 150), (60, 60, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["split_inputs", "rough_split_inputs"])
+@pytest.mark.parametrize("shape", SPLIT_GRIDS)
+@pytest.mark.parametrize("kernel", ["lesflat", "lesmom"])
+def test_split_kernel_matches_plain_off_the_lane_grids_on_card(
+        dev, kernel, shape, inputs):
+    """chip_smoke.py's check of kernels #2-#3 (check_arrays) at
+    SPLIT_GRIDS, n = 2 (the bench fleet), in the default launch
+    geometry."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    name, launch, plain, args_of, tol, _ = next(
+        k for k in cs.split_kernels() if k[0] == kernel)
+    args = args_of(getattr(cs, inputs)(grid, 2, 13), grid)
+    got = launch(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    cs.check_arrays(name, got, ref, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, n, tz", [((16, 16, 32), 2, None),
                                           ((12, 10, 20), 3, 6)])

@@ -103,15 +103,6 @@ def test_momentum_kernel_module_matches_jax_pallas(case, n):
         np.testing.assert_allclose(a.numpy(), b, err_msg=name, **MOM_TOL)
 
 
-@pytest.mark.parametrize("nx, ny, nz", [(64, 64, 160), (128, 128, 160),
-                                        (16, 16, 32), (10, 10, 160),
-                                        (16, 16, 24), (12, 10, 20)])
-def test_lesflat_supported_is_jax_rule(nx, ny, nz):
-    jg = jgrid.LESGrid(nx=nx, ny=ny, nz=nz)
-    tg = tgrid.LESGrid(nx=nx, ny=ny, nz=nz)
-    assert lesflat.supported(tg) == jflat.supported(jg)
-
-
 @pytest.mark.parametrize("entry", ["lesflat", "lesmom", "advect"])
 def test_cuda_entries_refuse_cpu_tensors(case, entry):
     """The kernels' launch functions take CUDA tensors only; the check comes

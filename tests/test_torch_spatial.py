@@ -19,7 +19,10 @@ against the port's own whole-plane runs, on the CPU.
   on (les, x, y) = (1, 2, 2) and (2, 2, 1): the same substep counts as,
   and within atol 5e-4, rtol 1e-4 (the bound test_parallel.py:67 puts on
   a sharded run against an unsharded one) of, JAX's unsharded ``_evolve``
-  and the port's whole-plane evolve.
+  and the port's whole-plane evolve. The same for a Smagorinsky fleet on
+  a 16x12 plane (outside the TPU's lane rule) on (2, 2, 1): 2 x 1 blocks
+  of 8x12, which take the split path's kernel branch (3 wrapper calls a
+  substep each) as the whole plane does.
 - The fused coupled step with spatial blocks (test_parallel.py:231-267) at
   T10 and one 16x16x32 instance against the unsharded step: the THL
   profile at atol 5e-3, rtol 1e-4 and ``les.thl`` at atol 5e-3, rtol 1e-3
@@ -66,6 +69,7 @@ from sp_coupler_tpu_torch.runtime.driver import SPRunner
 from sp_coupler_tpu_torch.utils import geometry, tree
 from sp_coupler_tpu_torch.verify.parity import PROFILE_TOL
 from test_parallel import _evolve, _tiny_fleet
+from test_torch_split_grids import count_split_calls
 from test_torch_parallel import (ARGS, CONF, NO_OP_CONF, read_spifs, reports,
                                  run_ranks)
 
@@ -128,6 +132,34 @@ def test_uneven_split_raises():
 
 # ---- the Plane, the projection, the evolve and the coupled step ------------
 
+# the Smagorinsky case's plane, outside the lane rule (ny*nx = 192)
+M_GRID = dict(nx=16, ny=12, nz=16, dx=200.0, dy=200.0, dz=100.0)
+
+
+def _smag_fleet(n):
+    """_tiny_fleet's profiles and keys on M_GRID."""
+    from sp_coupler_tpu.models.les import grid as jgrid, state as jstate
+    g = jgrid.LESGrid(**M_GRID)
+    zf = np.asarray(g.zf())
+    f32 = lambda a: jax.numpy.asarray(a, np.float32)
+    keys = jax.vmap(lambda i: jax.random.fold_in(
+        jax.random.PRNGKey(42), i))(jax.numpy.arange(n))
+    st = jax.vmap(lambda k: jstate.init_state(
+        g, f32(-8.0 + 1e-3 * zf), f32(np.full(g.nz, -4.0)),
+        f32(298.0 + 0.006 * zf), f32(14e-3 * np.exp(-zf / 2500.0)), 1.0e5,
+        k))(keys)
+    frc = jax.vmap(lambda _: jstate.LESForcing.zeros(g.nz))(
+        jax.numpy.arange(n))
+    return g, st, frc
+
+
+def _torch_fleet(st, frc):
+    return (LESState(*[torch.as_tensor(np.array(getattr(st, k)))
+                       for k in LESState._fields]),
+            LESForcing(*[torch.as_tensor(np.array(getattr(frc, k)))
+                         for k in LESForcing._fields]))
+
+
 def _coupled_start():
     """The coupled case's LES start: test_parallel.py's _one_instance
     profiles on C_GRID, the port's own draws."""
@@ -159,29 +191,41 @@ def spatial_ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spatial")
     g, st, frc = _tiny_fleet(2)
     jout, jsub = _evolve(g, jstep.LESPhysics(), None)(st, frc)
+    mg, mst, mfrc = _smag_fleet(2)
+    smag = jstep.LESPhysics(subgrid="smagorinsky")
+    mout, msub = _evolve(mg, smag, None)(mst, mfrc)
     cst = _coupled_start()
     inp = tmp / "fleet.npz"
     np.savez(inp, grid_n=[g.nx, g.ny, g.nz], grid_d=[g.dx, g.dy, g.dz],
+             m_grid_n=[mg.nx, mg.ny, mg.nz], m_grid_d=[mg.dx, mg.dy, mg.dz],
              c_grid_n=[C_GRID.nx, C_GRID.ny, C_GRID.nz],
              c_grid_d=[C_GRID.dx, C_GRID.dy, C_GRID.dz],
              **{"s_" + k: np.asarray(v) for k, v in st._asdict().items()},
              **{"f_" + k: np.asarray(v) for k, v in frc._asdict().items()},
+             **{"m_s_" + k: np.asarray(v) for k, v in mst._asdict().items()},
+             **{"m_f_" + k: np.asarray(v)
+                for k, v in mfrc._asdict().items()},
              **{"c_" + k: v.numpy() for k, v in cst._asdict().items()})
     run_ranks(tmp / "store", 4, "spatial", inp, tmp / "out")
-    state = LESState(*[torch.as_tensor(np.array(getattr(st, k)))
-                       for k in LESState._fields])
-    forcing = LESForcing(*[torch.as_tensor(np.array(getattr(frc, k)))
-                           for k in LESForcing._fields])
     whole, wsub, _ = evolve_fleet(lgrid.LESGrid(g.nx, g.ny, g.nz, g.dx, g.dy,
                                                 g.dz),
-                                  lstep.LESPhysics(), state, forcing, 20.0,
-                                  True, dt_max=5.0)
+                                  lstep.LESPhysics(), *_torch_fleet(st, frc),
+                                  20.0, True, dt_max=5.0)
+    with pytest.MonkeyPatch.context() as mp:
+        calls = count_split_calls(mp)
+        mwhole, mwsub, _ = evolve_fleet(
+            lgrid.LESGrid(**M_GRID), lstep.LESPhysics(subgrid="smagorinsky"),
+            *_torch_fleet(mst, mfrc), 20.0, True, dt_max=5.0)
+    as_np = lambda s, n: dict({k: v.numpy() for k, v in s._asdict().items()},
+                              nsub=n.numpy())
     return dict(ranks=reports(tmp / "out", 4),
                 got=dict(np.load(tmp / "out.npz")),
                 jax=dict(jax.tree.map(np.asarray, jout._asdict()),
                          nsub=np.asarray(jsub)),
-                whole=dict({k: v.numpy() for k, v in whole._asdict().items()},
-                           nsub=wsub.numpy()),
+                whole=as_np(whole, wsub),
+                jax_smag=dict(jax.tree.map(np.asarray, mout._asdict()),
+                              nsub=np.asarray(msub)),
+                whole_smag=dict(as_np(mwhole, mwsub), calls=calls),
                 coupled=_coupled_step(cst))
 
 
@@ -203,11 +247,22 @@ def test_projection_on_blocks_is_bitwise(spatial_ranks):
         assert r["project_bitwise"], r["project_err"]
 
 
-@pytest.mark.parametrize("name", ["evolve_122", "evolve_221"])
+@pytest.mark.parametrize("name", ["evolve_122", "evolve_221", "smag_221"])
 @pytest.mark.parametrize("ref", ["jax", "whole"])
 def test_blocked_evolve_matches(spatial_ranks, name, ref):
-    got, want = spatial_ranks["got"], spatial_ranks[ref]
+    smag = name.startswith("smag")
+    got = spatial_ranks["got"]
+    want = spatial_ranks[ref + "_smag" if smag else ref]
     assert np.array_equal(got[name + "_nsub"], want["nsub"])
+    if smag:
+        # the kernel branch on the blocks and on the whole plane: each
+        # wrapper 3 x the substeps of each instance's serial loop
+        whole = spatial_ranks["whole_smag"]
+        total = 3 * int(whole["nsub"].sum())
+        assert whole["calls"] == dict(lesflat=total, lesmom=total)
+        for r in spatial_ranks["ranks"]:
+            c = r["smag_calls"]
+            assert c["lesflat"] == c["lesmom"] == 3 * sum(c["nsub"]) > 0, r
     for k in ("u", "v", "w", "thl", "qt", "e12"):
         a = got["%s_%s" % (name, k)]
         assert np.all(np.isfinite(a)), k

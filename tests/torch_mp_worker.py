@@ -20,9 +20,12 @@ Modes:
   spatial IN.npz OUT      on 4 ranks: the Plane's halo, reductions and
                           gathers on the meshes (les, x, y) = (1, 2, 2) and
                           (1, 4, 1), the projection on 2 x 2 blocks, IN's
-                          fleet evolved on (1, 2, 2) and (2, 2, 1), and
-                          IN's coupled case (T10 + one instance) stepped
-                          on (1, 2, 2); rank 0 writes OUT.npz, each rank
+                          fleet evolved on (1, 2, 2) and (2, 2, 1), IN's
+                          Smagorinsky fleet (a plane outside the TPU's
+                          lane rule) evolved on (2, 2, 1) with the split
+                          path's kernel wrappers counted, and IN's
+                          coupled case (T10 + one instance) stepped on
+                          (1, 2, 2); rank 0 writes OUT.npz, each rank
                           OUT.<rank>.json
   bands IN.pt OUT         on 4 ranks, the GCM on latitude bands: IN's
                           spectral coefficients through the T21 transforms
@@ -37,6 +40,7 @@ Modes:
                           gathered grids) and OUT.<rank>.json
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -184,6 +188,27 @@ def _plane_checks(mesh, gen_seed=5):
                    for g, w in zip(got_take, want_take)))
 
 
+@contextlib.contextmanager
+def split_calls():
+    """Counts of the split path's kernel wrappers (lesflat, lesmom) called
+    inside the block."""
+    from sp_coupler_tpu_torch.ops import lesflat, lesmom
+    calls = dict(lesflat=0, lesmom=0)
+    saved = [(lesflat, "advect_diffuse_scalars", "lesflat"),
+             (lesmom, "momentum_tendencies", "lesmom")]
+    saved = [(m, f, getattr(m, f), name) for m, f, name in saved]
+    for mod, fn, orig, name in saved:
+        def wrap(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+        setattr(mod, fn, wrap)
+    try:
+        yield calls
+    finally:
+        for mod, fn, orig, _ in saved:
+            setattr(mod, fn, orig)
+
+
 def spatial(inp, out):
     from sp_coupler_tpu_torch.coupling.coupler import (CoupledStepFn,
                                                        evolve_fleet)
@@ -241,6 +266,28 @@ def spatial(inp, out):
         for k, x in zip(LESState._fields, whole["state"]):
             res["%s_%s" % (name, k)] = x.numpy()
         res[name + "_nsub"] = whole["nsub"].numpy()
+
+    # the Smagorinsky fleet on (2, 2, 1): the split path on 2 x 1 blocks
+    mg = lgrid.LESGrid(*[int(x) for x in data["m_grid_n"]],
+                       *[float(x) for x in data["m_grid_d"]])
+    mst = LESState(*[torch.as_tensor(data["m_s_" + k])
+                     for k in LESState._fields])
+    mfrc = LESForcing(*[torch.as_tensor(data["m_f_" + k])
+                        for k in LESForcing._fields])
+    mesh = pmesh.make_mesh(2, 2, 1)
+    p = pplane.for_mesh(mesh, mg.ny, mg.nx)
+    with split_calls() as calls:
+        got, nsub, _ = evolve_fleet(
+            mg, lstep.LESPhysics(subgrid="smagorinsky"),
+            pmesh.shard_fleet(mst, mesh, p),
+            sharding.local_rows(mfrc, mesh, mst.u.shape[0]), 20.0, True,
+            dt_max=5.0, plane=p)
+    rep["smag_calls"] = dict(calls, nsub=[int(x) for x in nsub])
+    whole = sharding.gather_rows(dict(state=p.gather_fields(got), nsub=nsub),
+                                 mesh, mst.u.shape[0])
+    for k, x in zip(LESState._fields, whole["state"]):
+        res["smag_221_" + k] = x.numpy()
+    res["smag_221_nsub"] = whole["nsub"].numpy()
 
     # the fused coupled step on (1, 2, 2)
     cg = lgrid.LESGrid(*[int(x) for x in data["c_grid_n"]],
