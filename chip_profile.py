@@ -66,6 +66,14 @@ the scalar and momentum kernels):
      (euler_gemms), each on the card and on the CPU in float32 against
      float64 on the card; every stage whose card error exceeds
      GEMM_RATIO x the CPU's is listed.
+  11. (mode save only) one les slot of BASELINE config 4 on one card:
+     the first 64 of chip_smoke.py's config-4 columns (64 x 128x128x160,
+     T255/L19, batched, 2 coupled steps) through the CLI without a mesh,
+     its step walls and peak of device memory, its checkpoint
+     (restart.save, members stored) timed, then np.savez_compressed of
+     the same fleet leaves (the JAX package's save) timed: each file's
+     bytes and rate, and the temporary directory's free space (the files
+     are removed). A fleet of 4 slots is 4 x these bytes.
   6. (mode t159 only) the T159 regional case of chip_smoke.py (T159/L19
      SL GCM + 64 x 64x64x160, evolve_chunks 8): after a shared Euler-start
      step, one first=False coupled step with the fleet batched and one
@@ -87,6 +95,7 @@ Run: python3 chip_profile.py   (needs a CUDA card, nvcc and this checkout)
                                      (phase 9 only; not part of "all";
                                       float64 and steps by default)
      python3 chip_profile.py gemms   (phase 10 only; not part of "all")
+     python3 chip_profile.py save    (phase 11 only; not part of "all")
 """
 
 import contextlib
@@ -896,12 +905,82 @@ def phase_sass(card):
     return res
 
 
+SAVE_SLOT = 64      # instances of one les slot of config 4 (256 / 4)
+
+
+def phase_save(card):
+    """(mode save) one slot of config 4 through the CLI on one card, its
+    checkpoint stored and the same leaves deflated, each timed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from sp_coupler_tpu_torch.io import restart
+    from sp_coupler_tpu_torch.utils import tree
+    res = dict(card=card, instances=SAVE_SLOT)
+    save_s, save = [], restart.save
+
+    def timed_save(runner):
+        t0 = time.time()
+        save(runner)
+        save_s.append(time.time() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res["tmp_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        res["shm_free_gb"] = shutil.disk_usage("/dev/shm").free / 1e9
+        print("save: %s has %.1f GB free, /dev/shm %.1f GB" % (
+            tmp, res["tmp_free_gb"], res["shm_free_gb"]), flush=True)
+        conf = os.path.join(tmp, "config4.json")
+        with open(conf, "w") as f:
+            json.dump(cs.CONFIG4_CONF, f)
+        odir = os.path.join(tmp, "run")
+        _, argv = cs.config4_argv(odir, conf, SAVE_SLOT, mesh=False)
+        torch.cuda.reset_peak_memory_stats()
+        restart.save = timed_save
+        try:
+            runner, walls, launches = cs.cli_leg(argv, None)
+        finally:
+            restart.save = save
+        path = os.path.join(odir, restart.FNAME)
+        res.update(walls=walls, launches=launches,
+                   substeps=runner.substeps,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   stored_s=save_s[0], stored_bytes=os.path.getsize(path))
+        os.remove(path)
+        leaves = {"les_%d" % i: x.cpu().numpy()
+                  for i, x in enumerate(tree.flatten(runner.fleet.state)[0])}
+        del runner
+        torch.cuda.empty_cache()
+        path = os.path.join(tmp, "deflated.npz")
+        t0 = time.time()
+        np.savez_compressed(path, **leaves)
+        res.update(deflated_s=time.time() - t0,
+                   deflated_bytes=os.path.getsize(path),
+                   leaf_bytes=sum(a.nbytes for a in leaves.values()))
+        os.remove(path)
+    res["stored_mb_s"] = res["stored_bytes"] / 1e6 / res["stored_s"]
+    res["deflated_mb_s"] = res["leaf_bytes"] / 1e6 / res["deflated_s"]
+    fleet_mb = 4 * res["leaf_bytes"] / 1e6
+    print("save: %d x 128x128x160 through the CLI on one card: step walls "
+          "%s s, substeps %s..., peak %.2f GiB; the fleet leaves %d bytes; "
+          "the checkpoint (GCM and fleet) stored %d bytes in %.2f s (%.1f "
+          "MB/s), the fleet leaves through np.savez_compressed %d bytes in "
+          "%.2f s (%.1f MB/s of input); 4 slots' leaves at those rates: "
+          "%.1f s stored, %.1f s deflated, on %s" % (
+              SAVE_SLOT, ["%.2f" % w for w in res["walls"]],
+              res["substeps"][0][:4], res["peak_gib"], res["leaf_bytes"],
+              res["stored_bytes"], res["stored_s"], res["stored_mb_s"],
+              res["deflated_bytes"], res["deflated_s"], res["deflated_mb_s"],
+              fleet_mb / res["stored_mb_s"], fleet_mb / res["deflated_mb_s"],
+              card), flush=True)
+    return res
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "all"
     if mode not in ("all", "path", "stage", "split", "t159", "tl639",
-                    "sass", "tl639cpu", "gemms"):
+                    "sass", "tl639cpu", "gemms", "save"):
         raise SystemExit("usage: chip_profile.py [path | stage | split | "
-                         "t159 | tl639 | sass | tl639cpu | gemms]")
+                         "t159 | tl639 | sass | tl639cpu | gemms | save]")
     card = cs.phase_env()
     cs.phase_build()
     out = dict(card=card)
@@ -924,6 +1003,8 @@ def main():
                                             or ("float64", "steps")))
     if mode == "gemms":
         out.update(gemms=phase_gemms(card))
+    if mode == "save":
+        out.update(save=phase_save(card))
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     name = "profile.json" if mode == "all" else "profile_%s.json" % mode
     with open(os.path.join(cs.OUT_DIR, name), "w") as f:

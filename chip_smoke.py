@@ -32,9 +32,12 @@ Phases (any failure raises and exits non-zero):
      rough one (rough_inputs), and at the fleets' batches (FLEET_SHAPES:
      64x64x160, n = 3, 4, 8, 16, 32 and 64, every launch geometry of
      phase_schedule, phase_batch and the T159 leg; 128x128x160, n = 4,
-     phase_t255's) for stage_inputs; then each option of STAGE_OPTIONS
+     phase_t255's, and n = 64, a card's batch of config 4 in --cards 4
+     (g), its references REF_CHUNK instances at a time) for
+     stage_inputs; then each option of STAGE_OPTIONS
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
-     CUDA-event timings of both and the kernel's bound;
+     CUDA-event timings of both and the kernel's bound (written to
+     chip_smoke_kernel.json);
   3b. the scalar (lesflat), momentum (lesmom) and un-flattened scalar
      (advect) kernels against their plain versions at STAGE_SHAPES (the
      same tiles, ragged grids and z-chunks), for the split_inputs state
@@ -218,12 +221,24 @@ bands, against one card's first step (t159_first_step); (c) phase 15
 4's 4 x 128x128x160 (config4_fleet) on 2 x 2 blocks of 64x64x160; (e)
 kernels #1-#3, whole-plane and in halo mode, against their plain
 versions on every card (card_kernels_rank); (f) runtime/scalebench.py
---sizes 1,2,4 at 16 x 64x64x160 a card. Every rank reports its backend
-and the CUDA tensors its collectives took through the host (0 under
-nccl). It raises with fewer than N cards; with N = 2, (b)-(d) do not
-run. Every phase runs; any failure fails the run at the end, and ranks
+--sizes 1,2,4 at 16 x 64x64x160 a card; (g) BASELINE config 4 at its
+stated size through the CLI (phase_config4): T255/L19 SL hybrid + 256 x
+128x128x160, batched, --mesh_les 4 --gcmprocs 4 (64 instances and 96 GCM
+rows a card), 2 coupled steps, each rank's lesstage 3 x its substep
+calls, then its first 4 columns on card 0 without a mesh: (i) the GCM's
+replicated state the same on every rank, (ii) step 1's records of
+instances 0-3 within PROFILE_TOL of card 0's and their substeps within
+C_SUBSTEP_SLACK, (iii) every record finite and every instance
+substepping, (iv) rank 0's checkpoint holding every leaf at [256, ...]
+and the whole GCM state, each instance's float64 sums equal to its
+rank's; each card's step walls, evolve seconds and peak, rank 0's
+spifs.nc bytes, timing.txt rows and checkpoint seconds and bytes are
+printed. Every rank reports its backend and the CUDA tensors its
+collectives took through the host (0 under nccl). It raises with fewer
+than N cards; with N = 2, (b)-(d) and (g) do not run. Every phase runs; any failure fails the run at the end, and ranks
 that hang end it at once. Its last line is {"ok": true, "device": {...,
-"count": N}}; summary in chiprun_out/chip_smoke_cards.json.
+"count": N}}; summary in chiprun_out/chip_smoke_cards.json ((g) also in
+chip_smoke_config4.json).
 
 Run: python3 chip_smoke.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_smoke.py --cards 4   (4 cards)
@@ -304,7 +319,14 @@ STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
 # phase_t255's 4 of 128x128x160 in one launch (one z-chunk a column)
 FLEET_N = (3, 4, 8, 16, 32, 64)
 FLEET_SHAPES = tuple(((64, 64, 160), n, None) for n in FLEET_N) + (
-    ((128, 128, 160), 4, None),)
+    ((128, 128, 160), 4, None), ((128, 128, 160), 64, None))
+# above REF_WHOLE_POINTS points (n x nx x ny x nz; the largest fleet held
+# whole, 64 x 64x64x160) the references, the plain version and its
+# float64 run, are computed REF_CHUNK instances at a time and concatenated
+# (the stage is per instance): a plain run of config 4's 64 x 128x128x160
+# a card (phase_config4) may not fit beside the kernel's inputs and outputs
+REF_WHOLE_POINTS = 64 * 64 * 64 * 160
+REF_CHUNK = 4
 # physics options the main path does not take (LESPhysics fields), each
 # held by its own effect: the change of the outputs from the default run,
 # against the plain version's change, at INC_FRAC of its max (f_coriolis
@@ -554,20 +576,43 @@ def increment_cases(cur):
 STAGE_NAMES = ("u", "v", "w", "thl", "qt", "qr", "e12")
 
 
+def ref_chunk(grid, n):
+    """The instances a reference run of n instances of grid takes at once
+    (None: all of them)."""
+    return (REF_CHUNK if n * grid.nx * grid.ny * grid.nz > REF_WHOLE_POINTS
+            else None)
+
+
+def stage_reference(grid, phys, cur, base, frc, frac, dt, f64=False):
+    """The plain version's outputs (in float64 from the float32 inputs
+    with f64), computed ref_chunk instances at a time and concatenated."""
+    from sp_coupler_tpu_torch.ops import lesstage
+    n = dt.shape[0]
+    step = ref_chunk(grid, n) or n
+    conv = as_f64 if f64 else (lambda t: t)
+    parts = []
+    for i in range(0, n, step):
+        cut = lambda t: conv(type(t)(*[x[i:i + step] for x in t]))
+        parts.append(lesstage.stage_fused_reference(
+            grid, phys, cut(cur), cut(base), cut(frc), frac,
+            dt[i:i + step].double() if f64 else dt[i:i + step]))
+    return parts[0] if len(parts) == 1 else tuple(
+        torch.cat(p) for p in zip(*parts))
+
+
 def check_stage(kern, grid, phys, cur, base, frc, dt):
     """kern (the stage kernel or a stand-in with its signature) against
     the plain version from one input: the outputs at FIELD_TOL, kmax
     against the plain version and its float64 run at KMAX_RTOL, u*^2 and
     the rain flux; then the increments out - base of the stirred and the
-    calm case at INC_FRAC. Returns (max abs err of the outputs, kmax rel
-    err vs float64 of the kernel and of the float32 plain version, worst
-    increment err / max|increment| per field)."""
-    from sp_coupler_tpu_torch.ops import lesstage
+    calm case at INC_FRAC. The references run ref_chunk instances at a
+    time. Returns (max abs err of the outputs, kmax rel err vs float64 of
+    the kernel and of the float32 plain version, worst increment err /
+    max|increment| per field)."""
     args = (grid, phys, cur, base, frc, 0.5, dt)
     got = kern(*args)
-    ref = lesstage.stage_fused_reference(*args)
-    ref64 = lesstage.stage_fused_reference(
-        grid, phys, as_f64(cur), as_f64(base), as_f64(frc), 0.5, dt.double())
+    ref = stage_reference(*args)
+    ref64 = stage_reference(*args, f64=True)
     worst = max(check_close(k, a, b, **FIELD_TOL)
                 for k, a, b in zip(STAGE_NAMES, got[:7], ref[:7]))
     check_close("kmax", got[7], ref[7], 0.0, KMAX_RTOL)
@@ -575,15 +620,17 @@ def check_stage(kern, grid, phys, cur, base, frc, dt):
     check_close("ustar2", got[8], ref[8], 0.0, USTAR2_RTOL)
     check_close("rain", got[9], ref[9], **RAIN_TOL)
     rel64 = lambda x: float((x.double() / ref64[7] - 1).abs().max())
+    k64, p64 = rel64(got[7]), rel64(ref[7])
+    del got, ref, ref64
     inc = dict.fromkeys(STAGE_NAMES, 0.0)
     for case, c, b in increment_cases(cur):
         a_ = (grid, phys, c, b, frc, 0.5, dt)
-        g_, r_ = kern(*a_), lesstage.stage_fused_reference(*a_)
+        g_, r_ = kern(*a_), stage_reference(*a_)
         for k, x, y in zip(STAGE_NAMES, g_[:7], r_[:7]):
             b_k = b.w[:, :-1] if k == "w" else getattr(b, k)
             inc[k] = max(inc[k], check_increment(
                 "%s %s" % (case, k), x, y, b_k, INC_FRAC, INC_RTOL))
-    return worst, rel64(got[7]), rel64(ref[7]), inc
+    return worst, k64, p64, inc
 
 
 def check_options(kern, grid, cur, frc, dt):
@@ -659,13 +706,22 @@ def phase_kernel(card):
             ms = cuda_ms(lambda: kern(*args))
             dev_ms = device_ms(lambda: kern(*args),
                                DEVICE_KERNELS["lesstage"])
-            plain = cuda_ms(lambda: lesstage.stage_fused_reference(*args))
+            # the plain version as check_stage runs it (ref_chunk
+            # instances a call), fewer times where it is chunked
+            plain = cuda_ms(lambda: stage_reference(*args),
+                            *((3, 1) if ref_chunk(grid, n) else ()))
             b_ms, by = bound_ms(*stage_bound(n, nz, ny, nx))
             times[(nx, ny, nz, n)] = (ms, plain, b_ms, by, dev_ms)
             log("  %.3f ms by CUDA events, %.4f ms of device time (plain "
                 "PyTorch %.3f ms); bound %.4f ms (%s), %.1f %% of the device "
                 "time, on %s" % (ms, dev_ms, plain, b_ms, by,
                                  100 * b_ms / dev_ms, card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_kernel.json"), "w") as f:
+        json.dump(dict(card=card, max_abs_err=worst, times=[
+            dict(grid=k[:3], n=k[3], ms=v[0], plain_ms=v[1], bound_ms=v[2],
+                 bound_by=v[3], device_ms=v[4]) for k, v in times.items()]),
+            f, indent=1)
     return worst, times
 
 
@@ -1594,14 +1650,24 @@ def read_records(path):
     return times.tolist(), groups
 
 
-def cli_leg(argv, writer):
+def cli_leg(argv, writer, before_finalize=None):
     """One run through the port's CLI (spmaster.build_runner + drive, as
     spmaster.main), each step timed on the host clock; the launch counts
     are set to 0 just before it and read just after; the cross-section
-    writes inside the steps are timed too (runner.cross_walls). Returns
-    (runner, step walls, launches)."""
+    writes inside the steps are timed too (runner.cross_walls);
+    before_finalize(runner), where given, runs after the last step and
+    before runner.finalize (the checkpoint). Returns (runner, step walls,
+    launches)."""
     from sp_coupler_tpu_torch import spmaster
     runner = spmaster.build_runner(argv, writer=writer)
+    if before_finalize is not None:
+        finalize = runner.finalize
+
+        def hooked_finalize(*a, **kw):
+            before_finalize(runner)
+            return finalize(*a, **kw)
+
+        runner.finalize = hooked_finalize
     if runner.device.type != "cuda":
         raise AssertionError("the CLI took %s, not the card" % runner.device)
     walls, step = [], runner.step
@@ -2450,7 +2516,7 @@ def record_diffs(ref_times, ref_groups, rec):
         raise AssertionError("spatial: record times %s, single %s"
                              % (rec["Time"].tolist(), ref_times))
     keys = {"%d/%s" % (c, v) for c, g in ref_groups.items() for v in g}
-    if keys != set(rec.files) - {"Time"}:
+    if keys != set(getattr(rec, "files", rec)) - {"Time"}:
         raise AssertionError("spatial: rank 0 wrote %s, the single process "
                              "%s" % (sorted(rec.files), sorted(keys)))
     out, bad = {}, []
@@ -3460,8 +3526,9 @@ def phase_gcm_bands(card, single, t159_first, backend="gloo"):
 # (phase_gcm_bands); (d) the x/y blocks (phase_spatial: the bench case
 # with --lesprocs 4, config 4's fleet on 2 x 2 blocks, the Smagorinsky
 # leg); (e) kernels #1-#3 on every card (phase_card_kernels); (f)
-# runtime/scalebench.py at SCALE_SIZES (phase_scaling). With N = 2, (b),
-# (c) and (d), which take 4 ranks, do not run.
+# runtime/scalebench.py at SCALE_SIZES (phase_scaling); (g) BASELINE
+# config 4 at its stated size through the CLI (phase_config4). With N = 2,
+# (b), (c), (d) and (g), which take 4 ranks, do not run.
 CARD_COUNTS = (2, 4)
 CARDS_TIMEOUT = 300
 # (f): 16 instances of 64x64x160 a card, each size's evolve on every rank
@@ -3616,6 +3683,336 @@ def phase_scaling(card, n_cards):
     return res
 
 
+# ---- (g) BASELINE config 4 at its stated size, one card a les slot -----
+
+# BASELINE.md's config 4, "T255 + 256 LES (128x128x160 each), domain-
+# decomposed across one host", through the port's CLI (python -m
+# sp_coupler_tpu_torch.spmaster) on CONFIG4_RANKS ranks, one card a rank
+# (nccl): --mesh_les 4 --gcmprocs 4, rank r holding positions 64 r ...
+# 64 r + 63 (batched) and the T255 GCM's rows 96 r ... 96 r + 95; the
+# columns of runtime/t255bench.py (16 longitudes on each of 16 rows of
+# |lat| < 15 deg), dt_les 15 s, CONFIG4_STEPS coupled steps (--steps
+# CONFIG4_STEPS - 1: the CLI adds the restart overlap). Nothing is cut.
+CONFIG4_CONF = {"gcm_truncation": 255, "gcm_levels": 19, "gcm_hybrid": True,
+                "gcm_advection": "sl", "les_itot": 128, "les_jtot": 128,
+                "les_ktot": 160, "les_xsize": 12800.0, "les_ysize": 12800.0,
+                "les_dz": 25.0, "les_schedule": "batched",
+                "les_evolve_chunks": 8}
+CONFIG4_FLEET, CONFIG4_RANKS, CONFIG4_STEPS = 256, 4, 2
+CONFIG4_ARGS = ["--mesh_les", str(CONFIG4_RANKS), "--gcmprocs",
+                str(CONFIG4_RANKS)]
+CONFIG4_TIMEOUT = 600   # s for the rank set: init, 2 steps, the checkpoint
+# (ii): the same --conf on card 0 with the first CONFIG4_REF_N columns and
+# no mesh; an instance's start draws from generator(seed, i), so it does
+# not depend on the fleet's size, and step 1 comes before any feedback
+# from the other columns: rank 0's step-1 records of those instances
+# within verify/parity.py's PROFILE_TOL (f_thl: + F_ULPS), their substeps
+# within C_SUBSTEP_SLACK (the batch of 64 against 4 rounds the
+# projection's products apart, as in phase_gcm_bands (c))
+CONFIG4_REF_N = 4
+CONFIG4_VARS = ("thl", "qt", "f_T", "f_SH", "A_d", "rain")
+
+
+def config4_points(n, trunc=None):
+    """(columns, --points) of t255bench.columns' first n columns on the
+    GCM's grid (CONFIG4_CONF's truncation), each point the grid's own
+    lat/lon, so that it selects its column (as bench_argv)."""
+    from types import SimpleNamespace
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    from sp_coupler_tpu_torch.runtime import t255bench
+    sht = spharm.SpectralTransform(trunc or CONFIG4_CONF["gcm_truncation"],
+                                   device="cpu")
+    lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
+    cols = t255bench.columns(SimpleNamespace(sht=sht, nlon=len(lons)), n)
+    pts = []
+    for c in cols:
+        pts += ["%.6f" % lats[c // len(lons)], "%.6f" % lons[c % len(lons)]]
+    return cols, pts
+
+
+def config4_argv(odir, conf, n, mesh=True):
+    """spmaster's flags of config 4 at n columns (CONFIG4_ARGS with
+    mesh)."""
+    cols, pts = config4_points(n)
+    return cols, (["--points"] + pts
+                  + ["--les_dt", "15", "--steps", str(CONFIG4_STEPS - 1),
+                     "--conf", conf, "--odir", odir]
+                  + (CONFIG4_ARGS if mesh else []))
+
+
+def row_sums(a):
+    """float64 sum of each row of a (instance by instance)."""
+    return np.asarray([np.asarray(r, np.float64).sum() for r in a])
+
+
+def config4_rank(odir, conf, report):
+    """One rank of phase_config4 (``chip_smoke.py --config4-rank ODIR CONF
+    REPORT``, SPTPU_DIST_* set, CONFIG4_RANKS ranks): config 4 through
+    the CLI (cli_leg), the rank's substep calls and evolve seconds
+    counted; before finalize the GCM's replicated state checked the same
+    on every rank (pmesh.replicate), the float64 sum of each fleet leaf
+    for each of the rank's instances written to REPORT.<rank>.sums.npz
+    and the peak of device memory read; the checkpoint (restart.save)
+    timed. Writes REPORT.<rank>.json, rank 0 REPORT.records.npz."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch import card_line
+    from sp_coupler_tpu_torch.coupling.coupler import CoupledStepFn
+    from sp_coupler_tpu_torch.io import restart
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    from sp_coupler_tpu_torch.utils import tree
+    cols, argv = config4_argv(odir, conf, CONFIG4_FLEET)
+    evolve_s, evolve_to = [0.0], CoupledStepFn._evolve_to
+
+    def timed_evolve(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = evolve_to(self, *a)
+        torch.cuda.synchronize()
+        evolve_s[0] += time.time() - t0
+        return out
+
+    save_s, save = [], restart.save
+
+    def timed_save(runner):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        save(runner)
+        torch.cuda.synchronize()
+        save_s.append(time.time() - t0)
+
+    held = {}
+
+    def before_finalize(runner):
+        core = runner.gcm.core
+        pmesh.replicate(core.replicated(runner.gcm.state), runner.mesh)
+        leaves = tree.flatten(runner.fleet.state)[0]
+        np.savez("%s.%d.sums.npz" % (report, pmesh.rank()),
+                 positions=np.asarray(runner.fleet.positions),
+                 **{"les_%d" % i: row_sums(x.cpu().numpy())
+                    for i, x in enumerate(leaves)})
+        held.update(peak_run_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    bands=[core.bands.P, core.bands.r0, core.bands.r1],
+                    rows=int(runner.gcm.state.grid.T.shape[-2]),
+                    block=list(runner.fleet.state.u.shape))
+
+    CoupledStepFn._evolve_to, restart.save = timed_evolve, timed_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        (runner, walls, launches), calls = counted_substeps(
+            lambda: cli_leg(argv, tee_writer(), before_finalize))
+        rank = pmesh.rank()
+        if runner.mesh is None or pmesh.world_size() != CONFIG4_RANKS:
+            raise AssertionError("rank %d: no les mesh over %d ranks"
+                                 % (rank, CONFIG4_RANKS))
+        if runner.sp_cols != cols:
+            raise AssertionError("rank %d: the points selected %d columns "
+                                 "(%s...), not t255bench.columns' %d"
+                                 % (rank, len(runner.sp_cols),
+                                    runner.sp_cols[:4], len(cols)))
+        pos = runner.fleet.positions
+        rep = dict(rank=rank, device=str(runner.device),
+                   card=card_line(runner.device), positions=pos,
+                   walls=walls, evolve_s=evolve_s[0], save_s=save_s,
+                   substeps=runner.substeps, launches=launches,
+                   loop_substeps=calls,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   **held, **transport())
+        if rank == 0:
+            spifs = os.path.join(odir, "spifs.nc")
+            times, groups = read_records(spifs)
+            np.savez(report + ".records.npz", Time=np.asarray(times),
+                     **{"%d/%s" % (c, v): a for c, g in groups.items()
+                        for v, a in g.items()})
+            path = os.path.join(odir, "restart.npz")
+            rep.update(spifs_bytes=os.path.getsize(spifs),
+                       timing_rows=timing_rows(odir)[1],
+                       checkpoint_bytes=(os.path.getsize(path)
+                                         if os.path.exists(path) else None))
+    finally:
+        CoupledStepFn._evolve_to, restart.save = evolve_to, save
+        pmesh.shutdown()
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def check_config4_checkpoint(path, ref_path, sums):
+    """(iv): the checkpoint at path holds every fleet leaf at
+    [CONFIG4_FLEET, ...], each instance's float64 sums equal to those its
+    rank wrote before finalize (sums: one npz a rank), and the GCM's
+    leaves of the one-card reference's checkpoint (ref_path: no mesh, the
+    whole state) at their shapes. Returns (seconds, leaves)."""
+    t0 = time.time()
+    if not os.path.exists(path):
+        raise AssertionError("config4: no checkpoint at %s" % path)
+    with np.load(path) as data, np.load(ref_path) as ref:
+        les = [k for k in data.files if k.startswith("les_")]
+        want = [k for k in ref.files if k.startswith("les_")]
+        if les != want:
+            raise AssertionError("config4: checkpoint fleet leaves %s, the "
+                                 "reference's %s" % (les, want))
+        for k in les:
+            arr = data[k]
+            if arr.shape[0] != CONFIG4_FLEET:
+                raise AssertionError("config4: %s has shape %s"
+                                     % (k, arr.shape))
+            for r, s in enumerate(sums):
+                got = row_sums(arr[s["positions"]])
+                if not np.array_equal(got, s[k]):
+                    raise AssertionError(
+                        "config4: %s of rank %d's instances: file sums %s, "
+                        "the rank's %s" % (k, r, got[:3], s[k][:3]))
+            del arr
+        gcm = [k for k in data.files if k.startswith("gcm_")]
+        if gcm != [k for k in ref.files if k.startswith("gcm_")] or any(
+                data[k].shape != ref[k].shape for k in gcm):
+            raise AssertionError("config4: the checkpoint's GCM leaves are "
+                                 "not the whole state of one process's")
+    return time.time() - t0, len(les)
+
+
+def config4_first_step(ref_times, ref_groups, rec, cols):
+    """(ii): rank 0's step-1 records of cols against the reference's:
+    record_diffs on the first record."""
+    ref = {c: {v: ref_groups[c][v][:1] for v in CONFIG4_VARS} for c in cols}
+    got = {"Time": np.asarray(rec["Time"][:1])}
+    got.update({"%d/%s" % (c, v): rec["%d/%s" % (c, v)][:1] for c in cols
+                for v in CONFIG4_VARS})
+    return record_diffs(ref_times[:1], ref, got)
+
+
+def phase_config4(card):
+    """(g): BASELINE config 4 at its stated size (CONFIG4_CONF, 256
+    columns) through the CLI on CONFIG4_RANKS cards (config4_rank, nccl),
+    then its first CONFIG4_REF_N columns through the CLI on card 0 without
+    a mesh; holds (i) the GCM's replicated state the same on every rank,
+    (ii) step 1 of rank 0's first columns against card 0's run, (iii)
+    every instance's records finite on every step and every instance
+    substepping, (iv) rank 0's checkpoint against every rank's sums; each
+    rank's lesstage launches 3 x its substep calls. The checkpoint lies in
+    a temporary directory (its free space printed first) and is removed
+    after (iv). Writes chiprun_out/chip_smoke_config4.json."""
+    import shutil
+    import tempfile
+    t_phase = time.time()
+    res = dict(card=card, conf=CONFIG4_CONF, args=CONFIG4_ARGS)
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        log("config4 (g): temporary directory %s, %.1f GB free" % (
+            tmp, free / 1e9))
+        conf = os.path.join(tmp, "config4.json")
+        with open(conf, "w") as f:
+            json.dump(CONFIG4_CONF, f)
+        report = os.path.join(tmp, "c4")
+        odir = os.path.join(tmp, "run")
+        wall = run_rank_set("cards_config4", CONFIG4_RANKS, CONFIG4_TIMEOUT,
+                            ["--config4-rank", odir, conf, report],
+                            os.path.join(tmp, "store"), backend="nccl")
+        reps, sums = [], []
+        for r in range(CONFIG4_RANKS):
+            with open("%s.%d.json" % (report, r)) as f:
+                reps.append(json.load(f))
+            sums.append(dict(np.load("%s.%d.sums.npz" % (report, r))))
+        check_transport("config4", reps, "nccl")
+        per = CONFIG4_FLEET // CONFIG4_RANKS
+        nlat = reps[0]["rows"] * CONFIG4_RANKS
+        for rep in reps:
+            r = rep["rank"]
+            if rep["positions"] != list(range(per * r, per * (r + 1))) or \
+                    rep["bands"] != [CONFIG4_RANKS, r * nlat // CONFIG4_RANKS,
+                                     (r + 1) * nlat // CONFIG4_RANKS]:
+                raise AssertionError("config4: rank %d holds positions "
+                                     "%s..., GCM band %s" % (
+                                         r, rep["positions"][:2],
+                                         rep["bands"]))
+            check_launches("config4 rank %d" % r, rep["launches"],
+                           rep["loop_substeps"])
+        r0 = reps[0]
+        # (iii)
+        sub = np.asarray(r0["substeps"])
+        if sub.shape != (CONFIG4_STEPS, CONFIG4_FLEET) or not np.all(sub > 0):
+            raise AssertionError("config4: substeps of shape %s, %d "
+                                 "instance-steps without one" % (
+                                     sub.shape, int(np.sum(sub <= 0))))
+        rec = np.load(report + ".records.npz")
+        cols = sorted({int(k.split("/")[0]) for k in rec.files
+                       if k != "Time"})
+        if len(cols) != CONFIG4_FLEET or len(rec["Time"]) != CONFIG4_STEPS:
+            raise AssertionError("config4: %d columns, %d records"
+                                 % (len(cols), len(rec["Time"])))
+        groups = {c: {v: rec["%d/%s" % (c, v)] for v in CONFIG4_VARS}
+                  for c in cols}
+        check_finite_records("config4", groups, cols, CONFIG4_STEPS,
+                             CONFIG4_VARS)
+        # (ii) on card 0, no mesh
+        ref_dir = os.path.join(tmp, "ref")
+        ref_cols, argv = config4_argv(ref_dir, conf, CONFIG4_REF_N,
+                                      mesh=False)
+        torch.cuda.reset_peak_memory_stats()
+        (runner, ref_walls, launches), calls = counted_substeps(
+            lambda: cli_leg(argv, tee_writer()))
+        check_launches("config4 reference", launches, calls)
+        if runner.sp_cols != ref_cols or ref_cols != cols[:CONFIG4_REF_N]:
+            raise AssertionError("config4 reference: columns %s, rank 0's "
+                                 "first %s" % (runner.sp_cols,
+                                               cols[:CONFIG4_REF_N]))
+        ref_sub = runner.substeps
+        ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del runner
+        torch.cuda.empty_cache()
+        ref_times, ref_groups = read_records(os.path.join(ref_dir,
+                                                          "spifs.nc"))
+        diffs = config4_first_step(ref_times, ref_groups, rec,
+                                   cols[:CONFIG4_REF_N])
+        slack = int(np.max(np.abs(sub[0, :CONFIG4_REF_N]
+                                  - np.asarray(ref_sub[0]))))
+        if slack > C_SUBSTEP_SLACK:
+            raise AssertionError("config4: step 1's substeps %s, card 0's "
+                                 "%s" % (sub[0, :CONFIG4_REF_N].tolist(),
+                                         ref_sub[0]))
+        # (iv)
+        path = os.path.join(odir, "restart.npz")
+        hold_s, n_leaves = check_config4_checkpoint(
+            path, os.path.join(ref_dir, "restart.npz"), sums)
+        os.remove(path)
+    res.update(
+        rank_set_s=wall, ranks=reps, reference=dict(
+            walls=ref_walls, substeps=ref_sub, launches=launches,
+            loop_substeps=calls, peak_gib=ref_peak),
+        step1_diffs=diffs, substep_slack=slack, checkpoint_hold_s=hold_s,
+        fleet_leaves=n_leaves, seconds=time.time() - t_phase)
+    for rep in reps:
+        log("config4 (g) rank %d (%s, %s): positions %d..%d, GCM rows %s, "
+            "step walls %s s, own evolve %.1f s, lesstage %d = 3 x %d "
+            "substep calls, peak %.2f GiB before the checkpoint and %.2f "
+            "GiB after, checkpoint %s s" % (
+                rep["rank"], rep["device"], rep["card"], rep["positions"][0],
+                rep["positions"][-1], rep["bands"][1:], ["%.2f" % w for w in
+                                                        rep["walls"]],
+                rep["evolve_s"], rep["launches"]["lesstage"],
+                rep["loop_substeps"], rep["peak_run_gib"], rep["peak_gib"],
+                ["%.2f" % x for x in rep["save_s"]]))
+    log("config4 (g): T255/L19 + %d x 128x128x160 on %d cards, %d steps, "
+        "the rank set %.1f s; spifs.nc %d bytes, timing.txt %d step rows, "
+        "host-I/O column %s s; "
+        "checkpoint %d bytes, written in %.2f s, %d fleet leaves held "
+        "against every rank's sums in %.1f s; card 0 alone at %d columns: "
+        "step walls %s s, peak %.2f GiB, step-1 records within PROFILE_TOL "
+        "(largest %s), substeps within %d; %.1f s in all on %s" % (
+            CONFIG4_FLEET, CONFIG4_RANKS, CONFIG4_STEPS, wall,
+            r0["spifs_bytes"], len(r0["timing_rows"]),
+            [row[-1] for row in r0["timing_rows"]], r0["checkpoint_bytes"],
+            r0["save_s"][0], n_leaves, hold_s, CONFIG4_REF_N,
+            ["%.2f" % w for w in ref_walls], ref_peak,
+            max(diffs.items(), key=lambda kv: kv[1]), slack,
+            res["seconds"], card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_config4.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return res
+
+
 def cards_main(n_cards):
     """``chip_smoke.py --cards N``: the nccl phases (a)-(f) on N cards,
     one card a rank. Raises without a card or with fewer than N cards
@@ -3665,6 +4062,8 @@ def cards_main(n_cards):
         log("cards: (b)-(d) take 4 ranks: python3 chip_smoke.py --cards 4")
     res["e"] = attempt("(e)", phase_card_kernels, card, n_cards)
     res["f"] = attempt("(f)", phase_scaling, card, n_cards)
+    if n_cards >= CONFIG4_RANKS:
+        res["g"] = attempt("(g)", phase_config4, card)
     res.update(seconds=time.time() - t0, fails=fails)
     with open(os.path.join(OUT_DIR, "chip_smoke_cards.json"), "w") as f:
         json.dump(res, f, indent=1, default=str)
@@ -4095,4 +4494,6 @@ if __name__ == "__main__":
         sys.exit(bands_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--bands-cli-rank"]:
         sys.exit(bands_cli_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--config4-rank"]:
+        sys.exit(config4_rank(*sys.argv[2:5]))
     sys.exit(main())

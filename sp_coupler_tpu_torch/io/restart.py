@@ -2,24 +2,33 @@
 
 Port of ``sp_coupler_tpu/io/restart.py``. The coupled state is two trees
 (GCM state, LES fleet state) plus the LES profiles of the generic path; a
-checkpoint is one compressed npz of their leaves and a small JSON of host
-scalars, in the run's output directory. The leaves are numbered in
+checkpoint is one npz of their leaves and a small JSON of host scalars, in
+the run's output directory. The leaves are numbered in
 ``jax.tree.flatten`` order (``utils/tree.py``) under the same
 ``gcm_i``/``les_i``/``prof_i`` keys, so a checkpoint written by either
 package loads into the other. Resume reopens spifs.nc in append mode (the
 driver writes nothing on the first restarted step, splib.py:272-274).
 
 In a multi-process run the file holds the whole fleet: ``save`` gathers
-every rank's block (the planes over each plane's ranks, then the rows over
-the les slots, and a banded GCM's grid space over its latitude bands; a
-collective: every rank calls it) and rank 0 writes; ``load`` reads the
-file on every rank and keeps the rank's block of rows and planes and its
-GCM band. So a checkpoint resumes under any decomposition.
+the planes over each plane's ranks and a banded GCM's grid space over its
+latitude bands, and rank 0 alone collects the fleet's rows, one leaf of
+one les slot at a time through its host (``sharding.rows_to_root``; a
+collective: every rank calls it), writing each leaf as it arrives;
+``load`` reads the file on every rank and keeps the rank's block of rows
+and planes and its GCM band. So a checkpoint resumes under any
+decomposition.
+
+The members are stored, not deflated (the JAX package deflates them;
+``np.load`` reads both): BASELINE config 4's fleet is ~18.8 GB, which
+zlib on one host thread takes tens of minutes to deflate while the other
+ranks wait. The file is written under a temporary name and renamed when
+whole, so a failed save leaves no short restart.npz.
 """
 
 import json
 import logging
 import os
+import zipfile
 
 import numpy as np
 import torch
@@ -38,6 +47,26 @@ def _flatten(tag, state):
     leaves, _ = tree.flatten(state)
     return {"%s_%d" % (tag, i): np.asarray(to_numpy(x))
             for i, x in enumerate(leaves)}
+
+
+class NpzWriter:
+    """An .npz written one member at a time, as ``np.savez`` writes it (a
+    zip64 member ``KEY.npy`` an array), the members stored; at ``path``
+    once ``close`` has run, under ``path + ".part"`` until then."""
+
+    def __init__(self, path):
+        self.path = path
+        self.zf = zipfile.ZipFile(path + ".part", "w", zipfile.ZIP_STORED,
+                                  allowZip64=True)
+
+    def add(self, key, arr):
+        with self.zf.open(key + ".npy", "w", force_zip64=True) as f:
+            np.lib.format.write_array(f, np.asanyarray(arr),
+                                      allow_pickle=False)
+
+    def close(self):
+        self.zf.close()
+        os.replace(self.path + ".part", self.path)
 
 
 def _unflatten(tag, data, template, rows=None, plane=None):
@@ -67,7 +96,7 @@ def _fleet_rows(fleet):
 
 def save(runner):
     """Write the checkpoint (rank 0); a collective under a les mesh."""
-    out = {}
+    root = pmesh.rank() == 0
     meta = {
         "gcm_time": float(runner.gcm.get_model_time()),
         "fleet_time": float(getattr(runner.fleet, "time", 0.0)),
@@ -75,25 +104,37 @@ def save(runner):
         "rain_last": [float(x) for x in np.asarray(runner.rain_last)],
         "gcm_step": int(getattr(runner.gcm, "step_count", 0)),
     }
+    gcm = {}
     if hasattr(runner.gcm, "state"):
         core = getattr(runner.gcm, "core", None)
         state = runner.gcm.state
-        out.update(_flatten("gcm", state if core is None
-                            else core.whole_state(state)))
-    if getattr(runner.fleet, "state", None) is not None:
-        state = runner.fleet.state
-        if getattr(runner.fleet, "plane", None) is not None:
-            state = runner.fleet.plane.gather_fields(state)
-        out.update(_flatten("les", shd.gather_rows(
-            state, getattr(runner.fleet, "mesh", None),
-            getattr(runner.fleet, "n", 0))))
-    if pmesh.rank() != 0:
-        return      # the gather above is collective; rank 0 owns the file
-    if runner.prev_profiles is not None:
-        out.update(_flatten("prof", runner.prev_profiles))
-        meta["has_profiles"] = True
+        state = state if core is None else core.whole_state(state)
+        gcm = _flatten("gcm", state) if root else {}
     path = os.path.join(runner.cfg.output_dir, FNAME)
-    np.savez_compressed(path, **out)
+    out = NpzWriter(path) if root else None
+    try:
+        for key, arr in gcm.items():
+            out.add(key, arr)
+        if getattr(runner.fleet, "state", None) is not None:
+            state = runner.fleet.state
+            if getattr(runner.fleet, "plane", None) is not None:
+                state = runner.fleet.plane.gather_fields(state)
+            for i, leaf in enumerate(shd.rows_to_root(
+                    state, getattr(runner.fleet, "mesh", None),
+                    getattr(runner.fleet, "n", 0))):
+                if root:
+                    out.add("les_%d" % i, leaf)
+        if not root:
+            return      # rank 0 owns the file
+        if runner.prev_profiles is not None:
+            for key, arr in _flatten("prof", runner.prev_profiles).items():
+                out.add(key, arr)
+            meta["has_profiles"] = True
+        out.close()
+    finally:
+        if out is not None and os.path.exists(path + ".part"):
+            out.zf.close()
+            os.remove(path + ".part")
     with open(os.path.join(runner.cfg.output_dir, META), "w") as f:
         json.dump(meta, f)
     log.info("restart written to %s", path)

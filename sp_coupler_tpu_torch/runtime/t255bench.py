@@ -21,7 +21,9 @@ this process after the run, and records its peak of device memory or
 that it ran out of memory. --report writes
 sp_coupler_tpu_torch/verify/T255_H100.md: the measured row, the peak of
 device memory, the fleet sizes tried with --fit (the largest that fit
-and the smallest that did not) and the card's name and power limit.
+and the smallest that did not) and the card's name and power limit; the
+file's section on four cards (the whole config through the CLI,
+chip_smoke.py --cards 4) is kept.
 
 Every clock is read after a device synchronise. Runs on the card unless
 --device cpu is given, and raises where there is no card.
@@ -50,6 +52,9 @@ from ..models.les import step as lstep
 
 REPORT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "verify", "T255_H100.md")
+# the report's section on four cards (chip_smoke.py --cards 4, phase (g)),
+# which --report keeps
+CARDS_SECTION = "\n## On four cards"
 
 
 def columns(core, n):
@@ -201,8 +206,14 @@ def write_report(path, args, row, extras, device, tried=()):
         json.dumps(row),
         "```",
     ]
+    kept = ""
+    if os.path.exists(path):
+        with open(path) as f:
+            old = f.read()
+        if CARDS_SECTION in old:
+            kept = old[old.index(CARDS_SECTION):]
     with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write("\n".join(lines) + "\n" + kept)
     print("wrote", path, flush=True)
 
 

@@ -32,6 +32,14 @@ ranks, against the JAX package and against one process, on the CPU.
   within verify/parity.py's PROFILE_TOL, each rank's grid nlat / P rows;
   checkpoints of a banded run resume in 1 process and the reverse; with
   a dummy LES fleet the fleet declines the mesh and the GCM stays banded.
+- BASELINE config 4's layout at a small size (T21/L19 SL hybrid, 32 rows
+  in 4 bands of 8, + 4 x 16x16x32, batched, evolve_chunks 2, --mesh_les 4
+  --gcmprocs 4, one instance a rank): rank 0's checkpoint equals, key by
+  key, in order and bit for bit, the one restart.save writes in one
+  process from the state every rank held as it saved; ranks 1-3 are
+  given no fleet rows by sharding.rows_to_root, rank 0 every leaf whole.
+  (A 1-process run of the same case is no reference bit for bit: the
+  bands' analysis sums and the batch of 4 against 1 round apart.)
 
 Every rank is a subprocess of tests/torch_mp_worker.py (one thread each),
 meeting through a file store in tmp_path.
@@ -51,6 +59,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from sp_coupler_tpu.models.gcm import model as jgcm, spharm as jspharm
 from sp_coupler_tpu.parallel import mesh as jmesh
 from sp_coupler_tpu_torch import interop
+from sp_coupler_tpu_torch.io import restart
 from sp_coupler_tpu_torch.models.gcm import model as gcm_model, spharm
 from sp_coupler_tpu_torch.parallel import bands as pbands, mesh as pmesh
 from test_torch_parallel import CONF, read_spifs, reports, run_ranks
@@ -289,21 +298,51 @@ def _cli_sets(tmp, runs):
         return {name: f.result() for name, f in futs.items()}
 
 
+# config 4's layout, small: a column in each band of T21's 32 rows
+C4_CONF = dict(les_itot=16, les_jtot=16, les_ktot=32, les_xsize=3200.0,
+               les_ysize=3200.0, les_dz=100.0, gcm_hybrid=True,
+               gcm_advection="sl", les_schedule="batched",
+               les_evolve_chunks=2)
+C4_COLS = [3 * 64 + 5, 11 * 64 + 20, 19 * 64 + 40, 27 * 64 + 60]
+C4_MESH = ["--mesh_les", "4", "--gcmprocs", "4"]
+
+
+def _config4_small(tmp):
+    """The ckpt mode of the worker on 4 ranks, C4_CONF at C4_COLS."""
+    with open(tmp / "c4.json", "w") as f:
+        json.dump(C4_CONF, f)
+    sht = spharm.SpectralTransform(21, device="cpu")
+    lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
+    pts = []
+    for c in C4_COLS:
+        pts += ["%.6f" % lats[c // 64], "%.6f" % lons[c % 64]]
+    prefix = tmp / "report_c4"
+    run_ranks(tmp / "store_c4", RANKS, "ckpt", prefix, "--trunc", "21",
+              "--levels", "19", "--gcm_dt", "900", "--les_dt", "15",
+              "--steps", "1", "--device", "cpu", "--points", *pts,
+              "--conf", tmp / "c4.json", "--odir", tmp / "c4", *C4_MESH)
+    return reports(prefix, RANKS)
+
+
 @pytest.fixture(scope="module")
 def cli_bands(tmp_path_factory):
     """1 process, --mesh_les 2 --gcmprocs 2 on 2 ranks, --lesprocs 4
     --gcmprocs 4 on 4 ranks, the dummy LES fleet in 1 process and banded
-    on 2 ranks; then the single run's checkpoint resumed in 1 process (the
-    reference) and banded on 2 ranks, the banded run's in 1 process. The
-    runs of each group at once, one thread a rank."""
+    on 2 ranks, config 4's layout on 4 ranks (_config4_small); then the
+    single run's checkpoint resumed in 1 process (the reference) and
+    banded on 2 ranks, the banded run's in 1 process. The runs of each
+    group at once, one thread a rank."""
     tmp = tmp_path_factory.mktemp("cli_bands")
     with open(tmp / "conf.json", "w") as f:
         json.dump(CONF, f)
     dummy = ["--lestype", "dummy"]
     out = {"tmp": tmp}
-    out.update(_cli_sets(tmp, [
-        ("single", 1), ("ml2g2", 2, *ML2G2), ("lp4g4", 4, *LP4G4),
-        ("dummy_1", 1, *dummy), ("dummy_b", 2, *dummy, *ML2G2)]))
+    with ThreadPoolExecutor(1) as pool:
+        config4 = pool.submit(_config4_small, tmp)
+        out.update(_cli_sets(tmp, [
+            ("single", 1), ("ml2g2", 2, *ML2G2), ("lp4g4", 4, *LP4G4),
+            ("dummy_1", 1, *dummy), ("dummy_b", 2, *dummy, *ML2G2)]))
+        out["config4"] = config4.result()
     resumes = [("s_to_1", "single", 1), ("b_to_1", "ml2g2", 1),
                ("s_to_b", "single", 2, *ML2G2)]
     for name, src, *_ in resumes:
@@ -368,3 +407,71 @@ def test_dummy_fleet_declines_the_mesh_bands_stay(cli_bands):
     a = read_spifs(str(tmp / "dummy_1" / "spifs.nc"))
     b = read_spifs(str(tmp / "dummy_b" / "spifs.nc"))
     record_diffs(a, b)
+
+
+def _one_process_checkpoint(kept, reps, odir):
+    """restart.save in this process (no process group) of the state the
+    ranks held as they saved (the worker's ckpt mode): the fleet's rows
+    of every rank in position order, rank 0's whole GCM state, profiles
+    and scalars."""
+    from types import SimpleNamespace
+    r0 = kept[0]
+    order = np.argsort(np.concatenate([k["positions"] for k in kept]))
+
+    def leaves(prefix, whole):
+        """{"000": leaf 0, ...}: the tree of one process's state, its
+        leaves in the checkpoint's order."""
+        n = sum(1 for k in r0 if k.startswith(prefix + "_"))
+        return {"%03d" % i: torch.as_tensor(whole("%s_%d" % (prefix, i)))
+                for i in range(n)}
+
+    fleet = leaves("les", lambda k: np.concatenate(
+        [kp[k] for kp in kept])[order])
+    runner = SimpleNamespace(
+        gcm=SimpleNamespace(state=leaves("gcm", r0.__getitem__),
+                            get_model_time=lambda: float(r0["time_gcm"]),
+                            step_count=int(r0["step_gcm"])),
+        fleet=SimpleNamespace(state=fleet, time=float(r0["time_fleet"]),
+                              n=len(order)),
+        prev_profiles=(leaves("prof", r0.__getitem__)
+                       if r0["has_profiles"] else None),
+        rain_last=r0["rain_last"],
+        sp_cols=reps[0]["sp_cols"],
+        cfg=SimpleNamespace(output_dir=str(odir)))
+    odir.mkdir()
+    restart.save(runner)
+
+
+def test_config4_checkpoint_equals_one_process(cli_bands):
+    tmp = cli_bands["tmp"]
+    reps = cli_bands["config4"]
+    assert all(r["rc"] == 0 for r in reps)
+    kept = [dict(np.load(tmp / ("report_c4.%d.npz" % r)))
+            for r in range(RANKS)]
+    _one_process_checkpoint(kept, reps, tmp / "c4_one")
+    with np.load(tmp / "c4" / "restart.npz") as a, \
+            np.load(tmp / "c4_one" / "restart.npz") as b:
+        assert a.files == b.files              # the keys, in order
+        assert any(k.startswith("les_") for k in a.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            assert a[k].shape == b[k].shape, k
+            assert a[k].tobytes() == b[k].tobytes(), k
+    with open(tmp / "c4" / "restart.json") as f, \
+            open(tmp / "c4_one" / "restart.json") as g:
+        assert json.load(f) == json.load(g)
+
+
+def test_config4_rows_reach_rank0_alone(cli_bands):
+    """sharding.rows_to_root gives rank 0 every fleet leaf of all 4
+    instances and ranks 1-3 nothing; each rank holds its own instance and
+    its band of 8 rows."""
+    reps = cli_bands["config4"]
+    given = reps[0]["rows_to_root"]
+    assert len(given) == 15 and all(g[0] == 4 for g in given)  # LESState
+    for r, rep in enumerate(reps):
+        assert rep["positions"] == [r] and rep["held"] == 1
+        assert rep["gcm_bands"] == [RANKS, 8 * r, 8 * r + 8]
+        assert rep["sp_cols"] == C4_COLS
+        if r:
+            assert rep["rows_to_root"] == [None] * len(given)

@@ -140,19 +140,28 @@ def test_kernel_matches_plain_at_128_planes_on_card(dev, inputs, n):
     torch.cuda.synchronize()
 
 
-# the fleet benches' batches of 64x64x160 (chip_smoke.FLEET_N): the
-# default launch geometry's levels per z-chunk at each
-FLEET_TZ = {3: 32, 4: 40, 8: 80, 16: 160, 32: 160, 64: 160}
+# the fleets' batches (chip_smoke.FLEET_SHAPES): of 64x64x160 the fleet
+# benches' (chip_smoke.FLEET_N), of 128x128x160 phase_t255's 4 and
+# BASELINE config 4's 64 a card (phase_config4); the default launch
+# geometry's levels per z-chunk at each
+FLEET_TZ = {(64, 3): 32, (64, 4): 40, (64, 8): 80, (64, 16): 160,
+            (64, 32): 160, (64, 64): 160, (128, 4): 160, (128, 64): 160}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", cs.FLEET_N)
-def test_kernel_matches_plain_at_fleet_batches_on_card(dev, n):
+@pytest.mark.parametrize("shape, n", [(s, n) for s, n, _ in cs.FLEET_SHAPES],
+                         ids=["%dx%dx%d-%d" % (*s, n)
+                              for s, n, _ in cs.FLEET_SHAPES])
+def test_kernel_matches_plain_at_fleet_batches_on_card(dev, shape, n):
     """chip_smoke.py's check of the stage kernel (check_stage) at the
-    batches of schedulebench (n = 3, 4), batchbench (8, 16, 32, 64) and
-    the T159 leg (64), each in its default launch geometry."""
-    grid = lgrid.LESGrid()
-    assert lesstage.stage_geometry(n, 160, 64, 64).tz == FLEET_TZ[n]
+    batches of schedulebench (n = 3, 4), batchbench (8, 16, 32, 64), the
+    T159 leg (64), phase_t255 (4 of 128x128x160) and a card of config 4
+    (64 of 128x128x160, its references 4 instances at a time), each in
+    its default launch geometry."""
+    nx, ny, nz = shape
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    assert lesstage.stage_geometry(n, nz, ny, nx).tz == FLEET_TZ[(nx, n)]
+    assert cs.ref_chunk(grid, n) == (4 if (nx, n) == (128, 64) else None)
     cur, base, frc, dt = cs.stage_inputs(grid, n, 7 + n)
     cs.check_stage(lesstage.stage_fused_cuda, grid, lstep.LESPhysics(), cur,
                    base, frc, dt)

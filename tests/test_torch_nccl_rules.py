@@ -12,6 +12,12 @@
   ``get_backend`` a tensor that reports cuda:0 (``OnCard``) is handed to
   the collective as it is, and a CPU tensor, or one on another card,
   raises (``mesh.staged``).
+- ``sharding.rows_to_root`` (the checkpoint's collection of the fleet):
+  a rank of slot s > 0 sends its block of each leaf to rank 0 alone, from
+  its card under nccl and staged under gloo, one leaf at a time and each
+  send done before the next; rank 0 receives one slot's block of one leaf
+  at a time and yields each leaf whole in position order; a rank off
+  (ix, iy) = (0, 0) sends nothing and is given nothing.
 - Barriers name the rank's card under nccl (scalebench's included), the
   parity report names the process's current card, and ranks that build
   the same kernel at once each leave one complete library.
@@ -263,6 +269,72 @@ def test_collectives_stage_under_gloo_only(world, name):
     world("gloo")
     with pytest.raises(Staged):
         COLLECTIVES[name]()
+
+
+@pytest.fixture
+def p2p(monkeypatch):
+    """dist.send / dist.recv stubbed: sends are recorded; a receive from
+    rank r fills its buffer with 100 r + the row index and is recorded."""
+    sent, received, synced = [], [], []
+    monkeypatch.setattr(dist, "send", lambda t, dst, group=None:
+                        sent.append((t, dst, group)))
+
+    def recv(t, src, group=None):
+        rows = torch.arange(t.shape[0], dtype=t.dtype).reshape(
+            (-1,) + (1,) * (t.dim() - 1))
+        t.copy_(100 * src + rows.expand(t.shape))
+        received.append((tuple(t.shape), src, group))
+
+    monkeypatch.setattr(dist, "recv", recv)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
+                        SimpleNamespace(synchronize=lambda: synced.append(
+                            len(sent))))
+    return SimpleNamespace(sent=sent, received=received, synced=synced)
+
+
+def test_rows_to_root_sends_from_the_card_under_nccl(world, p2p):
+    """Rank 1 of slot 1 (les = 2): its block of each leaf goes to rank 0
+    as it lies on the card, each send synchronised before the next; it is
+    given nothing. Under gloo the same tensors go through host memory."""
+    world("nccl")
+    tree = {"a": on_card(2, 3), "b": on_card(2)}
+    got = list(sharding.rows_to_root(tree, pmesh.LesMesh(2, 1), 4))
+    assert got == [None, None]
+    assert [(type(t), dst) for t, dst, _ in p2p.sent] == [(OnCard, 0)] * 2
+    assert p2p.synced == [1, 2] and not p2p.received
+    world("gloo")
+    with pytest.raises(Staged):
+        list(sharding.rows_to_root(tree, pmesh.LesMesh(2, 1), 4))
+
+
+def test_rows_to_root_gives_rank0_each_leaf_whole(world, p2p):
+    """Rank 0 of les = 3 slots of 2 rows (n = 5: slot 2 holds one): each
+    leaf whole in position order, its own rows first, then one slot's
+    block at a time from that slot's rank at (0, 0), on the host."""
+    world("gloo")
+    mesh = pmesh.LesMesh(3, 0, x=2, y=1)
+    own = {"a": torch.full((2, 4), -1.0), "b": torch.full((2,), -2.0)}
+    got = list(sharding.rows_to_root(own, mesh, 5))
+    assert [g.shape for g in got] == [(5, 4), (5,)]
+    assert got[0][:, 0].tolist() == [-1, -1, 200, 201, 400]
+    assert got[1].tolist() == [-2, -2, 200, 201, 400]
+    assert p2p.received == [((2, 4), 2, None), ((1, 4), 4, None),
+                            ((2,), 2, None), ((1,), 4, None)]
+    assert not p2p.sent
+
+
+def test_rows_to_root_off_the_first_block_sends_nothing(world, p2p):
+    """A rank at (ix, iy) != (0, 0) (its slot's planes reach rank 0 from
+    (0, 0)) and a rank of a mesh without a les axis: None a leaf, nothing
+    sent or received; without a mesh the leaves on the host."""
+    world("nccl")
+    tree = {"a": on_card(2, 3), "b": on_card(2)}
+    assert list(sharding.rows_to_root(
+        tree, pmesh.LesMesh(2, 3, x=2, y=1), 4)) == [None, None]
+    assert not p2p.sent and not p2p.received
+    plain = {"a": torch.ones(2, 3)}
+    (whole,) = sharding.rows_to_root(plain, None, 2)
+    assert whole.tolist() == [[1.0] * 3] * 2
 
 
 def test_staged_refuses_what_nccl_cannot_move(world, monkeypatch):

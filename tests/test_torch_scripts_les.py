@@ -92,7 +92,7 @@ def jax_line_keys():
 def test_coupled_step_row_and_report(tmp_path, capsys):
     """A warm step and one coupled step at T10/L8 + 2 x 8x8x16: finite
     profiles of [2, 16], the script's keys plus les_schedule and peak_gib,
-    and the report."""
+    and the report, which keeps its section on four cards."""
     args = t255bench.parser().parse_args(
         ["--n", "2", "--steps", "1", "--trunc", "10", "--nlev", "8",
          "--nx", "8", "--ny", "8", "--nz", "16", "--les_schedule",
@@ -116,6 +116,13 @@ def test_coupled_step_row_and_report(tmp_path, capsys):
     text = open(args.report).read()
     assert "Card: cpu." in text and "not measured" in text
     assert "2 instances of 8x8x16" in text and json.dumps(row) in text
+    # the section on four cards (chip_smoke.py --cards 4) stays
+    cards = t255bench.CARDS_SECTION + "\n\nThe whole config.\n"
+    with open(args.report, "a") as f:
+        f.write(cards)
+    t255bench.write_report(args.report, args, row, extras,
+                           torch.device("cpu"))
+    assert open(args.report).read() == text + cards
 
 
 def test_defaults_are_the_scripts():

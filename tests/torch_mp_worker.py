@@ -14,6 +14,13 @@ Modes:
   cli REPORT ARGV...      spmaster.build_runner(ARGV) + drive; each rank
                           writes REPORT.<rank>.json (what it held and
                           wrote)
+  ckpt REPORT ARGV...     cli, and as the checkpoint is saved each rank
+                          writes REPORT.<rank>.npz: its own rows of every fleet
+                          leaf, and on rank 0 the GCM's whole state, the
+                          profiles and the checkpoint's scalars; the
+                          report also lists what sharding.rows_to_root
+                          gave the checkpoint on the rank (each leaf's
+                          shape, or None)
   misc ODIR REPORT        scalebench.measure(sizes=[1, 2]) and a driver run
                           of 3 instances with --mesh_les 2 (unsharded);
                           each rank writes REPORT.<rank>.json
@@ -83,9 +90,46 @@ def evolve(inp, out):
     pmesh.shutdown()
 
 
-def cli(report, argv):
+def keep_state(runner, path):
+    """The state the checkpoint is about to hold (restart.save's), as
+    this rank has it: its fleet rows; on rank 0 also the GCM's whole
+    state (a collective: every rank calls it), the profiles and the
+    scalars."""
+    from sp_coupler_tpu_torch.utils import tree
+    core = runner.gcm.core
+    gcm = tree.flatten(core.whole_state(runner.gcm.state))[0]
+    arrays = {"les_%d" % i: x.numpy()
+              for i, x in enumerate(tree.flatten(runner.fleet.state)[0])}
+    arrays["positions"] = np.asarray(runner.fleet.positions)
+    if pmesh.rank() == 0:
+        arrays.update({"gcm_%d" % i: x.numpy() for i, x in enumerate(gcm)})
+        arrays.update({"prof_%d" % i: np.asarray(x) for i, x in enumerate(
+            tree.flatten(runner.prev_profiles)[0])})
+        arrays["has_profiles"] = runner.prev_profiles is not None
+        arrays.update(time_gcm=runner.gcm.get_model_time(),
+                      time_fleet=runner.fleet.time,
+                      rain_last=np.asarray(runner.rain_last),
+                      step_gcm=runner.gcm.step_count)
+    np.savez(path, **arrays)
+
+
+def cli(report, argv, keep=False):
     from sp_coupler_tpu_torch import spmaster
+    from sp_coupler_tpu_torch.io import restart
+    from sp_coupler_tpu_torch.parallel import sharding
     runner = spmaster.build_runner(argv)
+    given, rows_to_root, save = [], sharding.rows_to_root, restart.save
+    if keep:
+        def kept_save(r):
+            keep_state(r, "%s.%d.npz" % (report, pmesh.rank()))
+            return save(r)
+
+        def noted_rows(*a, **kw):
+            for leaf in rows_to_root(*a, **kw):
+                given.append(None if leaf is None else list(leaf.shape))
+                yield leaf
+
+        restart.save, sharding.rows_to_root = kept_save, noted_rows
     try:
         rc = spmaster.drive(runner)
         core = getattr(runner.gcm, "core", None)
@@ -109,8 +153,10 @@ def cli(report, argv):
                       else int(runner.gcm.state.grid.T.shape[-2])),
             mesh_shape=runner.mesh.shape if runner.mesh is not None else None,
             cross=sorted(runner.crossio.writers) if runner.crossio else [],
-            substeps=runner.substeps, gcm_replicated=True)
+            substeps=runner.substeps, gcm_replicated=True,
+            rows_to_root=given)
     finally:
+        restart.save, sharding.rows_to_root = save, rows_to_root
         pmesh.shutdown()
     with open("%s.%d.json" % (report, rep["rank"]), "w") as f:
         json.dump(rep, f)
@@ -415,6 +461,8 @@ def main():
         return evolve(*args)
     if mode == "cli":
         return cli(args[0], args[1:])
+    if mode == "ckpt":
+        return cli(args[0], args[1:], keep=True)
     if mode == "misc":
         return misc(*args)
     if mode == "spatial":
