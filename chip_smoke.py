@@ -76,8 +76,11 @@ Phases (any failure raises and exits non-zero):
      spmaster for 2 coupled steps, the second through call_phased; the
      stage kernel launches 3 x the substeps the run reports, the records
      are finite and timing.txt has its phase columns; then the same run
-     restarted from its restart.npz appends a record; then a small run
-     (T10/L8 + 2 x 16x16x32) with the Smagorinsky closure and the
+     resumed from its restart.npz by a plain --restart (no
+     --restart_overlap: the JAX package's semantics) recomputes the
+     overlap step unwritten and appends one record, the stage kernel
+     launched 3 x its substeps, the overlap step's included; then a small
+     run (T10/L8 + 2 x 16x16x32) with the Smagorinsky closure and the
      variability nudge, where lesflat and lesmom launch 3 x substeps.
      Every leg writes spifs.nc through the port's default writer (h5lite;
      the card's host has no h5py), and the file, read back through the
@@ -177,8 +180,18 @@ Phases (any failure raises and exits non-zero):
   16. the golden replay (phase_replay, on the host): tests/golden/spifs.nc
      (gzip + shuffle, 16 columns, 101 records) read through the port's
      reader, its 100 steps replayed through the port's driver (ncreplay),
-     every column and step compared, each tendency within REPLAY_TOL of
-     its scale (tests/test_torch_replay.py's checks);
+     every column and step compared, each tendency within
+     golden.REPLAY_TOL of its scale (tests/test_torch_replay.py's checks;
+     verify/golden.py's replay);
+  16b. BASELINE config 2 at full width through the CLI (phase_config2_join:
+     T21/L19 + 16 x 64x64x160, --cplsurf, gzip 4, verify/golden.py's
+     case): --steps 2 straight (golden.record, a process of its own run
+     beside the rest) and in legs of --steps 1 + 1 here (the second
+     --restart, both --restart_overlap): the legs' 3 records equal the
+     straight run's bit for bit, the straight recording passes
+     golden.replay, each run's lesstage launches 3 x its substeps (the
+     unwritten overlap step's included); the straight spifs.nc is copied
+     to chiprun_out/config2_join/;
   17. the columns bench (phase_columns): runtime/columnbench.py at
      T63/L19 + 64 SP columns of 64x64x160, batched, 2 coupled steps: its
      JSON row and peak_gib, lesstage launched 3 x the batched loop's
@@ -231,10 +244,14 @@ instances 0-3 within PROFILE_TOL of card 0's and their substeps within
 C_SUBSTEP_SLACK, (iii) every record finite and every instance
 substepping, (iv) rank 0's checkpoint holding every leaf at [256, ...]
 and the whole GCM state, each instance's float64 sums equal to its
-rank's; each card's step walls, evolve seconds and peak, rank 0's
-spifs.nc bytes, timing.txt rows and checkpoint seconds and bytes are
-printed. Every rank reports its backend and the CUDA tensors its
-collectives took through the host (0 under nccl). It raises with fewer
+rank's, (v) one step resumed from that checkpoint on the same mesh
+(config4_resume_rank: --steps 0 --restart --restart_overlap), each rank
+reading only its rows of each fleet leaf, its loaded per-instance sums
+equal to the saved ones, the step's diagnostics finite; each card's
+step walls, evolve seconds and peak, rank 0's spifs.nc bytes,
+timing.txt rows and checkpoint seconds and bytes, and each rank's load
+seconds and bytes read are printed. Every rank reports its backend and
+the CUDA tensors its collectives took through the host (0 under nccl). It raises with fewer
 than N cards; with N = 2, (b)-(d) and (g) do not run. Every phase runs; any failure fails the run at the end, and ranks
 that hang end it at once. Its last line is {"ok": true, "device": {...,
 "count": N}}; summary in chiprun_out/chip_smoke_cards.json ((g) also in
@@ -252,6 +269,7 @@ import subprocess
 import sys
 import time
 import traceback
+import zipfile
 
 import numpy as np
 import torch
@@ -1758,6 +1776,7 @@ def phase_cli(card, main_steps):
     bare CoupledStepFn, printed beside the CLI's."""
     import importlib.util
     import tempfile
+    from sp_coupler_tpu_torch.verify import golden
     writer = tee_writer()
     have_h5py = importlib.util.find_spec("h5py") is not None
     res = dict(card=card, h5py=have_h5py)
@@ -1814,19 +1833,28 @@ def phase_cli(card, main_steps):
             "read by spnc.read_cdf and scipy: %s; the writes took %s s in "
             "the steps" % (cross, ["%.4f" % w for w in runner.cross_walls]))
 
-        # 2. the restart: loads restart.npz, appends one record
+        # 2. the restart (a plain --restart, the JAX package's semantics):
+        # loads restart.npz, recomputes the overlap step without writing
+        # it, appends one record
         runner, walls, launches = cli_leg(argv + ["--restart"], writer)
+        check_launches("cli restart", launches,
+                       golden.leg_substeps(runner.summary()),
+                       PATH_KERNELS["tke"])
         times, groups = read_records(spifs_path)
-        if len(times) != 3 or launches["lesstage"] == 0:
-            raise AssertionError("cli restart: %d records (want 3), "
-                                 "launches %s" % (len(times), launches))
+        if len(times) != 3 or len(runner.overlap_substeps) != 1:
+            raise AssertionError("cli restart: %d records (want 3), overlap "
+                                 "steps %s" % (len(times),
+                                               runner.overlap_substeps))
         check_finite_records("cli restart", groups, RUN_T21_COLS, 3,
                              ("thl", "f_T", "A_d", "z0m", "wthl", "rain"))
         res["spifs_restart"] = spifs_file(spifs_path, have_h5py)
         legs.append(dict(name="restart", walls=walls, launches=launches,
-                         times=times))
-        log("cli restart: %d records at %s s, step walls %s, launches %s"
-            % (len(times), times, ["%.3f" % w for w in walls], launches))
+                         times=times, substeps=runner.substeps,
+                         overlap_substeps=runner.overlap_substeps))
+        log("cli restart: %d records at %s s, step walls %s, substeps %s + "
+            "overlap %s, launches %s" % (
+                len(times), times, ["%.3f" % w for w in walls],
+                runner.substeps, runner.overlap_substeps, launches))
 
         # 3. small: Smagorinsky split path + the variability nudge
         odir3 = os.path.join(tmp, "nudge")
@@ -3837,6 +3865,92 @@ def config4_rank(odir, conf, report):
     return 0
 
 
+def config4_resume_rank(odir, conf, report):
+    """One rank of phase_config4's resume (``chip_smoke.py
+    --config4-resume-rank ODIR CONF REPORT``, SPTPU_DIST_* set,
+    CONFIG4_RANKS ranks): config 4 through the CLI from the checkpoint in
+    ODIR with the same mesh, --steps 0 --restart --restart_overlap (one
+    step, the overlap step, which writes no record, and no checkpoint at
+    the end). restart.load reads the rank's rows of each fleet leaf alone;
+    the loaded fleet's per-instance float64 sums go to
+    REPORT.<rank>.sums.npz, the load's seconds and bytes read to
+    REPORT.<rank>.json, with whether the step's diagnostics (the record
+    the step would write) are finite and every instance substepped."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
+    from sp_coupler_tpu_torch import card_line
+    from sp_coupler_tpu_torch.io import restart
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    from sp_coupler_tpu_torch.utils import tree
+    _, argv = config4_argv(odir, conf, CONFIG4_FLEET)
+    argv[argv.index("--steps") + 1] = "0"
+    argv += ["--restart", "--restart_overlap"]
+    load, loaded, held = restart.load, {}, {}
+
+    def summed_load(runner):
+        load(runner)
+        torch.cuda.synchronize()
+        loaded.update(positions=np.asarray(runner.fleet.positions), **{
+            "les_%d" % i: row_sums(x.cpu().numpy())
+            for i, x in enumerate(tree.flatten(runner.fleet.state)[0])})
+
+    def before_finalize(runner):
+        p = runner._pending_record
+        d = runner.coupled.unpack_diag(p["diag"])
+        held.update(
+            overlap=not p.get("write", True),
+            finite=all(bool(np.all(np.isfinite(d["les"][k])))
+                       for k in ("THL", "QT", "U"))
+            and all(bool(np.all(np.isfinite(d["tend"][k])))
+                    for k in ("T", "SH")),
+            substeps=np.asarray(d["n_substeps"]).tolist())
+
+    restart.load = summed_load
+    try:
+        runner, walls, launches = cli_leg(argv, None, before_finalize)
+        rank = pmesh.rank()
+        np.savez("%s.%d.sums.npz" % (report, rank), **loaded)
+        rep = dict(rank=rank, device=str(runner.device),
+                   card=card_line(runner.device), walls=walls,
+                   launches=launches, load=runner.restart_load,
+                   step=runner.gcm.step_count, **held, **transport())
+    finally:
+        restart.load = load
+        pmesh.shutdown()
+    with open("%s.%d.json" % (report, rank), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def check_config4_resume(reps, sums, loaded, path):
+    """The resume's ranks against the run that wrote the checkpoint: each
+    rank's loaded per-instance sums equal to the sums it had before the
+    checkpoint, its bytes read no more than its share of the fleet's
+    leaves and the whole GCM state, one overlap step taken, finite and
+    every instance substepping. Returns (fleet bytes, GCM bytes)."""
+    with zipfile.ZipFile(path) as z:
+        size = {i.filename[:-4]: i.file_size for i in z.infolist()}
+    fleet = sum(v for k, v in size.items() if k.startswith("les_"))
+    gcm = sum(v for k, v in size.items() if not k.startswith("les_"))
+    for r, (rep, want, got) in enumerate(zip(reps, sums, loaded)):
+        if got["positions"].tolist() != want["positions"].tolist() or any(
+                not np.array_equal(got[k], want[k])
+                for k in want if k.startswith("les_")):
+            raise AssertionError("config4 resume: rank %d's loaded fleet "
+                                 "sums differ from its saved ones" % r)
+        if rep["load"]["bytes_read"] > fleet / CONFIG4_RANKS + gcm:
+            raise AssertionError("config4 resume: rank %d read %d bytes, "
+                                 "its share %d + the GCM's %d" % (
+                                     r, rep["load"]["bytes_read"],
+                                     fleet // CONFIG4_RANKS, gcm))
+        if not (rep["overlap"] and rep["finite"]
+                and rep["step"] == CONFIG4_STEPS + 1
+                and min(rep["substeps"]) > 0
+                and rep["launches"]["lesstage"] > 0):
+            raise AssertionError("config4 resume: rank %d %s" % (r, rep))
+    return fleet, gcm
+
+
 def check_config4_checkpoint(path, ref_path, sums):
     """(iv): the checkpoint at path holds every fleet leaf at
     [CONFIG4_FLEET, ...], each instance's float64 sums equal to those its
@@ -3975,13 +4089,29 @@ def phase_config4(card):
         path = os.path.join(odir, "restart.npz")
         hold_s, n_leaves = check_config4_checkpoint(
             path, os.path.join(ref_dir, "restart.npz"), sums)
+        # (v) the resume, one step on the same mesh
+        rreport = os.path.join(tmp, "c4r")
+        resume_wall = run_rank_set(
+            "cards_config4_resume", CONFIG4_RANKS, CONFIG4_TIMEOUT,
+            ["--config4-resume-rank", odir, conf, rreport],
+            os.path.join(tmp, "store_resume"), backend="nccl")
+        rreps, loaded = [], []
+        for r in range(CONFIG4_RANKS):
+            with open("%s.%d.json" % (rreport, r)) as f:
+                rreps.append(json.load(f))
+            loaded.append(dict(np.load("%s.%d.sums.npz" % (rreport, r))))
+        check_transport("config4 resume", rreps, "nccl")
+        fleet_bytes, gcm_bytes = check_config4_resume(rreps, sums, loaded,
+                                                      path)
         os.remove(path)
     res.update(
         rank_set_s=wall, ranks=reps, reference=dict(
             walls=ref_walls, substeps=ref_sub, launches=launches,
             loop_substeps=calls, peak_gib=ref_peak),
         step1_diffs=diffs, substep_slack=slack, checkpoint_hold_s=hold_s,
-        fleet_leaves=n_leaves, seconds=time.time() - t_phase)
+        fleet_leaves=n_leaves, resume=dict(
+            rank_set_s=resume_wall, ranks=rreps, fleet_bytes=fleet_bytes,
+            gcm_bytes=gcm_bytes), seconds=time.time() - t_phase)
     for rep in reps:
         log("config4 (g) rank %d (%s, %s): positions %d..%d, GCM rows %s, "
             "step walls %s s, own evolve %.1f s, lesstage %d = 3 x %d "
@@ -3993,6 +4123,17 @@ def phase_config4(card):
                 rep["evolve_s"], rep["launches"]["lesstage"],
                 rep["loop_substeps"], rep["peak_run_gib"], rep["peak_gib"],
                 ["%.2f" % x for x in rep["save_s"]]))
+    for rep in rreps:
+        log("config4 (g) resume rank %d (%s): restart.load %.2f s, %d bytes "
+            "read of the checkpoint's %d of fleet leaves (its share %d) and "
+            "%d of GCM state; loaded per-instance sums equal to the saved "
+            "ones; the overlap step %s s, finite, substeps %d-%d, lesstage "
+            "%d" % (rep["rank"], rep["card"], rep["load"]["seconds"],
+                    rep["load"]["bytes_read"], fleet_bytes,
+                    fleet_bytes // CONFIG4_RANKS, gcm_bytes,
+                    ["%.2f" % w for w in rep["walls"]], min(rep["substeps"]),
+                    max(rep["substeps"]), rep["launches"]["lesstage"]))
+    log("config4 (g) resume: the rank set %.1f s" % resume_wall)
     log("config4 (g): T255/L19 + %d x 128x128x160 on %d cards, %d steps, "
         "the rank set %.1f s; spifs.nc %d bytes, timing.txt %d step rows, "
         "host-I/O column %s s; "
@@ -4014,9 +4155,9 @@ def phase_config4(card):
 
 
 def cards_main(n_cards):
-    """``chip_smoke.py --cards N``: the nccl phases (a)-(f) on N cards,
-    one card a rank. Raises without a card or with fewer than N cards
-    (never runs on fewer, nor over gloo). The last line is the contract's
+    """``chip_smoke.py --cards N``: the nccl phases (a)-(g) on N cards,
+    one card a rank. Raises without a card or with fewer than N cards (never
+    runs on fewer, nor over gloo). The last line is the contract's
     {"ok": true, ...} with the count of cards used."""
     if n_cards not in CARD_COUNTS:
         raise ValueError("--cards %d: 2 or 4" % n_cards)
@@ -4082,8 +4223,6 @@ def cards_main(n_cards):
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden")
-TENDENCIES = ("f_U", "f_V", "f_T", "f_SH", "f_QL", "f_QI", "f_A")
-REPLAY_TOL = 1e-5        # of each tendency's scale (tests/test_golden.py)
 # columnbench's case here: T63/L19 + 64 SP columns of 64x64x160 (RICO,
 # TKE), batched, 2 coupled steps (the first builds and warms up)
 COLUMNS_ARGV = ["--sizes", "64", "--trunc", "63", "--nlev", "19", "--nx",
@@ -4094,65 +4233,108 @@ COLUMNS_ARGV = ["--sizes", "64", "--trunc", "63", "--nlev", "19", "--nx",
 def phase_replay(card):
     """tests/golden/spifs.nc (gzip + shuffle, 16 columns, 101 records)
     read on this host through the port's reader, and replayed through the
-    port's driver on the host as tests/test_torch_replay.py does: every
-    column and step compared, each tendency within REPLAY_TOL of its
-    scale."""
-    import tempfile
-    from sp_coupler_tpu_torch.config import SPConfig
-    from sp_coupler_tpu_torch.io import spifs
-    from sp_coupler_tpu_torch.runtime.driver import SPRunner
-    from sp_coupler_tpu_torch.utils import geometry
-    t0 = time.time()
+    port's driver on the host (verify/golden.py's replay, as
+    tests/test_torch_replay.py does): every column and step compared,
+    each tendency within golden.REPLAY_TOL of its scale."""
+    from sp_coupler_tpu_torch.verify import golden
     with open(os.path.join(GOLDEN, "golden_meta.json")) as f:
         meta = json.load(f)
-    steps = meta["steps"]
-    ds = spifs.open_reader(os.path.join(GOLDEN, "spifs.nc"))
-    try:
-        cols = sorted(int(g) for g in ds.groups)
-        n_rec = len(np.asarray(ds.variables["Time"][:]))
-        scale = {}
-        for g in ds.groups.values():
-            for var in ("T", "thl", "u", "Psurf") + TENDENCIES:
-                a = np.asarray(g.variables[var][:])
-                if not np.all(np.isfinite(a)):
-                    raise AssertionError("replay: non-finite %s" % var)
-                if var in TENDENCIES:
-                    scale[var] = max(scale.get(var, 0.0),
-                                     float(np.max(np.abs(a))))
-    finally:
-        ds.close()
-    if cols != meta["columns"] or n_rec < steps:
-        raise AssertionError("replay: columns %s, %d records" % (cols, n_rec))
-    poly = geometry.Polygon(geometry.parse_lat_lons(
-        [float(v) for v in meta["poly_lat_lon"]]))
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = SPConfig(gcm_type="ncfile", les_type="ncfile",
-                       gcm_input_dir=GOLDEN, les_input_dir=GOLDEN,
-                       gcm_steps=steps, cplsurf=True, max_num_les=16,
-                       output_dir=os.path.join(tmp, "out"))
-        r = SPRunner(cfg, geometries=[poly], device="cpu")
-        r.initialize()
-        r.run(steps)
-        r.finalize(save_restart=False)
-    mm = r.gcm.mismatches
-    worst = {}
-    for _, var, _, d in mm:
-        worst[var] = max(worst.get(var, 0.0), d)
-    rel = {v: worst[v] / max(scale[v], 1e-30) for v in worst}
-    if (len(mm) != len(TENDENCIES) * len(cols) * steps
-            or set(worst) != set(TENDENCIES)
-            or max(rel.values()) > REPLAY_TOL):
-        raise AssertionError("replay: %d comparisons, worst |diff|/scale %s"
-                             % (len(mm), rel))
-    wall = time.time() - t0
+    res = golden.replay(GOLDEN)
+    if res["columns"] != len(meta["columns"]) or res["steps"] < meta["steps"]:
+        raise AssertionError("replay: %s, golden_meta.json %s" % (res, meta))
+    rel = res["worst_rel"]
     log("replay: tests/golden/spifs.nc (%d columns, %d records, gzip + "
         "shuffle) read through spifs.open_reader (h5lite) on this host, "
         "%d steps replayed on the host, %d tendency comparisons, largest "
         "|diff| / scale %.3g (%s; limit %g), %.1f s"
-        % (len(cols), n_rec, steps, len(mm), max(rel.values()),
-           max(rel, key=rel.get), REPLAY_TOL, wall))
-    return dict(columns=len(cols), records=n_rec, comparisons=len(mm),
-                worst_rel=rel, wall_s=wall)
+        % (res["columns"], res["records"], res["steps"], res["comparisons"],
+           max(rel.values()), max(rel, key=rel.get), res["tol"],
+           res["wall_s"]))
+    return res
+
+
+# BASELINE config 2 (verify/golden.py's config2: T21/L19 + 16 x 64x64x160,
+# --cplsurf, gzip 4) straight for --steps 2 and in legs of --steps 1 + 1
+# (--restart_overlap, the second leg --restart)
+JOIN_STEPS, JOIN_LEG, JOIN_COLUMNS = 2, 1, 16
+
+
+def phase_config2_join(card):
+    """BASELINE config 2 at full width through the CLI, the run
+    verify/golden.py records: a straight run of --steps JOIN_STEPS
+    (golden.record, a spmaster process of its own, beside this process's
+    work: both are host-bound) and the same steps in legs of JOIN_LEG in
+    this process, resumed through --restart. Holds the legs' records
+    equal to the straight run's bit for bit, the straight recording
+    through golden.replay, each run's lesstage launches 3 x its substeps
+    (the legs' unwritten overlap step included; golden.record holds the
+    straight run's from its run summary) and the legs' file against what
+    its writer was handed. Copies the straight spifs.nc to
+    chiprun_out/config2_join/ (to compare with a longer recording).
+    Returns the legs' launches."""
+    import shutil
+    import tempfile
+    from sp_coupler_tpu_torch.verify import golden
+    t0 = time.time()
+    writer = tee_writer()
+    runs, lines = [], []
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        dirs = {k: os.path.join(tmp, k) for k in ("straight", "legs")}
+        straight_run = pool.submit(golden.record, dirs["straight"],
+                                   JOIN_STEPS, JOIN_STEPS, 42, "config2")
+        conf = os.path.join(tmp, "conf.json")
+        with open(conf, "w") as f:
+            json.dump(dict(golden.CASES["config2"]["conf"], seed=42), f)
+        for k, n in enumerate(golden.leg_plan(JOIN_STEPS, JOIN_LEG)):
+            argv = golden.leg_argv("config2", n, dirs["legs"], conf, k)
+            torch.cuda.reset_peak_memory_stats()
+            runner, walls, launches = cli_leg(argv, writer)
+            summary = runner.summary()
+            check_launches("config2 legs leg %d" % k, launches,
+                           golden.leg_substeps(summary))
+            if len(runner.sp_cols) != JOIN_COLUMNS:
+                raise AssertionError("config2: %d columns"
+                                     % len(runner.sp_cols))
+            runs.append(launches)
+            lines.append("legs leg %d: walls %s s, substeps %s + overlap "
+                         "%s, peak %.2f GiB" % (
+                             k, ["%.2f" % w for w in walls],
+                             [sum(x) for x in summary["substeps"]],
+                             [sum(x) for x in summary["overlap_substeps"]],
+                             summary["card_peak_gib"] or 0.0))
+            del runner
+            torch.cuda.empty_cache()
+        times, _ = read_records(os.path.join(dirs["legs"], "spifs.nc"))
+        leg = straight_run.result()["legs"][0]
+        lines.insert(0, "straight (its own process): walls %s s, substeps "
+                     "%s, lesstage %d, peak %.2f GiB" % (
+                         ["%.2f" % w for w in leg["step_walls"]],
+                         [sum(x) for x in leg["substeps"]],
+                         leg["launches"]["lesstage"],
+                         leg["card_peak_gib"] or 0.0))
+        straight, legs = (golden.read_recording(dirs[k])
+                          for k in ("straight", "legs"))
+        bad = golden.exact_diffs(legs, straight)
+        if bad or len(times) != JOIN_STEPS + 1 or not np.array_equal(
+                legs[0], straight[0]):
+            raise AssertionError("config2: the legs' %d records differ from "
+                                 "the straight run's: %s"
+                                 % (len(times), bad[:10]))
+        check_finite_records("config2", straight[1], sorted(straight[1]),
+                             JOIN_STEPS + 1, CONFIG4_VARS)
+        out = os.path.join(OUT_DIR, "config2_join")
+        os.makedirs(out, exist_ok=True)
+        shutil.copy(os.path.join(dirs["straight"], "spifs.nc"), out)
+        log("config2_join: %s" % "; ".join(lines))
+        replay = golden.replay(dirs["straight"])
+    log("config2_join: T21/L19 + 16 x 64x64x160 (--cplsurf, gzip 4), "
+        "--steps %d straight and in legs of %d: every record of the legs "
+        "equal to the straight run's bit for bit; %s; replay of the "
+        "straight run %d comparisons, largest |diff| / scale %.3g; %.1f s "
+        "on %s" % (JOIN_STEPS, JOIN_LEG, "; ".join(lines),
+                   replay["comparisons"], max(replay["worst_rel"].values()),
+                   time.time() - t0, card))
+    return runs
 
 
 def phase_columns(card):
@@ -4449,6 +4631,7 @@ def main():
     runs += halo_runs
     runs += phase_gcm_bands(card, single, t159_first)
     phase_replay(card)
+    runs += phase_config2_join(card)
     runs.append(phase_columns(card))
     rows = phase_gcm_scale(card)
     tl = phase_tl639(card)
@@ -4496,4 +4679,6 @@ if __name__ == "__main__":
         sys.exit(bands_cli_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--config4-rank"]:
         sys.exit(config4_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--config4-resume-rank"]:
+        sys.exit(config4_resume_rank(*sys.argv[2:5]))
     sys.exit(main())

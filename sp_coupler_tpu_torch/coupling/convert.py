@@ -30,16 +30,22 @@ class ConvertedProfiles(NamedTuple):
     QT: torch.Tensor      # [n, L] qt on GCM levels
 
 
-def convert_profiles(prof, zf_les):
-    """GCM profile dict ([n, L] arrays) -> ConvertedProfiles."""
+def convert_profiles(prof, zf_les, heights=None):
+    """GCM profile dict ([n, L] arrays) -> ConvertedProfiles. heights:
+    (Zf, Zh) above the surface where the GCM gives them itself (a
+    replayed one, ``ReplayGCM.get_heights``), else from the geopotential
+    (Zgfull, Zghalf)."""
     U, V, T = prof["U"], prof["V"], prof["T"]
     SH, QL, QI = prof["SH"], prof["QL"], prof["QI"]
     Pf, Ph = prof["Pfull"], prof["Phalf"]
-    Zgf, Zgh = prof["Zgfull"], prof["Zghalf"]
 
     Tv = thermo.virtual_temperature(T, SH, QL + QI)
-    Zh = (Zgh - Zgh[..., -1:]) / c.grav
-    Zf = (Zgf - Zgh[..., -1:]) / c.grav
+    if heights is None:
+        Zgf, Zgh = prof["Zgfull"], prof["Zghalf"]
+        Zh = (Zgh - Zgh[..., -1:]) / c.grav
+        Zf = (Zgf - Zgh[..., -1:]) / c.grav
+    else:
+        Zf, Zh = heights
     thl_ = thermo.thl_from_T(T, Pf, QL + QI)
     qt_ = SH + QL + QI
 

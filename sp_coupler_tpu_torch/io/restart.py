@@ -14,9 +14,19 @@ the planes over each plane's ranks and a banded GCM's grid space over its
 latitude bands, and rank 0 alone collects the fleet's rows, one leaf of
 one les slot at a time through its host (``sharding.rows_to_root``; a
 collective: every rank calls it), writing each leaf as it arrives;
-``load`` reads the file on every rank and keeps the rank's block of rows
-and planes and its GCM band. So a checkpoint resumes under any
-decomposition.
+``load`` reads on every rank only the rank's block of rows of each fleet
+leaf (``NpzReader``: a stored member's rows straight from the file), cuts
+them to its block of the planes, and keeps its GCM band. So a checkpoint
+resumes under any decomposition, and BASELINE config 4's ranks read a
+quarter of its fleet each.
+
+Under ``--restart_overlap`` a checkpoint written while a step's record
+is still pending (write-behind: that option's save, or a periodic one)
+keeps that record's rain (``rain_pending``), which a run resumed under
+the same option hands on as the record's flush would have: its rainrate
+diagnostic is then the uninterrupted run's. Without the option neither
+is done, and a resumed run's rain_last is the checkpoint's through the
+overlap step, as in the JAX package.
 
 The members are stored, not deflated (the JAX package deflates them;
 ``np.load`` reads both): BASELINE config 4's fleet is ~18.8 GB, which
@@ -28,6 +38,8 @@ whole, so a failed save leaves no short restart.npz.
 import json
 import logging
 import os
+import struct
+import time
 import zipfile
 
 import numpy as np
@@ -69,20 +81,99 @@ class NpzWriter:
         os.replace(self.path + ".part", self.path)
 
 
+class NpzReader:
+    """The arrays of an .npz by key, and rows of them: a stored member
+    (``NpzWriter``, ``np.savez``) is read in place, from the member's data
+    offset past its .npy header, only the rows asked for; a deflated one
+    (``np.savez_compressed``, the JAX package's checkpoints) whole through
+    ``np.load``. ``bytes_read`` counts the array bytes read."""
+
+    CHUNK = 1 << 30     # bytes a read call: os.preadv reads ~2 GiB at most
+
+    def __init__(self, path):
+        self.path = path
+        self.zf = zipfile.ZipFile(path)
+        self.files = [n[:-4] for n in self.zf.namelist()
+                      if n.endswith(".npy")]
+        self.fd = os.open(path, os.O_RDONLY)
+        self.bytes_read = 0
+        self._npz = None
+
+    def close(self):
+        os.close(self.fd)
+        self.zf.close()
+        if self._npz is not None:
+            self._npz.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _layout(self, info):
+        """(offset of the array's first byte, shape, dtype) of a stored,
+        C-ordered member; None for any other."""
+        if info.compress_type != zipfile.ZIP_STORED:
+            return None
+        with self.zf.open(info) as f:
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            header = f.tell()
+        if fortran or dtype.hasobject:
+            return None
+        # the local header's name and extra fields may differ in length
+        # from the central directory's
+        name, extra = struct.unpack(
+            "<HH", os.pread(self.fd, 30, info.header_offset)[26:30])
+        return (info.header_offset + 30 + name + extra + header, shape,
+                dtype)
+
+    def get(self, key, rows=None):
+        """The array of key, or its rows (a slice of the first axis)."""
+        layout = self._layout(self.zf.getinfo(key + ".npy"))
+        if layout is None or (rows is not None and rows.step not in
+                              (None, 1)):
+            if self._npz is None:
+                self._npz = np.load(self.path)
+            arr = self._npz[key]
+            self.bytes_read += arr.nbytes
+            return arr if rows is None else arr[rows]
+        off, shape, dtype = layout
+        if rows is None or not shape:
+            out, start = np.empty(shape, dtype), off
+        else:
+            r0, r1, _ = rows.indices(shape[0])
+            out = np.empty((max(r1 - r0, 0),) + tuple(shape[1:]), dtype)
+            start = off + r0 * int(np.prod(shape[1:], dtype=np.int64)) \
+                * dtype.itemsize
+        view, got = memoryview(out.reshape(-1).view(np.uint8)), 0
+        while got < len(view):
+            n = os.preadv(self.fd, [view[got:got + self.CHUNK]],
+                          start + got)
+            if n <= 0:
+                raise IOError("%s: %s ends %d bytes short" % (
+                    self.path, key, len(view) - got))
+            got += n
+        self.bytes_read += got
+        return out
+
+
 def _unflatten(tag, data, template, rows=None, plane=None):
-    """template's tree with its leaves replaced by data's (their rows
-    rows, where given, and of a leaf of 4 dims [n, nz(+1), ny, nx] the
-    block of plane, where given), in order: a tensor leaf becomes a tensor
-    on its device, others stay numpy."""
+    """template's tree with its leaves replaced by data's (an NpzReader;
+    their rows rows, where given, read alone, and of a leaf of 4 dims [n,
+    nz(+1), ny, nx] the block of plane, where given), in order: a tensor
+    leaf becomes a tensor on its device, others stay numpy."""
     leaves, spec = tree.flatten(template)
     new = []
     for i, leaf in enumerate(leaves):
-        arr = data["%s_%d" % (tag, i)]
-        arr = arr if rows is None else arr[rows]
+        arr = data.get("%s_%d" % (tag, i), rows)
         if plane is not None and arr.ndim == 4:
             arr = arr[..., plane.y0:plane.y0 + plane.by,
                       plane.x0:plane.x0 + plane.bx]
-        arr = np.array(arr)
+        arr = np.ascontiguousarray(arr)
         new.append(torch.as_tensor(arr, device=leaf.device)
                    if isinstance(leaf, torch.Tensor) else arr)
     return tree.unflatten(spec, iter(new))
@@ -104,6 +195,10 @@ def save(runner):
         "rain_last": [float(x) for x in np.asarray(runner.rain_last)],
         "gcm_step": int(getattr(runner.gcm, "step_count", 0)),
     }
+    pending = (runner.pending_rain()
+               if getattr(runner, "restart_overlap", False) else None)
+    if pending is not None:
+        meta["rain_pending"] = [float(x) for x in pending]
     gcm = {}
     if hasattr(runner.gcm, "state"):
         core = getattr(runner.gcm, "core", None)
@@ -141,10 +236,14 @@ def save(runner):
 
 
 def load(runner):
+    """Resume runner from the checkpoint in its output directory; the
+    seconds it took and the bytes of arrays read go to
+    ``runner.restart_load``."""
+    t0 = time.time()
     path = os.path.join(runner.cfg.output_dir, FNAME)
     with open(os.path.join(runner.cfg.output_dir, META)) as f:
         meta = json.load(f)
-    with np.load(path) as data:
+    with NpzReader(path) as data:
         if hasattr(runner.gcm, "state"):
             state = _unflatten("gcm", data, runner.gcm.state)
             core = getattr(runner.gcm, "core", None)
@@ -170,5 +269,14 @@ def load(runner):
         if meta.get("has_profiles") and runner.prev_profiles is None:
             runner.prev_profiles = _unflatten(
                 "prof", data, to_numpy(runner.fleet.get_profiles()))
+        bytes_read = data.bytes_read
     runner.rain_last = np.asarray(meta["rain_last"])
-    log.info("restart loaded from %s (gcm t=%s)", path, meta["gcm_time"])
+    if "rain_pending" in meta and getattr(runner, "restart_overlap", False):
+        runner._pending_record = dict(write=False,
+                                      rain=np.asarray(meta["rain_pending"]))
+    runner.restart_load = dict(seconds=time.time() - t0,
+                               bytes_read=bytes_read,
+                               file_bytes=os.path.getsize(path))
+    log.info("restart loaded from %s (gcm t=%s): %d bytes of arrays read "
+             "in %.2f s", path, meta["gcm_time"], bytes_read,
+             runner.restart_load["seconds"])

@@ -156,6 +156,24 @@ class ReplayGCM(_ReplayBase):
                 out.append(np.asarray(g.variables[var][s]))
         return np.stack(out)
 
+    def get_heights(self, cols):
+        """The recorded heights of cols above the surface, (Zf [n, L], Zh
+        [n, L + 1], its top half level as Zghalf's above): the driver takes
+        them as the recorded run did. Back through Zgfull = Zf * grav, a
+        float32 division does not return every recorded height (at
+        27,786 m the quotients of neighbouring float32s lie 1.6 ulps
+        apart), and an ulp of height can move the LES T interpolated to
+        that level by an ulp of T: f_T by an ulp of T / dt."""
+        zf, zh = [], []
+        for col in cols:
+            g = self._group(col)
+            s = min(self.step, len(g.variables["T"]) - 1)
+            f = np.asarray(g.variables["Zf"][s])
+            h = np.asarray(g.variables["Zh"][s])
+            zf.append(f)
+            zh.append(np.concatenate([[2.0 * f[0] - h[0]], h]))
+        return np.stack(zf), np.stack(zh)
+
     def get_profile_field(self, var, col):
         return self.get_profile_fields(var, [col])[0]
 

@@ -38,6 +38,7 @@ gathered planes.
 import datetime
 import logging
 import os
+import resource
 import time
 
 import numpy as np
@@ -146,10 +147,17 @@ class SPRunner:
     RuntimeError where there is none; in a multi-process run on the card,
     the rank's own card). writer: the spifs.nc writer class, called as
     ``spifs.SpifsWriter`` is (its default); rank 0 alone uses it.
+    restart_overlap (spmaster's --restart_overlap): ``run(n)`` writes the
+    checkpoint after its step n - 1, before the last step, and
+    ``finalize`` writes none. spmaster runs --steps + 1 steps, the last
+    being the overlap step, which a run resumed from that checkpoint
+    recomputes without writing it: legs of --steps L1, L2, ... join
+    without a gap in Time and hold the records of one run of --steps
+    L1 + L2 + ....
     """
 
     def __init__(self, config=None, geometries=(), output_geometries=(),
-                 device=None, writer=None):
+                 device=None, writer=None, restart_overlap=False):
         self.cfg = config if isinstance(config, SPConfig) else read_config(
             config)
         self.device = default_device(device)
@@ -168,6 +176,10 @@ class SPRunner:
         self.firststep = True
         self.step_index = 0  # coupled steps taken (write_every cadence)
         self.substeps = []   # LES substeps per instance of each record
+        self.clamped = []    # dts clamped at les_dt_min, per instance
+        self.overlap_substeps = []   # substeps of the unwritten overlap step
+        self.step_walls = []  # host seconds of each step of run()
+        self.restart_overlap = restart_overlap
         self.timing_file = None
         self._timing_header_done = False
         self._half_step_done = False
@@ -446,6 +458,15 @@ class SPRunner:
                 for var in ("U", "V", "T", "SH", "QL", "QI", "Pfull",
                             "Phalf", "A", "Zgfull", "Zghalf")}
 
+    def _convert(self, prof, cols):
+        """convert_profiles of prof, the heights a replayed GCM recorded
+        (``ReplayGCM.get_heights``) taken as they are."""
+        get = getattr(self.gcm, "get_heights", None)
+        heights = None if get is None else tuple(
+            torch.as_tensor(np.asarray(h, np.float32), device=self.device)
+            for h in get(cols))
+        return convert.convert_profiles(self._t(prof), self._les_zf, heights)
+
     def _column_record(self, prof, conv, i):
         """spifs.nc GCM variables of column i of prof (numpy) and conv
         (numpy dict of ConvertedProfiles)."""
@@ -461,7 +482,7 @@ class SPRunner:
         """gather_gcm_data + convert_profiles for all SP columns."""
         prof = self._gcm_profiles(self.sp_cols)
         self._last_gcm_prof = prof
-        conv = convert.convert_profiles(self._t(prof), self._les_zf)
+        conv = self._convert(prof, self.sp_cols)
         self._last_conv = conv
         if write and self.writer is not None:
             cv = to_numpy(conv)
@@ -480,7 +501,7 @@ class SPRunner:
         if not self.output_cols:
             return None
         prof = self._gcm_profiles(self.output_cols)
-        cv = to_numpy(convert.convert_profiles(self._t(prof), self._les_zf))
+        cv = to_numpy(self._convert(prof, self.output_cols))
         return [(col, dict(self._column_record(prof, cv, i), A=prof["A"][i]))
                 for i, col in enumerate(self.output_cols)]
 
@@ -637,6 +658,8 @@ class SPRunner:
             raise FloatingPointError(
                 "non-finite LES state in column(s) %s" % bad)
         ncl = np.asarray(d.get("n_dtmin_clamped", 0))
+        self.clamped.append([int(x) for x in np.broadcast_to(
+            ncl, (len(self.sp_cols),))])
         if np.any(ncl > 0):
             bad = [self.sp_cols[i] for i in np.where(ncl > 0)[0]]
             log.warning("stability-required dt clamped at dt_min in "
@@ -695,11 +718,25 @@ class SPRunner:
     def _flush_pending(self):
         """Drain the previous step's spifs record (write-behind): called
         right after the next step is run, as the reference syncs its
-        output while the LES fleet evolves (splib.py:573-574)."""
+        output while the LES fleet evolves (splib.py:573-574). A record
+        that is not written (``write`` False: the overlap step of a
+        resumed run, or the pending rain a checkpoint kept) only hands
+        on its rain, as a written one does through rain_last, under
+        restart_overlap alone: a plain resume keeps the checkpoint's
+        rain_last through the overlap step, as the JAX package's does."""
         p = self._pending_record
         if p is None:
             return
         self._pending_record = None
+        if not p.get("write", True):
+            if "diag" in p:
+                d = self.coupled.unpack_diag(p["diag"])
+                self.overlap_substeps.append(
+                    [int(x) for x in d["n_substeps"]])
+                p = dict(rain=d["rain"])
+            if self.restart_overlap:
+                self.rain_last = np.asarray(p["rain"])
+            return
         if p["time"] is not None:
             self.writer.update_time(p["time"])
         self._write_fused_diag(p["diag"])
@@ -763,6 +800,10 @@ class SPRunner:
                 io_wall -= time.time()
                 self._flush_pending()
                 io_wall += time.time()
+        elif cfg.restart and self.firststep:
+            # the overlap step: its record is not written (its substeps
+            # are counted at the next step's flush)
+            self._pending_record = dict(write=False, diag=diag)
         self._sync()
         self._write_cross(t + dt)
         step_wall = time.time() - start - max(io_wall, 0.0)
@@ -869,18 +910,51 @@ class SPRunner:
 
     def run(self, nsteps):
         for s in range(nsteps):
+            t0 = time.time()
             # trace the second step, past the Euler start (a device trace
             # on request beside the per-step timing.txt)
             if self.cfg.jax_profile and s == 1:
                 self._profiled_step()
             else:
                 self.step()
+            self.step_walls.append(time.time() - t0)
             log.info("---- time step %d done ----", s)
             self._log_memory()
-            if (self.cfg.restart_steps > 0
-                    and (s + 1) % self.cfg.restart_steps == 0):
+            if ((self.cfg.restart_steps > 0
+                 and (s + 1) % self.cfg.restart_steps == 0)
+                    or (self.restart_overlap and s + 2 == nsteps)):
                 from ..io import restart as restart_io
                 restart_io.save(self)
+
+    def pending_rain(self):
+        """The rain of the record still pending (write-behind), which the
+        next step's flush makes rain_last; None without one."""
+        p = self._pending_record
+        if p is None:
+            return None
+        if "rain" in p:
+            return np.asarray(p["rain"])
+        return np.asarray(self.coupled.unpack_diag(p["diag"])["rain"])
+
+    def summary(self):
+        """What this process ran, for a harness to read from the log: the
+        substeps and clamped dts of each written record, the overlap
+        step's substeps, the step walls, the kernels' launches, the host's
+        peak RSS and the card's peak of allocated memory."""
+        from ..ops import lesstage, lesflat, lesmom, advect
+        out = dict(serial=bool(getattr(self.fleet, "serial", True)),
+                   substeps=self.substeps, clamped=self.clamped,
+                   overlap_substeps=self.overlap_substeps,
+                   step_walls=self.step_walls,
+                   launches={m.__name__.rsplit(".", 1)[1]: m.launches
+                             for m in (lesstage, lesflat, lesmom, advect)},
+                   peak_rss_mb=resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss / 1e3,
+                   card_peak_gib=None)
+        if self.device.type == "cuda":
+            out["card_peak_gib"] = (torch.cuda.max_memory_allocated(
+                self.device) / 2 ** 30)
+        return out
 
     def _profiled_step(self):
         """One step under torch.profiler; the chrome trace goes to
@@ -897,10 +971,10 @@ class SPRunner:
         prof.export_chrome_trace(path)
         log.info("torch profiler trace written to %s", path)
 
-    @staticmethod
-    def _log_memory():
+    def _log_memory(self):
         """Per-step host memory log (the reference logs psutil full-info
-        after every step, splib.py:216, 225-226)."""
+        after every step, splib.py:216, 225-226), with the card's peak of
+        allocated memory on the card."""
         try:
             import psutil
             rss = psutil.Process().memory_info().rss
@@ -911,7 +985,12 @@ class SPRunner:
                 rss = int(line.split()[1]) * 1024
             except (OSError, StopIteration):
                 return
-        log.info("memory usage: %.1f MB rss", rss / 1e6)
+        if self.device.type == "cuda":
+            log.info("memory usage: %.1f MB rss, card peak %.3f GiB",
+                     rss / 1e6,
+                     torch.cuda.max_memory_allocated(self.device) / 2 ** 30)
+        else:
+            log.info("memory usage: %.1f MB rss", rss / 1e6)
 
     # ---------------------------------------------------------------- spinup
 
@@ -959,7 +1038,8 @@ class SPRunner:
                 self.crossio.close()
             except Exception as e:
                 log.error("cross-section writer close failed: %s", e)
-        if save_restart and self.fleet is not None:
+        if save_restart and self.fleet is not None \
+                and not self.restart_overlap:
             from ..io import restart as restart_io
             try:
                 restart_io.save(self)

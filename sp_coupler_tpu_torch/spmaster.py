@@ -18,6 +18,7 @@ share one.
 """
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -31,6 +32,7 @@ log = logging.getLogger(__name__)
 
 GCM_TYPES = ["sptpu", "oifs", "dummy", "ncfile"]
 LES_TYPES = ["sptpu", "dales", "dummy", "ncfile"]
+SUMMARY = "run summary: "
 
 
 def readable_dir(dirname):
@@ -117,6 +119,13 @@ def build_parser(defaults: SPConfig):
                    help="Max LES instances / closest-N for point selection")
     p.add_argument("--restart", action="store_true", default=False,
                    help="Restart an old run")
+    p.add_argument("--restart_overlap", action="store_true", default=False,
+                   help="Write the checkpoint after --steps steps, before "
+                        "the overlap step, and none at the end: a run "
+                        "resumed from it (--restart) recomputes the overlap "
+                        "step and writes on from the next, so legs of "
+                        "--steps L1, L2, ... hold the records of one run "
+                        "of --steps L1 + L2 + ...")
     p.add_argument("--restart_steps", dest="restart_steps", metavar="N",
                    type=int, default=defaults.restart_steps,
                    help="Save a restart checkpoint every N steps "
@@ -214,12 +223,14 @@ def build_runner(argv=None, writer=None):
                  and v != parser.get_default(k)}
     cfg = cfg.replace(**overrides)
     geoms, out_geoms = geometries_from_args(args)
-    return SPRunner(cfg, geoms, out_geoms, device=args.device, writer=writer)
+    return SPRunner(cfg, geoms, out_geoms, device=args.device, writer=writer,
+                    restart_overlap=args.restart_overlap)
 
 
 def drive(runner):
     """Initialize, run and finalize as the reference driver does; returns
-    the exit code."""
+    the exit code. The last log line is SUMMARY and the run's summary
+    (``SPRunner.summary``) as JSON."""
     cfg = runner.cfg
     runner.initialize()
     if cfg.dryrun:
@@ -236,6 +247,7 @@ def drive(runner):
         runner.finalize(save_restart=True)
         return 1
     runner.finalize()
+    log.info("%s%s", SUMMARY, json.dumps(runner.summary()))
     return 0
 
 

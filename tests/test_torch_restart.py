@@ -69,3 +69,97 @@ def test_failed_save_leaves_no_checkpoint(tmp_path):
     with pytest.raises(ValueError):
         restart.save(_runner(tmp_path, bad))
     assert list(tmp_path.iterdir()) == []
+
+
+# ---- each rank reads its rows alone (config 4's resume) --------------------
+
+N_FLEET = 6
+
+
+def _fleet():
+    rng = np.random.default_rng(3)
+    return {"0": torch.as_tensor(rng.standard_normal((N_FLEET, 3, 4, 5))
+                                 .astype(np.float32)),
+            "1": torch.as_tensor(rng.integers(0, 99, (N_FLEET, 7))
+                                 .astype(np.int32)),
+            "2": torch.as_tensor(rng.standard_normal(N_FLEET))}
+
+
+def _load_rank(rank, odir, store, out):
+    """One gloo rank of two: a les mesh of 2 slots, restart.load of the
+    checkpoint in odir into a fleet that holds the slot's rows."""
+    import torch.distributed as dist
+    from sp_coupler_tpu_torch.parallel import mesh as pmesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=2)
+    try:
+        mesh = pmesh.make_mesh(2)
+        template = {k: v[mesh.block(N_FLEET)] for k, v in _fleet().items()}
+        runner = SimpleNamespace(
+            gcm=SimpleNamespace(), prev_profiles=None,
+            fleet=SimpleNamespace(state=template, mesh=mesh, n=N_FLEET),
+            cfg=SimpleNamespace(output_dir=odir))
+        restart.load(runner)
+        np.savez("%s.%d.npz" % (out, rank),
+                 bytes_read=runner.restart_load["bytes_read"],
+                 **{k: v.numpy() for k, v in runner.fleet.state.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_read_their_rows_alone(tmp_path):
+    """Two gloo ranks each load their block of the fleet from a stored
+    checkpoint: equal to a whole-file load's rows, and no more than half
+    of each leaf's bytes read (NpzReader's reads in place)."""
+    import torch.multiprocessing as mp
+    fleet = _fleet()
+    runner = _runner(tmp_path, None)
+    runner.fleet.state, runner.fleet.n = fleet, N_FLEET
+    runner.gcm = SimpleNamespace(get_model_time=lambda: 900.0,
+                                 step_count=1)
+    restart.save(runner)
+    out = str(tmp_path / "rank")
+    mp.start_processes(_load_rank, args=(str(tmp_path),
+                                         str(tmp_path / "store"), out),
+                       nprocs=2, start_method="spawn")
+    with np.load(tmp_path / restart.FNAME) as whole:
+        total = 0
+        for rank in range(2):
+            got = np.load("%s.%d.npz" % (out, rank))
+            rows = slice(3 * rank, 3 * rank + 3)
+            for i, k in enumerate(sorted(fleet)):
+                ref = whole["les_%d" % i][rows]
+                assert got[k].dtype == ref.dtype
+                assert got[k].tobytes() == ref.tobytes(), (rank, k)
+            assert int(got["bytes_read"]) == sum(
+                whole[key].nbytes // 2 for key in whole.files)
+            total += int(got["bytes_read"])
+    assert total == sum(v.numpy().nbytes for v in fleet.values())
+
+
+def test_reader_rows_and_deflated_members(tmp_path):
+    """NpzReader: rows of a stored member read in place, whole arrays
+    and 0-d ones; a deflated member (np.savez_compressed, the JAX
+    package's checkpoints) read through np.load."""
+    arrays = dict(ARRAYS, big=np.arange(60, dtype=np.float64).reshape(
+        10, 2, 3))
+    out = restart.NpzWriter(str(tmp_path / "w.npz"))
+    for k, v in arrays.items():
+        out.add(k, v)
+    out.close()
+    np.savez_compressed(tmp_path / "c.npz", **arrays)
+    for name in ("w.npz", "c.npz"):
+        with restart.NpzReader(str(tmp_path / name)) as r:
+            assert r.files == list(arrays)
+            for k, v in arrays.items():
+                got = r.get(k)
+                assert got.dtype == v.dtype and got.shape == np.shape(v)
+                assert got.tobytes() == np.asarray(v).tobytes()
+            rows = r.get("big", slice(4, 7))
+            np.testing.assert_array_equal(rows, arrays["big"][4:7])
+            assert r.get("big", slice(9, 12)).shape == (1, 2, 3)
+            read = r.bytes_read
+        stored = name == "w.npz"
+        assert (read == sum(np.asarray(v).nbytes for v in arrays.values())
+                + (3 + 1) * 6 * 8) if stored else read > 0
