@@ -34,7 +34,11 @@ Phases (any failure raises and exits non-zero):
      phase_schedule, phase_batch and the T159 leg; 128x128x160, n = 4,
      phase_t255's, and n = 64, a card's batch of config 4 in --cards 4
      (g), its references REF_CHUNK instances at a time) for
-     stage_inputs; then each option of STAGE_OPTIONS
+     stage_inputs; the raining state (raining_inputs: a saturated layer
+     from 0.5 to 3 km, rain up to 1e-3, divergence-free drafts of ~3 m/s,
+     e12 varying by point; RAIN_SHAPE, 64x64x160, n = 2) at its adaptive
+     dt; then each
+     option of STAGE_OPTIONS
      (f_coriolis != 0, qt forcing modes 1-3) by its own effect; with
      CUDA-event timings of both and the kernel's bound (written to
      chip_smoke_kernel.json);
@@ -338,6 +342,10 @@ STAGE_SHAPES = (((16, 16, 32), 2, None), ((64, 64, 160), 1, None),
 FLEET_N = (3, 4, 8, 16, 32, 64)
 FLEET_SHAPES = tuple(((64, 64, 160), n, None) for n in FLEET_N) + (
     ((128, 128, 160), 4, None), ((128, 128, 160), 64, None))
+# the raining, deep-cloud state (verify/late_state.py::raining_state) of
+# phase 3: the main path's grid, two instances; the CPU test holds the
+# same builder's state at 16x16x160 (tests/test_torch_late_state.py)
+RAIN_SHAPE = ((64, 64, 160), 2, None)
 # above REF_WHOLE_POINTS points (n x nx x ny x nz; the largest fleet held
 # whole, 64 x 64x64x160) the references, the plain version and its
 # float64 run, are computed REF_CHUNK instances at a time and concatenated
@@ -488,6 +496,20 @@ def rough_inputs(grid, n, seed, dev="cuda"):
     sign = torch.tensor([(-1.0) ** k for k in range(grid.nz)], device=dev)
     frc = frc._replace(f_qt=(1e-5 * sign).expand(n, grid.nz).contiguous())
     return cur, base, frc, dt
+
+
+def raining_inputs(grid, n, seed, dev="cuda"):
+    """The raining, deep-cloud state of verify/late_state.py (a saturated
+    layer from 0.5 to 3 km, qr up to 1e-3, divergence-free drafts of ~3
+    m/s, e12 varying by point) as (cur, base, frc, dt): cur = base = that
+    state, dt its adaptive dt. The CPU test builds the same state with dev="cpu"."""
+    from sp_coupler_tpu_torch import interop
+    from sp_coupler_tpu_torch.verify import late_state
+    st, fr = late_state.raining_state(grid.nx, grid.ny, grid.nz, n, seed,
+                                      dz=grid.dz)
+    cur = interop.les_state(st, dev)
+    frc = interop.les_forcing(fr, dev)
+    return cur, cur, frc, late_state.adaptive_dt(grid, cur)
 
 
 def cuda_ms(fn, reps=20, warm=3):
@@ -694,7 +716,8 @@ def phase_kernel(card):
     worst = 0.0
     times = {}
     shapes = ([(s, (stage_inputs, rough_inputs)) for s in STAGE_SHAPES]
-              + [(s, (stage_inputs,)) for s in FLEET_SHAPES])
+              + [(s, (stage_inputs,)) for s in FLEET_SHAPES]
+              + [(RAIN_SHAPE, (raining_inputs,))])
     for ((nx, ny, nz), n, tz), inputs_of in shapes:
         grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
         geom = lesstage.stage_geometry(n, nz, ny, nx, tz=tz)
@@ -718,7 +741,7 @@ def phase_kernel(card):
             opts = check_options(kern, grid, cur, frc, dt)
             log("  options ok, change err / max|change|: %s" % (
                 " ".join("%s %.2g" % kv for kv in opts.items())))
-        if tz is None:
+        if tz is None and (nx, ny, nz, n) not in times:
             cur, base, frc, dt = stage_inputs(grid, n, 7 + n)
             args = (grid, phys, cur, base, frc, 0.5, dt)
             ms = cuda_ms(lambda: kern(*args))
@@ -4664,7 +4687,41 @@ def main():
     return 0
 
 
+def late_state_main(path):
+    """The stage kernel against its plain version (check_stage) on the
+    LES state a coupled run's checkpoint gave (``python -m
+    sp_coupler_tpu_torch.verify.late_state cut``): base = cur = that
+    instance's state, its forcing and the adaptive dt its loop took first;
+    writes chip_smoke_late_state.json."""
+    from sp_coupler_tpu_torch.models.les import grid as lgrid
+    from sp_coupler_tpu_torch.ops import lesstage
+    from sp_coupler_tpu_torch.verify import late_state
+    card = phase_env()
+    phase_build()
+    arrays, info = late_state.load(path)
+    grid = lgrid.LESGrid(**info["grid"])
+    phys = late_state.les_physics(info)
+    cur, frc = late_state.les_inputs(arrays, "cuda")
+    dt = torch.full((1,), info["dt_first"], device="cuda")
+    err, k64, p64, inc = check_stage(lesstage.stage_fused_cuda, grid, phys,
+                                     cur, cur, frc, dt)
+    res = dict(card=card, step=info["step"], column=info["column"],
+               dt=info["dt_first"], max_abs_err=err, kmax_rel_f64=k64,
+               plain_kmax_rel_f64=p64, increments=inc)
+    log("late state (step %d, column %d, dt %.4g s): outputs ok, max abs "
+        "err %.3g; kmax rel err vs float64 plain: kernel %.3g, float32 plain "
+        "%.3g; increments ok, err / max|increment|: %s, on %s" % (
+            info["step"], info["column"], info["dt_first"], err, k64, p64,
+            " ".join("%s %.2g" % kv for kv in inc.items()), card))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_late_state.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--late-state"]:
+        sys.exit(late_state_main(sys.argv[2]))
     if sys.argv[1:2] == ["--cards"]:
         sys.exit(cards_main(int(sys.argv[2])))
     if sys.argv[1:2] == ["--card-kernels-rank"]:

@@ -358,6 +358,29 @@ def _put(dst, idx, src):
     return src if idx is None else dst.index_copy(0, idx, src)
 
 
+def stable_dt(grid, state, kmax, cfl=0.7, peclet=0.1, red=None):
+    """The substep length [n] the CFL and Peclet limits allow for state,
+    kmax [n] the largest eddy viscosity (the previous substep's), before
+    ``evolve_adaptive`` clamps it; red: the plane's reductions
+    (``reducer``)."""
+    red = reducer(None) if red is None else red
+    min2 = min(grid.dx, grid.dy, grid.dz) ** 2
+    rate_cell = (torch.abs(state.u) / grid.dx + torch.abs(state.v) / grid.dy
+                 + torch.abs(0.5 * (state.w[:, 1:] + state.w[:, :-1]))
+                 / grid.dz)
+    rate = red.amax(rate_cell)
+    return torch.minimum(cfl / torch.clamp_min(rate, 1e-6),
+                         peclet * min2 / torch.clamp_min(kmax, 1e-9))
+
+
+def start_kmax(grid, state, red=None):
+    """The eddy viscosity bound an adaptive evolve starts from: CM x the
+    grid scale x the largest e12 [n]."""
+    red = reducer(None) if red is None else red
+    delta = (grid.dx * grid.dy * grid.dz) ** (1.0 / 3.0)
+    return subgrid.CM * delta * red.amax(state.e12)
+
+
 def evolve_adaptive(grid, phys, state: LESState, forcing: LESForcing,
                     t_end, dt_max=15.0, cfl=0.7, dt_min=0.2, peclet=0.1,
                     plane=None):
@@ -375,9 +398,7 @@ def evolve_adaptive(grid, phys, state: LESState, forcing: LESForcing,
     state = _rebase(grid, state, state.ps + forcing.f_ps
                     * (t_end - state.time), plane)
     solver = poisson.build_solver(grid, state.rhobf, state.rhobh)
-    min2 = min(grid.dx, grid.dy, grid.dz) ** 2
-    delta = (grid.dx * grid.dy * grid.dz) ** (1.0 / 3.0)
-    kmax = subgrid.CM * delta * red.amax(state.e12)
+    kmax = start_kmax(grid, state, red)
     n_fleet = state.u.shape[0]
     n = torch.zeros(n_fleet, dtype=torch.int32, device=state.u.device)
     nclamp = torch.zeros_like(n)
@@ -394,11 +415,7 @@ def evolve_adaptive(grid, phys, state: LESState, forcing: LESForcing,
             s, f, sol = state.index(idx), forcing.index(idx), \
                 solver.index(idx)
             k, te = kmax[idx], t_end[idx]
-        rate_cell = (torch.abs(s.u) / grid.dx + torch.abs(s.v) / grid.dy
-                     + torch.abs(0.5 * (s.w[:, 1:] + s.w[:, :-1])) / grid.dz)
-        rate = red.amax(rate_cell)
-        dt = torch.minimum(cfl / torch.clamp_min(rate, 1e-6),
-                           peclet * min2 / torch.clamp_min(k, 1e-9))
+        dt = stable_dt(grid, s, k, cfl, peclet, red)
         dnc = (dt < dt_min).to(torch.int32)
         dt = torch.clamp(dt, dt_min, dt_max)
         dt = torch.minimum(dt, te - s.time)

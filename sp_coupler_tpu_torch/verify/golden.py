@@ -16,10 +16,15 @@ reference. Run as ``python -m sp_coupler_tpu_torch.verify.golden``:
     on the card, that the stage kernel launched 3 x the leg's substeps
     (the run summary spmaster logs). It writes golden_meta.json (the
     fields make_golden.py derives from the recording; platform and device
-    are the torch device's) and record.json (every leg's step walls,
+    are the torch device's), golden_run.json (the case, seed and --conf
+    keys, after the first leg) and record.json (every leg's step walls,
     substeps, clamped dts, launches and memory peaks), and removes the
-    last checkpoint unless --keep-restart. Without --device the legs take
-    the CUDA card, and fail where there is none.
+    last checkpoint unless --keep-restart. --keep-joins copies the
+    recording and the checkpoint of every join (the end of each leg but
+    the last) to joins/spifs_stepN.nc, restart_stepN.npz and .json before
+    the next leg writes on.
+    Without --device the legs take the CUDA card, and fail where there is
+    none.
 ``summary DIR``
     the legs of a recording (its record.json), one line each: step walls
     (min, median, max), substeps an instance-step, dts clamped at
@@ -40,6 +45,32 @@ reference. Run as ``python -m sp_coupler_tpu_torch.verify.golden``:
     for bit, ``--hold F`` holds the second recording within F x the
     largest distance between two of the second and later ones (the seed
     spread) of the first (the reference) for each of HOLD_VARS.
+    Against an ensemble (A the reference, B, C, ... its members, seeds of
+    one case): ``--windows 1:10,11:50,51:100`` holds, in each window and
+    for each of HOLD_VARS, the median of the members' mean distances to A
+    within HOLD_FACTOR x the largest mean distance between two members;
+    ``--climate 51:100`` holds, for each of REPORT_VARS, A's mean over
+    the window's records, the columns and the levels within [lo - r, hi +
+    r], lo and hi the members' smallest and largest, r = hi - lo, and
+    reports the levels where A's mean profile leaves that envelope (the
+    same numbers, not held, for the other windows); both report each
+    recording's largest |tendency| and where it lies. Both take each
+    recording's records at the Time values all of them hold (a member cut
+    short shortens the windows it ends in; each window says the steps it
+    used). ``--json PATH`` writes the result, ``--summary PATH`` a small
+    digest of it (every pair's distance series, the held window's mean
+    profiles, the holds' verdicts, the tendency scales).
+
+``shrink DIR OUT.npz``
+    what ``compare`` reads of a recording (Time; REPORT_VARS and
+    TENDENCIES of every column), 2.0-2.7 MB of config 2's ~23 MB, which every
+    subcommand that reads a recording takes in its place.
+
+``ensemble OUTROOT --seeds 42,43,44,45 [--cards N]``
+    ``record`` of each seed at once, one process a seed, seed k on card k
+    mod N (``CUDA_VISIBLE_DEVICES``), into OUTROOT/seedS; the other
+    ``record`` flags are passed on (``--keep-joins S,...``: only those
+    seeds keep their joins).
 """
 
 import argparse
@@ -80,7 +111,12 @@ REPLAY_TOL = 1e-5        # of each tendency's scale (tests/test_golden.py)
 # the GCM-side profiles and the LES slab means verify/parity.py enforces
 HOLD_VARS = ("T", "SH", "U", "V", "thl", "qt")
 REPORT_VARS = ("T", "SH", "U", "V", "QL", "A", "thl", "qt", "ql")
+# the ensemble holds' factor and windows (steps, both ends included)
+HOLD_FACTOR = 2.0
+WINDOWS = ((1, 10), (11, 50), (51, 100))
+CLIMATE = (51, 100)
 LEG_TIMEOUT = 3600       # s a leg
+RUN_JSON = "golden_run.json"   # record's case, seed and --conf keys
 
 
 # ---- record -----------------------------------------------------------------
@@ -164,10 +200,12 @@ def leg_argv(case, n, outdir, conf_path, k, device=None):
 
 
 def record(outdir, steps=100, leg=25, seed=42, case="config2", device=None,
-           conf=None, keep_restart=False, timeout=LEG_TIMEOUT):
+           conf=None, keep_restart=False, timeout=LEG_TIMEOUT,
+           keep_joins=False):
     """Record case for steps coupled steps (records 0..steps, steps + 1
     of them) in legs of leg steps into outdir. conf: more --conf keys
-    (a dict). Returns record.json's contents."""
+    (a dict). keep_joins: keep a copy of each join's checkpoint
+    (``join_paths``). Returns record.json's contents."""
     outdir = os.path.abspath(outdir)
     if inside(outdir, GOLDEN_DIR):
         raise ValueError("%s lies in tests/golden/: the JAX package's "
@@ -178,8 +216,9 @@ def record(outdir, steps=100, leg=25, seed=42, case="config2", device=None,
     plan = leg_plan(steps, leg)
     work = tempfile.mkdtemp(prefix="golden_")
     conf_path = os.path.join(work, "conf.json")
+    conf = dict(spec["conf"], seed=seed, **(conf or {}))
     with open(conf_path, "w") as f:
-        json.dump(dict(spec["conf"], seed=seed, **(conf or {})), f)
+        json.dump(conf, f)
     on_card = device is None or str(device).startswith("cuda")
     spifs_path = os.path.join(outdir, "spifs.nc")
     legs, done, t_all = [], 0, time.time()
@@ -189,6 +228,9 @@ def record(outdir, steps=100, leg=25, seed=42, case="config2", device=None,
             log_path = os.path.join(work, "leg%d.log" % k)
             wall, summary = run_leg(k, argv, log_path, timeout)
             done += n
+            if not k:   # spmaster makes outdir
+                with open(os.path.join(outdir, RUN_JSON), "w") as f:
+                    json.dump(dict(case=case, seed=seed, conf=conf), f)
             with open(os.path.join(outdir, "restart.json")) as f:
                 meta = json.load(f)
             if meta["gcm_step"] != done or not os.path.exists(
@@ -210,6 +252,13 @@ def record(outdir, steps=100, leg=25, seed=42, case="config2", device=None,
                 raise RuntimeError("leg %d: lesstage launched %d times, "
                                    "want 3 x %d substeps" % (k, stage,
                                                              calls))
+            if keep_joins and k < len(plan) - 1:
+                # the .json last, each whole when it appears
+                for src, dst in zip([spifs_path] + restart_paths(outdir),
+                                    join_paths(outdir, done)):
+                    os.makedirs(os.path.dirname(dst), exist_ok=True)
+                    shutil.copyfile(src, dst + ".part")
+                    os.replace(dst + ".part", dst)
             legs.append(dict(leg=k, steps=n, argv=argv, wall_s=wall,
                              substep_calls=calls,
                              checkpoint_bytes=os.path.getsize(
@@ -237,9 +286,23 @@ def record(outdir, steps=100, leg=25, seed=42, case="config2", device=None,
     with open(os.path.join(outdir, "record.json"), "w") as f:
         json.dump(out, f, indent=1)
     if not keep_restart:
-        for name in ("restart.npz", "restart.json"):
-            os.remove(os.path.join(outdir, name))
+        for path in restart_paths(outdir):
+            os.remove(path)
     return out
+
+
+def restart_paths(outdir):
+    """restart.npz and restart.json of a run's directory."""
+    return [os.path.join(outdir, "restart." + x) for x in ("npz", "json")]
+
+
+def join_paths(outdir, step):
+    """Where ``record --keep-joins`` keeps the join after step: the
+    recording as it stood then, the checkpoint's .npz and .json."""
+    d = os.path.join(outdir, "joins")
+    return [os.path.join(d, "spifs_step%d.nc" % step)] + [
+        os.path.join(d, "restart_step%d.%s" % (step, x))
+        for x in ("npz", "json")]
 
 
 def recording_meta(path, spec, wall, device):
@@ -320,8 +383,18 @@ def summary(record):
 
 def read_recording(path, variables=None):
     """(Time, {column: {var: [records, ...]}}) of a spifs.nc (a file, or a
-    directory holding one), every variable or those given."""
+    directory holding one) or of ``shrink``'s .npz, every variable or
+    those given."""
     from ..io import spifs
+    if path.endswith(".npz"):
+        with np.load(path) as d:
+            groups = {}
+            for key in d.files:
+                if ":" in key:
+                    col, var = key.split(":")
+                    if variables is None or var in variables:
+                        groups.setdefault(int(col), {})[var] = d[key]
+            return np.asarray(d["Time"], np.float64), groups
     if os.path.isdir(path):
         path = os.path.join(path, "spifs.nc")
     ds = spifs.open_reader(path)
@@ -334,6 +407,15 @@ def read_recording(path, variables=None):
     finally:
         ds.close()
     return times, groups
+
+
+def shrink(path, out):
+    """Write what ``compare`` reads of a recording (Time and, of every
+    column, REPORT_VARS and TENDENCIES) into the .npz out, which
+    ``read_recording`` reads as it reads the recording."""
+    times, groups = read_recording(path, REPORT_VARS + TENDENCIES)
+    np.savez_compressed(out, Time=times, **{
+        "%d:%s" % (c, v): a for c, g in groups.items() for v, a in g.items()})
 
 
 # ---- replay -----------------------------------------------------------------
@@ -450,25 +532,37 @@ def window(times, steps):
     return (k >= steps[0]) & (k <= steps[1])
 
 
-def compare(paths, steps=None, exact=False, hold=None):
-    """Every pair's distances (``distances``, of REPORT_VARS), each
-    variable's mean over the steps, and the holds asked for; what failed
-    in "failures"."""
-    recs = [read_recording(p) for p in paths]
-    pairs = []
-    for i in range(len(paths)):
-        for j in range(i + 1, len(paths)):
-            times, d = distances(recs[i], recs[j])
-            m = window(times, steps) if steps else np.ones(len(times), bool)
-            if not m.any():
-                raise AssertionError("%s and %s share no record in steps "
-                                     "%s" % (paths[i], paths[j], steps))
-            pairs.append(dict(
-                a=paths[i], b=paths[j], i=i, j=j,
+def in_window(paths, pair, steps, keep=None):
+    """A pair's distances (i, j, the matched Time values, {var: series})
+    cut to the steps (a, b), or all of them, and to the Time values keep
+    where given: the steps, each variable's series and its mean."""
+    i, j, times, d = pair
+    m = window(times, steps) if steps else np.ones(len(times), bool)
+    if keep is not None:
+        m &= np.isin(times, keep)
+    if not m.any():
+        raise AssertionError("%s and %s share no record in steps %s"
+                             % (paths[i], paths[j], steps))
+    return dict(a=paths[i], b=paths[j], i=i, j=j,
                 steps=np.rint(times[m] / times[0]).astype(int).tolist(),
                 mean={v: float(np.mean(np.asarray(x)[m]))
                       for v, x in d.items()},
-                series={v: np.asarray(x)[m].tolist() for v, x in d.items()}))
+                series={v: np.asarray(x)[m].tolist() for v, x in d.items()})
+
+
+def compare(paths, steps=None, exact=False, hold=None, windows=(),
+            climate=None):
+    """Every pair's distances (``distances``, of REPORT_VARS), each
+    variable's mean over the steps, and the holds asked for: hold, the
+    second recording against the seed spread (``seed_hold``); windows,
+    the ensemble's distance hold in each window (``seed_hold(median=
+    True)``); climate, the ensemble's climate hold over those steps
+    (``climate_hold``), with the climate of every other window reported
+    and each recording's tendency scales. What failed in "failures"."""
+    recs = [read_recording(p) for p in paths]
+    full = [(i, j) + distances(recs[i], recs[j])
+            for i in range(len(paths)) for j in range(i + 1, len(paths))]
+    pairs = [in_window(paths, f, steps) for f in full]
     res = dict(paths=list(paths), steps=steps, pairs=pairs, failures=[])
     if exact:
         res["exact"] = {"%s|%s" % (p["a"], p["b"]): exact_diffs(
@@ -482,6 +576,39 @@ def compare(paths, steps=None, exact=False, hold=None):
         res["hold"] = seed_hold(pairs, hold)
         res["failures"] += ["hold broken for %s: %s" % kv
                             for kv in res["hold"].items() if not kv[1]["ok"]]
+    if (windows or climate) and len(paths) < 3:
+        raise ValueError("--windows, --climate: the reference and at least "
+                         "two members")
+    # the ensemble's holds compare like with like: every recording's
+    # records at the Time values all of them hold (a member cut short
+    # shortens every window it ends in)
+    common = recs[0][0]
+    for t, _ in recs[1:]:
+        common = np.intersect1d(common, t)
+    used = lambda w: np.rint(common[window(common, w)] / common[0]).astype(
+        int).tolist()
+    res["windows"] = []
+    for w in windows:
+        h = seed_hold([in_window(paths, f, w, common) for f in full],
+                      HOLD_FACTOR, median=True)
+        res["windows"].append(dict(steps=list(w), steps_used=used(w),
+                                   hold=h))
+        res["failures"] += ["steps %d-%d: distance hold broken for %s"
+                            % (w[0], w[1], v) for v in h if not h[v]["ok"]]
+    if climate:
+        res["climate"] = []
+        for w in [climate] + [w for w in windows if tuple(w) !=
+                              tuple(climate)]:
+            means = [profile_means(r, steps=w, keep=common) for r in recs]
+            h = climate_hold(means[0], means[1:])
+            held = tuple(w) == tuple(climate)
+            res["climate"].append(dict(steps=list(w), steps_used=used(w),
+                                       held=held, hold=h, profiles=means))
+            if held:
+                res["failures"] += ["steps %d-%d: climate hold broken for "
+                                    "%s" % (w[0], w[1], v)
+                                    for v in h if not h[v]["ok"]]
+        res["tendency_scales"] = [tendency_scales(r) for r in recs]
     return res
 
 
@@ -492,32 +619,133 @@ def check(res):
     return res
 
 
-def seed_hold(pairs, factor):
-    """For each of HOLD_VARS: the subject's (recording 1) mean distance
-    from the reference (recording 0) against factor x the largest mean
-    distance between two of recordings 1, 2, ... (the seed spread)."""
-    ref = next(p for p in pairs if (p["i"], p["j"]) == (0, 1))
+def seed_hold(pairs, factor, median=False):
+    """For each of HOLD_VARS: the subject's mean distance from the
+    reference (recording 0) against factor x the largest mean distance
+    between two of recordings 1, 2, ... (the seed spread). The subject is
+    recording 1, or with median the median of every member's distance
+    (recordings 1, 2, ...: an ensemble against a reference)."""
     spread = [p for p in pairs if p["i"] >= 1]
+    ref = [p for p in pairs if p["i"] == 0 and (median or p["j"] == 1)]
     out = {}
     for v in HOLD_VARS:
-        if v not in ref["mean"]:
+        if v not in ref[0]["mean"]:
             continue
+        d = [p["mean"][v] for p in ref]
+        subject = float(np.median(d))
         widest = max(p["mean"][v] for p in spread)
-        out[v] = dict(d_ref=ref["mean"][v], seed_spread=widest,
-                      factor=factor, ratio=ref["mean"][v] / widest
+        out[v] = dict(d_ref=subject, seed_spread=widest,
+                      factor=factor, ratio=subject / widest
                       if widest > 0 else math.inf,
-                      ok=bool(ref["mean"][v] <= factor * widest))
+                      ok=bool(subject <= factor * widest))
+        if median:
+            out[v]["d_members"] = d
     return out
 
 
-def column_means(path, variables=REPORT_VARS, steps=(51, 100)):
+def climate_hold(ref, members):
+    """For each variable of the profile means ref (the reference's) and
+    members (a list of them), level means: the reference's against the
+    envelope [lo - r, hi + r] of the members' (lo, hi their smallest and
+    largest, r = hi - lo), and the levels where the reference's profile
+    leaves the same envelope taken level by level."""
+    out = {}
+    for v in ref:
+        if not all(v in m for m in members):
+            continue
+        prof = np.asarray(ref[v], np.float64)
+        mem = np.asarray([m[v] for m in members], np.float64)
+        vals = mem.mean(axis=1)
+        lo, hi = float(vals.min()), float(vals.max())
+        r = hi - lo
+        lo_k, hi_k = mem.min(axis=0), mem.max(axis=0)
+        r_k = hi_k - lo_k
+        out[v] = dict(ref=float(prof.mean()), members=vals.tolist(), lo=lo,
+                      hi=hi, r=r,
+                      ok=bool(lo - r <= prof.mean() <= hi + r),
+                      levels=len(prof),
+                      levels_outside=np.flatnonzero(
+                          (prof < lo_k - r_k) | (prof > hi_k + r_k)).tolist())
+    return out
+
+
+def tendency_scales(rec):
+    """For each of TENDENCIES in a recording (``read_recording``'s pair):
+    its largest |value| over the run and the column, step and level where
+    it lies (a record's step as ``window`` counts it)."""
+    times, groups = rec
+    out = {}
+    for v in TENDENCIES:
+        cols = [c for c in sorted(groups) if v in groups[c]
+                and groups[c][v].size]
+        if not cols:
+            continue
+        a = np.abs(np.stack([groups[c][v] for c in cols]).astype(np.float64))
+        c, k, lev = np.unravel_index(int(np.argmax(a)), a.shape)
+        out[v] = dict(max=float(a[c, k, lev]), column=cols[c],
+                      step=int(np.rint(times[k] / times[0])), level=int(lev))
+    return out
+
+
+def profile_means(rec, variables=REPORT_VARS, steps=CLIMATE, keep=None):
     """{var: the profile averaged over the columns and the records of the
-    steps (both included)} of a recording."""
-    times, groups = read_recording(path, variables)
+    steps (both included; those at the Time values keep, where given)} of
+    a recording (``read_recording``'s pair)."""
+    times, groups = rec
     m = window(times, steps)
+    if keep is not None:
+        m &= np.isin(times, keep)
     return {v: np.mean([groups[c][v][m] for c in groups
                         if v in groups[c]], axis=(0, 1)).tolist()
             for v in variables if all(v in g for g in groups.values())}
+
+
+def column_means(path, variables=REPORT_VARS, steps=CLIMATE):
+    """``profile_means`` of the recording at path."""
+    return profile_means(read_recording(path, variables), variables, steps)
+
+
+def rounded(x, digits=6):
+    """x (nested dicts, lists, numbers) with every float to digits
+    significant digits."""
+    if isinstance(x, dict):
+        return {k: rounded(v, digits) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [rounded(v, digits) for v in x]
+    if isinstance(x, float) and math.isfinite(x):
+        return float("%.*g" % (digits, x))
+    return x
+
+
+def digest(res):
+    """The small record of an ensemble ``compare``: the recordings, every
+    pair's distance series over all matched steps, the windows' distance
+    holds, the climate holds with the held window's mean profiles of each
+    recording, the tendency scales and the failures."""
+    name = lambda p: os.path.splitext(os.path.basename(os.path.normpath(
+        p)))[0]
+    out = dict(paths=[name(p) for p in res["paths"]],
+               hold_factor=HOLD_FACTOR,
+               pairs=[dict(i=p["i"], j=p["j"], steps=p["steps"],
+                           series=p["series"]) for p in res["pairs"]],
+               windows=res.get("windows", []),
+               failures=res["failures"])
+    if "climate" in res:
+        out["climate"] = [dict(steps=c["steps"], steps_used=c["steps_used"],
+                               held=c["held"], hold=c["hold"])
+                          for c in res["climate"]]
+        out["profiles"] = dict(steps=res["climate"][0]["steps"],
+                               steps_used=res["climate"][0]["steps_used"],
+                               means=res["climate"][0]["profiles"])
+        out["tendency_scales"] = res["tendency_scales"]
+    return rounded(out)
+
+
+def write_digest(res, path):
+    """``digest(res)`` as JSON at path."""
+    with open(path, "w") as f:
+        json.dump(digest(res), f, indent=None, separators=(",", ":"))
+        f.write("\n")
 
 
 # ---- CLI ------------------------------------------------------------------
@@ -525,6 +753,39 @@ def column_means(path, variables=REPORT_VARS, steps=(51, 100)):
 def parse_steps(text):
     a, b = text.split(":")
     return int(a), int(b)
+
+
+def parse_windows(text):
+    return [parse_steps(w) for w in text.split(",")]
+
+
+def ensemble(outroot, seeds, cards=1, args=(), keep_joins=()):
+    """``record`` of each seed at once, one process a seed, into
+    outroot/seedS (its log outroot/seedS.log), seed k on card k mod
+    cards; args: more ``record`` flags. Returns {seed: exit code}."""
+    os.makedirs(outroot, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    # the host's cores shared out: a leg's CPU work is the spifs.nc writer
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max(1, (os.cpu_count() or 1) // len(seeds))))
+    procs = {}
+    for k, seed in enumerate(seeds):
+        cmd = [sys.executable, "-m", "sp_coupler_tpu_torch.verify.golden",
+               "record", os.path.join(outroot, "seed%d" % seed), "--seed",
+               str(seed), *args] + (["--keep-joins"] if seed in keep_joins
+                                    else [])
+        log = open(os.path.join(outroot, "seed%d.log" % seed), "w")
+        procs[seed] = (subprocess.Popen(
+            cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(env, CUDA_VISIBLE_DEVICES=str(k % cards))), log)
+    codes = {}
+    for seed, (proc, log) in procs.items():
+        codes[seed] = proc.wait()
+        log.close()
+    return codes
 
 
 def parser():
@@ -543,6 +804,18 @@ def parser():
                    help="more --conf keys, as JSON (a small grid on the "
                         "CPU)")
     r.add_argument("--keep-restart", action="store_true")
+    r.add_argument("--keep-joins", action="store_true",
+                   help="keep each join's checkpoint in joins/")
+    e = sub.add_parser("ensemble", help="record several seeds at once")
+    e.add_argument("outroot")
+    e.add_argument("--seeds", default="42,43,44,45")
+    e.add_argument("--cards", type=int, default=1,
+                   help="seed k runs on card k mod N")
+    e.add_argument("--keep-joins", default="",
+                   help="the seeds whose joins are kept, e.g. 42")
+    k = sub.add_parser("shrink", help="what compare reads, as an .npz")
+    k.add_argument("path")
+    k.add_argument("out")
     m = sub.add_parser("summary", help="a recording's legs")
     m.add_argument("dir")
     y = sub.add_parser("replay", help="replay a recording on the host")
@@ -558,18 +831,35 @@ def parser():
                         "paths[0]")
     c.add_argument("--means", default=None, metavar="a:b",
                    help="also each recording's column means over steps")
+    c.add_argument("--windows", type=parse_windows, default=(),
+                   help="a:b,c:d,...: the ensemble's distance hold in each")
+    c.add_argument("--climate", type=parse_steps, default=None,
+                   help="a:b: the ensemble's climate hold over these steps")
     c.add_argument("--json", default=None, help="write the result here")
+    c.add_argument("--summary", default=None,
+                   help="write the result's digest here")
     return p
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    args, rest = parser().parse_known_args(argv)
+    if args.cmd == "ensemble":
+        seeds = [int(x) for x in args.seeds.split(",")]
+        keep = [int(x) for x in args.keep_joins.split(",") if x]
+        codes = ensemble(args.outroot, seeds, args.cards, rest, keep)
+        print("golden ensemble: exit codes %s" % json.dumps(codes))
+        return 0 if not any(codes.values()) else 1
+    if rest:
+        raise SystemExit("unrecognized arguments: %s" % " ".join(rest))
     if args.cmd == "record":
         res = record(args.outdir, args.steps, args.leg, args.seed,
                      args.case, args.device,
                      json.loads(args.conf) if args.conf else None,
-                     args.keep_restart)
+                     args.keep_restart, keep_joins=args.keep_joins)
         print(json.dumps(res["meta"]))
+        return 0
+    if args.cmd == "shrink":
+        shrink(args.path, args.out)
         return 0
     if args.cmd == "summary":
         with open(os.path.join(args.dir, "record.json")) as f:
@@ -580,7 +870,8 @@ def main(argv=None):
         return 0
     if len(args.paths) < 2:
         raise SystemExit("compare: two recordings at least")
-    res = compare(args.paths, args.steps, args.exact, args.hold)
+    res = compare(args.paths, args.steps, args.exact, args.hold,
+                  args.windows, args.climate)
     if args.means:
         res["column_means"] = {p: column_means(p, steps=parse_steps(
             args.means)) for p in args.paths}
@@ -589,6 +880,25 @@ def main(argv=None):
             "%s %.3g" % kv for kv in p["mean"].items())))
     if "hold" in res:
         print("hold: %s" % json.dumps(res["hold"]))
+    for w in res["windows"]:
+        print("steps %d-%d, distance hold: %s" % (*w["steps"], " ".join(
+            "%s %.3g/%.3g %s" % (v, h["d_ref"], h["seed_spread"],
+                                 "ok" if h["ok"] else "BROKEN")
+            for v, h in w["hold"].items())))
+    for c in res.get("climate", []):
+        print("steps %d-%d, climate (%s): %s" % (
+            *c["steps"], "held" if c["held"] else "reported", " ".join(
+                "%s %.4g in [%.4g, %.4g] %s" % (
+                    v, h["ref"], h["lo"] - h["r"], h["hi"] + h["r"],
+                    "ok" if h["ok"] else "OUTSIDE")
+                for v, h in c["hold"].items())))
+    for path, t in zip(res["paths"], res.get("tendency_scales", [])):
+        print("%s tendency scales: %s" % (path, " ".join(
+            "%s %.3g (column %d, step %d, level %d)" % (
+                v, x["max"], x["column"], x["step"], x["level"])
+            for v, x in t.items())))
+    if args.summary:
+        write_digest(res, args.summary)
     for f in res["failures"]:
         print("FAILED: %s" % f)
     if args.json:

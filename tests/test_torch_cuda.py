@@ -169,6 +169,20 @@ def test_kernel_matches_plain_at_fleet_batches_on_card(dev, shape, n):
 
 
 @pytest.mark.cuda
+def test_kernel_matches_plain_on_raining_state_on_card(dev):
+    """chip_smoke.py's check of the stage kernel (check_stage) on the
+    raining, deep-cloud state (chip_smoke.RAIN_SHAPE, raining_inputs: rain
+    up to 1e-3, drafts of ~3 m/s, a cloud from 0.5 to 3 km) at its
+    adaptive dt."""
+    (nx, ny, nz), n, _ = cs.RAIN_SHAPE
+    grid = lgrid.LESGrid(nx=nx, ny=ny, nz=nz)
+    cur, base, frc, dt = cs.raining_inputs(grid, n, 9)
+    cs.check_stage(lesstage.stage_fused_cuda, grid, lstep.LESPhysics(), cur,
+                   base, frc, dt)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("inputs", ["split_inputs", "rough_split_inputs"])
 @pytest.mark.parametrize("kernel", ["lesflat", "lesmom", "advect"])
 def test_split_kernel_matches_plain_at_128_planes_on_card(dev, kernel,

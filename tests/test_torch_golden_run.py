@@ -272,3 +272,203 @@ def test_replay_takes_the_recorded_heights():
     assert np.all(np.abs(back.Zf.numpy() - z) <= np.spacing(z))
     assert np.array_equal(taken.Zf.numpy(), z)
     assert np.array_equal(taken.Zh.numpy(), h)
+
+
+# ---- the ensemble's holds, on tiny synthetic recordings ---------------------
+
+GCM_L, LES_Z, N_REC = 3, 4, 12
+COLS = (5, 9)
+
+
+def write_recording(path, fields, dt=900.0):
+    """A spifs.nc through the port's writer (io/spifs.py): N_REC records
+    at Time dt, 2 dt, ...; fields {column: {var: [N_REC, levels]}}."""
+    from sp_coupler_tpu_torch.io import spifs
+    os.makedirs(path)
+    w = spifs.SpifsWriter(os.path.join(path, "spifs.nc"), GCM_L, les_info=dict(
+        x=np.arange(2.0), y=np.arange(2.0), zf=np.arange(LES_Z) + 0.5),
+        start_time=0)
+    for c in COLS:
+        w.add_les_column(c, 10.0, 20.0)
+    for k in range(N_REC):
+        w.update_time(dt * (k + 1))
+        for c in COLS:
+            w.write_column(c, **{v: a[k] for v, a in fields[c].items()})
+    w.close()
+    return path
+
+
+def synthetic(seed):
+    """Fields of a member: a smooth base plus noise of 0.1 from the seed."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, c in enumerate(COLS):
+        g = lambda base, L: base + 0.1 * rng.normal(size=(N_REC, L))
+        out[c] = dict(
+            T=g(250.0 + i, GCM_L), SH=g(1.0, GCM_L), U=g(3.0, GCM_L),
+            V=g(-2.0, GCM_L), QL=g(1.0, GCM_L), A=g(0.5, GCM_L),
+            thl=g(300.0, LES_Z), qt=g(2.0, LES_Z), ql=g(1.0, LES_Z),
+            f_T=g(0.0, GCM_L), f_U=g(0.0, GCM_L))
+    return out
+
+
+def averaged(fields, offset=0.0, late_offset=0.0, ql_scale=1.0):
+    """The members' mean fields (inside every envelope): offset added to
+    every record of T, late_offset to records 7-12 of T, the LES ql times
+    ql_scale."""
+    late = np.where(np.arange(N_REC) >= 6, late_offset, 0.0)[:, None]
+    out = {c: {v: np.mean([f[c][v] for f in fields], axis=0)
+               for v in fields[0][c]} for c in COLS}
+    for c in COLS:
+        out[c]["T"] = out[c]["T"] + offset + late
+        out[c]["ql"] = ql_scale * out[c]["ql"]
+    return out
+
+
+@pytest.fixture(scope="module")
+def ensemble(tmp_path_factory):
+    """Four members (seeds 1-4) and references: their mean, the mean off
+    by 5 in T throughout, off by 5 in T in records 7-12 only, and with the
+    LES ql 3 times larger."""
+    base = tmp_path_factory.mktemp("ensemble")
+    fields = [synthetic(s) for s in (1, 2, 3, 4)]
+    members = [write_recording(str(base / ("m%d" % s)), f)
+               for s, f in zip((1, 2, 3, 4), fields)]
+    mk = lambda name, **kw: write_recording(str(base / name),
+                                            averaged(fields, **kw))
+    refs = dict(alike=mk("alike"), off=mk("off", offset=5.0),
+                late=mk("late", late_offset=5.0),
+                wet=mk("wet", ql_scale=3.0))
+    return members, refs
+
+
+WIN = ((1, 6), (7, 12))
+
+
+def test_distance_hold_by_window(ensemble):
+    """The median of the members' mean distances to the reference within
+    HOLD_FACTOR x the widest distance between two members, window by
+    window: the members' mean holds in both, one off throughout
+    breaks both (in T alone), one off late breaks the late window only."""
+    members, refs = ensemble
+    res = {k: golden.compare([r] + members, windows=WIN)
+           for k, r in refs.items() if k != "wet"}
+    for k, r in res.items():
+        assert [w["steps"] for w in r["windows"]] == [list(w) for w in WIN]
+        for w in r["windows"]:
+            assert set(w["hold"]) == set(golden.HOLD_VARS)
+            for v, h in w["hold"].items():
+                assert len(h["d_members"]) == 4
+                assert h["d_ref"] == pytest.approx(np.median(h["d_members"]))
+                assert h["factor"] == golden.HOLD_FACTOR
+    ok = lambda k, i, v: res[k]["windows"][i]["hold"][v]["ok"]
+    assert all(ok("alike", i, v) for i in (0, 1) for v in golden.HOLD_VARS)
+    assert res["alike"]["failures"] == []
+    assert not ok("off", 0, "T") and not ok("off", 1, "T")
+    assert ok("off", 0, "SH") and ok("off", 1, "U")
+    assert ok("late", 0, "T") and not ok("late", 1, "T")
+    assert res["late"]["failures"] == [
+        "steps 7-12: distance hold broken for T"]
+    with pytest.raises(ValueError, match="two members"):
+        golden.compare([refs["alike"], members[0]], windows=WIN)
+
+
+def test_climate_hold(ensemble):
+    """The reference's mean over the held window's records, columns and
+    levels inside [lo - r, hi + r] of the members': their mean holds;
+    the one with 3 x the LES ql does not, on ql alone, and
+    its ql profile leaves the level-by-level envelope at every level; the
+    other windows' climate is reported, not held."""
+    members, refs = ensemble
+    res = golden.compare([refs["wet"]] + members, windows=WIN,
+                         climate=WIN[1])
+    held = [c for c in res["climate"] if c["held"]]
+    assert len(held) == 1 and held[0]["steps"] == list(WIN[1])
+    assert [c["steps"] for c in res["climate"]] == [list(WIN[1]),
+                                                    list(WIN[0])]
+    h = held[0]["hold"]
+    assert not h["ql"]["ok"] and all(h[v]["ok"] for v in h if v != "ql")
+    assert h["ql"]["levels_outside"] == list(range(LES_Z))
+    lo, hi = min(h["T"]["members"]), max(h["T"]["members"])
+    assert (h["T"]["lo"], h["T"]["hi"], h["T"]["r"]) == (lo, hi, hi - lo)
+    assert res["failures"] == ["steps 7-12: climate hold broken for ql"]
+    assert not res["climate"][1]["held"]
+    alike = golden.compare([refs["alike"]] + members, climate=WIN[1])
+    assert alike["failures"] == []
+    assert all(v["ok"] for v in alike["climate"][0]["hold"].values())
+    # the held window's profile means, reference first, as column_means
+    means = golden.column_means(refs["alike"], steps=WIN[1])
+    for v, prof in alike["climate"][0]["profiles"][0].items():
+        np.testing.assert_array_equal(prof, means[v])
+
+
+def test_tendency_scales_name_where(tmp_path):
+    """Each tendency's largest |value| and its column, step and level."""
+    f = synthetic(1)
+    f[9]["f_T"][4, 2] = -7.0
+    t = golden.tendency_scales(golden.read_recording(
+        write_recording(str(tmp_path / "r"), f)))
+    assert t["f_T"] == dict(max=7.0, column=9, step=5, level=2)
+    assert set(t) == {"f_T", "f_U"}     # the tendencies written
+
+
+def test_digest_and_shrink(ensemble, tmp_path):
+    """The digest of an ensemble compare: every pair's distance series over
+    all matched steps, the window holds, the held climate with each
+    recording's mean profiles, the tendency scales, floats to 6 figures,
+    recordings by directory name; written as one JSON line. A shrunk
+    recording (``shrink``) gives the same distances as the file."""
+    members, refs = ensemble
+    res = golden.compare([refs["late"]] + members, windows=WIN,
+                         climate=WIN[1])
+    path = str(tmp_path / "digest.json")
+    golden.write_digest(res, path)
+    with open(path) as f:
+        text = f.read()
+    assert text.count("\n") == 1
+    d = json.loads(text)
+    assert d["paths"] == ["late", "m1", "m2", "m3", "m4"]
+    assert d["hold_factor"] == golden.HOLD_FACTOR
+    assert len(d["pairs"]) == 10
+    assert all(p["steps"] == list(range(1, N_REC + 1)) for p in d["pairs"])
+    s = res["pairs"][0]["series"]["T"]
+    assert d["pairs"][0]["series"]["T"] == [float("%.6g" % x) for x in s]
+    assert d["failures"] == res["failures"] == [
+        "steps 7-12: distance hold broken for T",
+        "steps 7-12: climate hold broken for T"]
+    assert [w["steps"] for w in d["windows"]] == [list(w) for w in WIN]
+    assert d["profiles"]["steps"] == list(WIN[1])
+    assert len(d["profiles"]["means"]) == 5
+    assert len(d["profiles"]["means"][0]["ql"]) == LES_Z
+    assert [c["held"] for c in d["climate"]] == [True, False]
+    assert d["tendency_scales"][0]["f_T"]["column"] in COLS
+    small = str(tmp_path / "late.npz")
+    golden.shrink(refs["late"], small)
+    a = golden.compare([refs["late"], members[0]])["pairs"][0]["series"]
+    b = golden.compare([small, members[0]])["pairs"][0]["series"]
+    assert a == b
+
+
+def test_pick_step():
+    """The join to cut: 50 when every hold holds; the join nearest the
+    step where a broken distance hold parts most; the held climate
+    window's middle when only the climate breaks."""
+    from sp_coupler_tpu_torch.verify import late_state
+    steps = list(range(1, 101))
+    d = np.ones(100)
+    d[28] = 9.0         # step 29: the median over the spread is largest
+    pairs = [dict(i=0, j=j, steps=steps, series=dict(T=d.tolist()))
+             for j in (1, 2, 3, 4)]
+    pairs += [dict(i=i, j=j, steps=steps, series=dict(T=[1.0] * 100))
+              for i in (1, 2, 3) for j in range(i + 1, 5)]
+    hold = lambda ok: dict(T=dict(ok=ok))
+    win = lambda ok: [dict(steps=[1, 10], hold=hold(True)),
+                      dict(steps=[11, 50], hold=hold(ok)),
+                      dict(steps=[51, 100], hold=hold(True))]
+    clim = lambda ok: [dict(steps=[51, 100], held=True, hold=hold(ok)),
+                       dict(steps=[11, 50], held=False, hold=hold(False))]
+    summ = lambda w, c: dict(paths=["golden"] + ["s"] * 4, pairs=pairs,
+                             windows=win(w), climate=clim(c))
+    assert late_state.pick_step(summ(True, True)) == 50
+    assert late_state.pick_step(summ(False, True)) == 25
+    assert late_state.pick_step(summ(True, False)) == 75

@@ -48,6 +48,7 @@ MODULES = (
     "sp_coupler_tpu_torch.runtime.driver",
     "sp_coupler_tpu_torch.spmaster",
     "sp_coupler_tpu_torch.verify.golden",
+    "sp_coupler_tpu_torch.verify.late_state",
     "sp_coupler_tpu_torch.verify.parity",
     "sp_coupler_tpu_torch.models.ncreplay",
     "sp_coupler_tpu_torch.io.spnc",

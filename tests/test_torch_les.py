@@ -5,6 +5,8 @@ state carried over as numpy), so they differ only in the order of
 operations: single functions agree within rtol 1e-5, atol 1e-6 max|ref|.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -83,18 +85,88 @@ def case():
     return make_case()
 
 
+SAT_NAMES = ("T", "ql", "qs")
+
+
+def _sat_adjust_sides(thl, qt, p, n_iter):
+    """(port, jax): each side's sat_adjust of the float32 inputs, numpy."""
+    port = lambda: [x.numpy() for x in tthermo.sat_adjust(
+        torch.tensor(thl), torch.tensor(qt), torch.tensor(p), n_iter=n_iter)]
+    jax_ = lambda: [np.asarray(x) for x in jthermo.sat_adjust(
+        jnp.asarray(thl), jnp.asarray(qt), jnp.asarray(p), n_iter=n_iter)]
+    return port, jax_
+
+
+def _sat_adjust_report(thl, qt, p, n_iter, got, ref):
+    """Which side of a sat_adjust mismatch leaves float64: each side's
+    largest |difference| from the float64 evaluation of the formula for T,
+    ql and qs, against F64_ATOL, whether evaluating that side again moves
+    it, and the process it ran in (xdist worker, torch threads, JAX's
+    x64)."""
+    f64 = _sat_adjust_float64(thl, qt, p, n_iter)
+    port, jax_ = _sat_adjust_sides(thl, qt, p, n_iter)
+    lines = []
+    for side, first, again in (("port", got, port()), ("jax", ref, jax_())):
+        for name, a, b, c in zip(SAT_NAMES, first, again, f64):
+            off = float(np.max(np.abs(np.asarray(a, np.float64) - c)))
+            moved = np.flatnonzero(np.asarray(a) != np.asarray(b))
+            lines.append(
+                "%s %s: max |x - float64| %.3g (F64_ATOL %.1g: %s); a second "
+                "evaluation %s" % (
+                    side, name, off, F64_ATOL[name],
+                    "OFF float64" if off > F64_ATOL[name] else "within",
+                    "moved %d points, max %.3g" % (len(moved), float(np.max(
+                        np.abs(np.asarray(a) - np.asarray(b))))) if len(moved)
+                    else "equals the first"))
+    lines.append("worker %s, torch.get_num_threads() %d, jax_enable_x64 %s"
+                 % (os.environ.get("PYTEST_XDIST_WORKER", "none"),
+                    torch.get_num_threads(), jax.config.jax_enable_x64))
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("n_iter", [2, 3])
 def test_sat_adjust(n_iter):
+    """JAX's sat_adjust against the port's (module tolerance). On a
+    mismatch the message names the side that leaves the float64
+    evaluation of the formula, by how much, and whether it moves when
+    evaluated again (``_sat_adjust_report``)."""
     rng = np.random.default_rng(n_iter)
     thl = rng.uniform(280, 320, 4096).astype(np.float32)
     qt = rng.uniform(0.0, 0.025, 4096).astype(np.float32)
     p = rng.uniform(6e4, 1.02e5, 4096).astype(np.float32)
-    ref = jthermo.sat_adjust(jnp.asarray(thl), jnp.asarray(qt),
-                             jnp.asarray(p), n_iter=n_iter)
-    got = tthermo.sat_adjust(torch.tensor(thl), torch.tensor(qt),
-                             torch.tensor(p), n_iter=n_iter)
-    for name, a, b in zip(("T", "ql", "qs"), got, ref):
-        close(a, b, msg=name)
+    port, jax_ = _sat_adjust_sides(thl, qt, p, n_iter)
+    ref, got = jax_(), port()
+    try:
+        for name, a, b in zip(SAT_NAMES, got, ref):
+            close(torch.from_numpy(a), b, msg=name)
+    except AssertionError as e:
+        raise AssertionError("%s\n%s" % (e, _sat_adjust_report(
+            thl, qt, p, n_iter, got, ref))) from None
+
+
+def test_sat_adjust_report_names_the_side():
+    """The mismatch report of test_sat_adjust: the port's ql moved by 3e-7
+    at two points (test_sat_adjust[2]'s failures were 2.7e-7 and 2.8e-7)
+    is named off float64, the JAX side within, and the second evaluation
+    of each side equal to its first."""
+    rng = np.random.default_rng(2)
+    thl = rng.uniform(280, 320, 4096).astype(np.float32)
+    qt = rng.uniform(0.0, 0.025, 4096).astype(np.float32)
+    p = rng.uniform(6e4, 1.02e5, 4096).astype(np.float32)
+    port, jax_ = _sat_adjust_sides(thl, qt, p, 2)
+    got, ref = port(), jax_()
+    got[1] = got[1].copy()
+    wet = np.flatnonzero(got[1] > 1e-3)[:2]
+    got[1][wet] += np.float32(3e-7)
+    with pytest.raises(AssertionError, match="ql"):
+        close(torch.from_numpy(got[1]), ref[1], msg="ql")
+    rep = _sat_adjust_report(thl, qt, p, 2, got, ref).splitlines()
+    assert rep[1].startswith("port ql: max |x - float64| 3") \
+        and "OFF float64" in rep[1], rep
+    assert "moved 2 points" in rep[1]
+    assert all("within" in r and "equals the first" in r
+               for r in rep[3:6]), rep
+    assert rep[-1].startswith("worker ")
 
 
 def _sat_adjust_float64(thl, qt, p, n_iter):
