@@ -1924,7 +1924,11 @@ def phase_cli(card, main_steps):
 # the bench.py case through the CLI: T21/L19 + 2 x 64x64x160 (RICO, TKE),
 # columns 1208/1272, dt_les 15 s, each instance its own adaptive loop
 # (serial: bitwise the same arithmetic on 1 rank and on 2), 2 coupled steps
+# of BENCH_GCM_DT: its depth cut from bench.py's 900-s step to a quarter,
+# since 4 gloo ranks sharing the card take ~20x one process's wall
+# (phase_spatial (c))
 BENCH_COLS = [1208, 1272]
+BENCH_GCM_DT = 225.0
 MESH_RANKS = 2
 MESH_TIMEOUT = 300      # s for the ranks' run: a hung collective fails it
 MESH_CONF = {"les_schedule": "serial", "timing_phases": 0}
@@ -1941,6 +1945,7 @@ def bench_argv(odir, conf, mesh_les=1):
     for c in BENCH_COLS:
         pts += ["%.6f" % lats[c // len(lons)], "%.6f" % lons[c % len(lons)]]
     return (["--points"] + pts + ["--les_dt", "15", "--steps", "1",
+                                  "--gcm_dt", "%g" % BENCH_GCM_DT,
                                   "--conf", conf, "--odir", odir]
             + (["--mesh_les", str(mesh_les)] if mesh_les > 1 else []))
 
@@ -2163,15 +2168,16 @@ def phase_mesh(card, backend="gloo"):
                         "its %d substeps)" % (rep["rank"], k, count, want,
                                               rep["own_substeps"]))
                 total[k] += count
-        log("%s: %s, --mesh_les 2, bench case T21/L19 + 2 x %dx%dx%d, "
-            "columns %s: rank 0's %d records == the single process's, bit "
+        log("%s: %s, --mesh_les 2, bench case T21/L19 + 2 x %dx%dx%d "
+            "(%g-s steps), columns %s: rank 0's %d records == the single "
+            "process's, bit "
             "for bit (%d variables), the GCM state the same on both ranks "
             "and the single process; ranks on %s, CUDA tensors staged "
             "through the host %s; positions %s, lesstage launches %s = 3 x "
             "own substeps %s; the step's all_gather moves %d B an instance "
             "on %s"
             % (tag, where(backend, MESH_RANKS), grid.nx, grid.ny, grid.nz,
-               BENCH_COLS, len(times1), len(keys),
+               BENCH_GCM_DT, BENCH_COLS, len(times1), len(keys),
                [r["device"] for r in reps], [r["staged"] for r in reps],
                [r["positions"] for r in reps],
                [r["launches"]["lesstage"] for r in reps],
@@ -2745,8 +2751,8 @@ def phase_spatial(card, single, backend="gloo"):
             raise AssertionError("spatial (c) smag: records %s"
                                  % reps[0]["smag"])
         b0 = reps[0]["bench"]
-        log("%s (c): the bench case (T21/L19 + 2 x 64x64x160) through "
-            "the CLI with --lesprocs 4 on %s: "
+        log("%s (c): the bench case (T21/L19 + 2 x 64x64x160, %g-s steps) "
+            "through the CLI with --lesprocs 4 on %s: "
             "blocks %s, substeps %s == the single process's, rank 0's %d "
             "records within PROFILE_TOL (largest: %s %.3g of max|ref|), the "
             "GCM state the same on every rank (%.3g of max|ref| from the "
@@ -2754,7 +2760,7 @@ def phase_spatial(card, single, backend="gloo"):
             "substeps %s; the Smagorinsky + nudge leg (T10/L8 + 2 x "
             "16x16x32, --mesh_les 2 --lesprocs 2): blocks %s, lesflat/lesmom "
             "halo launches %s on %s"
-            % (tag, where(backend, SPATIAL_RANKS), b0["block"],
+            % (tag, BENCH_GCM_DT, where(backend, SPATIAL_RANKS), b0["block"],
                b0["substeps"], len(single["times"]), worst[0],
                worst[1], gcm_diff,
                [r["bench"]["launches"]["lesstage_halo"] for r in reps],
@@ -3539,14 +3545,16 @@ def phase_gcm_bands(card, single, t159_first, backend="gloo"):
             except AssertionError as e:
                 diffs, worst = {}, ("(failed)", float("nan"))
                 fails.append("bands (b): %s" % e)
-            log("bands (b): the bench case (T21/L19 + 2 x 64x64x160) "
-                "through the CLI with --mesh_les 2 --gcmprocs 2 on 2 gloo "
-                "ranks sharing the card, bands %s: substeps %s (single %s), "
+            log("bands (b): the bench case (T21/L19 + 2 x 64x64x160, %g-s "
+                "steps) through the CLI with --mesh_les 2 --gcmprocs 2 on 2 "
+                "gloo ranks sharing the card, bands %s: substeps %s (single "
+                "%s), "
                 "rank 0's %d records: largest difference %s %.3g of "
                 "max|ref|; spectral state the same on both ranks: %s; "
                 "lesstage %s, own substeps %s; step walls %s s, single %s s "
                 "(not a scaling number) on %s"
-                % ([r["band"] for r in reps], reps[0]["substeps"],
+                % (BENCH_GCM_DT, [r["band"] for r in reps],
+                   reps[0]["substeps"],
                    single["substeps"], len(single["times"]), worst[0],
                    worst[1],
                    not same_on_ranks(arrays, "spec_"),

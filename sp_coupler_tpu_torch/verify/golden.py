@@ -42,9 +42,7 @@ reference. Run as ``python -m sp_coupler_tpu_torch.verify.golden``:
     over the whole run; a per-step scale blows up on fields that start
     near zero, as U and V do). ``--steps a:b`` picks the steps averaged,
     ``--exact`` requires every variable of every matched record equal bit
-    for bit, ``--hold F`` holds the second recording within F x the
-    largest distance between two of the second and later ones (the seed
-    spread) of the first (the reference) for each of HOLD_VARS.
+    for bit.
     Against an ensemble (A the reference, B, C, ... its members, seeds of
     one case): ``--windows 1:10,11:50,51:100`` holds, in each window and
     for each of HOLD_VARS, the median of the members' mean distances to A
@@ -54,23 +52,29 @@ reference. Run as ``python -m sp_coupler_tpu_torch.verify.golden``:
     r], lo and hi the members' smallest and largest, r = hi - lo, and
     reports the levels where A's mean profile leaves that envelope (the
     same numbers, not held, for the other windows); both report each
-    recording's largest |tendency| and where it lies. Both take each
-    recording's records at the Time values all of them hold (a member cut
-    short shortens the windows it ends in; each window says the steps it
-    used). ``--json PATH`` writes the result, ``--summary PATH`` a small
-    digest of it (every pair's distance series, the held window's mean
-    profiles, the holds' verdicts, the tendency scales).
+    recording's largest |tendency| and where it lies. A window is held
+    only where every recording holds each of its steps: one that a
+    recording does not cover fails, with the step where each recording
+    ends, and its numbers over the steps all recordings hold are reported
+    as ``partial``, not held. ``--json PATH`` writes the result,
+    ``--summary PATH`` a small digest of it (every pair's distance
+    series, the held window's mean profiles, the holds' verdicts, the
+    tendency scales).
 
 ``shrink DIR OUT.npz``
     what ``compare`` reads of a recording (Time; REPORT_VARS and
     TENDENCIES of every column), 2.0-2.7 MB of config 2's ~23 MB, which every
     subcommand that reads a recording takes in its place.
 
-``ensemble OUTROOT --seeds 42,43,44,45 [--cards N]``
-    ``record`` of each seed at once, one process a seed, seed k on card k
-    mod N (``CUDA_VISIBLE_DEVICES``), into OUTROOT/seedS; the other
+``ensemble OUTROOT --seeds 42,43,44,45 [--timeout S]``
+    ``record`` of each seed at once, one process a seed, on the card the
+    processes see (one card a seed: one ``ensemble`` a seed, each under its
+    own ``CUDA_VISIBLE_DEVICES``), into OUTROOT/seedS; the other
     ``record`` flags are passed on (``--keep-joins S,...``: only those
-    seeds keep their joins).
+    seeds keep their joins). A seed still running --timeout s after the
+    start is stopped with the processes it started, its recording keeping
+    the records written; then each recording is shrunk to
+    OUTROOT/seedS.npz.
 """
 
 import argparse
@@ -78,6 +82,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -550,15 +555,15 @@ def in_window(paths, pair, steps, keep=None):
                 series={v: np.asarray(x)[m].tolist() for v, x in d.items()})
 
 
-def compare(paths, steps=None, exact=False, hold=None, windows=(),
-            climate=None):
+def compare(paths, steps=None, exact=False, windows=(), climate=None):
     """Every pair's distances (``distances``, of REPORT_VARS), each
-    variable's mean over the steps, and the holds asked for: hold, the
-    second recording against the seed spread (``seed_hold``); windows,
-    the ensemble's distance hold in each window (``seed_hold(median=
-    True)``); climate, the ensemble's climate hold over those steps
-    (``climate_hold``), with the climate of every other window reported
-    and each recording's tendency scales. What failed in "failures"."""
+    variable's mean over the steps, and the ensemble's holds asked for:
+    windows, the distance hold in each window (``seed_hold``); climate,
+    the climate hold over those steps (``climate_hold``), with the
+    climate of every other window reported and each recording's tendency
+    scales. A window that a recording does not cover whole is not held
+    (``coverage``): it fails, and its numbers over the steps every
+    recording holds go to "partial". What failed in "failures"."""
     recs = [read_recording(p) for p in paths]
     full = [(i, j) + distances(recs[i], recs[j])
             for i in range(len(paths)) for j in range(i + 1, len(paths))]
@@ -569,47 +574,73 @@ def compare(paths, steps=None, exact=False, hold=None, windows=(),
             recs[p["i"]], recs[p["j"]])[:20] for p in pairs}
         res["failures"] += ["records differ: %s %s" % kv
                             for kv in res["exact"].items() if kv[1]]
-    if hold is not None:
-        if len(paths) < 4:
-            raise ValueError("--hold: the reference, the subject and at "
-                             "least two seeds")
-        res["hold"] = seed_hold(pairs, hold)
-        res["failures"] += ["hold broken for %s: %s" % kv
-                            for kv in res["hold"].items() if not kv[1]["ok"]]
     if (windows or climate) and len(paths) < 3:
         raise ValueError("--windows, --climate: the reference and at least "
                          "two members")
-    # the ensemble's holds compare like with like: every recording's
-    # records at the Time values all of them hold (a member cut short
-    # shortens every window it ends in)
+    # the records at the Time values every recording holds: all of a
+    # covered window's, those of a partial window that all reached
     common = recs[0][0]
     for t, _ in recs[1:]:
         common = np.intersect1d(common, t)
     used = lambda w: np.rint(common[window(common, w)] / common[0]).astype(
         int).tolist()
-    res["windows"] = []
-    for w in windows:
-        h = seed_hold([in_window(paths, f, w, common) for f in full],
-                      HOLD_FACTOR, median=True)
-        res["windows"].append(dict(steps=list(w), steps_used=used(w),
-                                   hold=h))
-        res["failures"] += ["steps %d-%d: distance hold broken for %s"
-                            % (w[0], w[1], v) for v in h if not h[v]["ok"]]
+
+    def verdict(w, what, h):
+        """The window's entry: its hold where every recording covers it,
+        else its numbers as partial and a failure."""
+        cov = coverage(recs, w)
+        out = dict(steps=list(w), steps_used=used(w), covered=not cov)
+        if cov:
+            out["partial"] = h
+            out["ends"] = {name(paths[i]): e for i, e in cov.items()}
+            res["failures"].append(
+                "steps %d-%d: not covered, no %s hold (%s)" % (
+                    w[0], w[1], what, ", ".join(
+                        "%s ends at step %d" % (name(paths[i]), e)
+                        for i, e in sorted(cov.items()))))
+        else:
+            out["hold"] = h
+            res["failures"] += ["steps %d-%d: %s hold broken for %s"
+                                % (w[0], w[1], what, v)
+                                for v in h if not h[v]["ok"]]
+        return out
+
+    res["windows"] = [verdict(w, "distance", seed_hold(
+        [in_window(paths, f, w, common) for f in full], HOLD_FACTOR))
+                      for w in windows]
     if climate:
         res["climate"] = []
         for w in [climate] + [w for w in windows if tuple(w) !=
                               tuple(climate)]:
             means = [profile_means(r, steps=w, keep=common) for r in recs]
             h = climate_hold(means[0], means[1:])
-            held = tuple(w) == tuple(climate)
-            res["climate"].append(dict(steps=list(w), steps_used=used(w),
-                                       held=held, hold=h, profiles=means))
-            if held:
-                res["failures"] += ["steps %d-%d: climate hold broken for "
-                                    "%s" % (w[0], w[1], v)
-                                    for v in h if not h[v]["ok"]]
+            if tuple(w) == tuple(climate):
+                c = dict(verdict(w, "climate", h), held=True)
+            else:
+                c = dict(steps=list(w), steps_used=used(w),
+                         covered=not coverage(recs, w), held=False, hold=h)
+            res["climate"].append(dict(c, profiles=means))
         res["tendency_scales"] = [tendency_scales(r) for r in recs]
     return res
+
+
+def coverage(recs, steps):
+    """{index: its last step} of the recordings (``read_recording``'s
+    pairs) that lack a step of steps = (a, b), both included; empty where
+    every recording holds each of them. A record's step is Time / the
+    first record's Time."""
+    want = np.arange(steps[0], steps[1] + 1)
+    out = {}
+    for i, (times, _) in enumerate(recs):
+        k = np.rint(times / times[0]).astype(int)
+        if not np.isin(want, k).all():
+            out[i] = int(k.max())
+    return out
+
+
+def name(path):
+    """A recording's name in reports: its directory's or file's stem."""
+    return os.path.splitext(os.path.basename(os.path.normpath(path)))[0]
 
 
 def check(res):
@@ -619,14 +650,12 @@ def check(res):
     return res
 
 
-def seed_hold(pairs, factor, median=False):
-    """For each of HOLD_VARS: the subject's mean distance from the
-    reference (recording 0) against factor x the largest mean distance
-    between two of recordings 1, 2, ... (the seed spread). The subject is
-    recording 1, or with median the median of every member's distance
-    (recordings 1, 2, ...: an ensemble against a reference)."""
+def seed_hold(pairs, factor):
+    """For each of HOLD_VARS: the median of the members' (recordings 1, 2,
+    ...) mean distances from the reference (recording 0) against factor x
+    the largest mean distance between two members (the seed spread)."""
     spread = [p for p in pairs if p["i"] >= 1]
-    ref = [p for p in pairs if p["i"] == 0 and (median or p["j"] == 1)]
+    ref = [p for p in pairs if p["i"] == 0]
     out = {}
     for v in HOLD_VARS:
         if v not in ref[0]["mean"]:
@@ -637,9 +666,7 @@ def seed_hold(pairs, factor, median=False):
         out[v] = dict(d_ref=subject, seed_spread=widest,
                       factor=factor, ratio=subject / widest
                       if widest > 0 else math.inf,
-                      ok=bool(subject <= factor * widest))
-        if median:
-            out[v]["d_members"] = d
+                      ok=bool(subject <= factor * widest), d_members=d)
     return out
 
 
@@ -722,8 +749,6 @@ def digest(res):
     pair's distance series over all matched steps, the windows' distance
     holds, the climate holds with the held window's mean profiles of each
     recording, the tendency scales and the failures."""
-    name = lambda p: os.path.splitext(os.path.basename(os.path.normpath(
-        p)))[0]
     out = dict(paths=[name(p) for p in res["paths"]],
                hold_factor=HOLD_FACTOR,
                pairs=[dict(i=p["i"], j=p["j"], steps=p["steps"],
@@ -731,8 +756,7 @@ def digest(res):
                windows=res.get("windows", []),
                failures=res["failures"])
     if "climate" in res:
-        out["climate"] = [dict(steps=c["steps"], steps_used=c["steps_used"],
-                               held=c["held"], hold=c["hold"])
+        out["climate"] = [{k: v for k, v in c.items() if k != "profiles"}
                           for c in res["climate"]]
         out["profiles"] = dict(steps=res["climate"][0]["steps"],
                                steps_used=res["climate"][0]["steps_used"],
@@ -759,32 +783,41 @@ def parse_windows(text):
     return [parse_steps(w) for w in text.split(",")]
 
 
-def ensemble(outroot, seeds, cards=1, args=(), keep_joins=()):
-    """``record`` of each seed at once, one process a seed, into
-    outroot/seedS (its log outroot/seedS.log), seed k on card k mod
-    cards; args: more ``record`` flags. Returns {seed: exit code}."""
+def ensemble(outroot, seeds, args=(), keep_joins=(), timeout=None):
+    """``record`` of each seed at once, one process a seed (and its own
+    process group), into outroot/seedS (its log outroot/seedS.log); args:
+    more ``record`` flags. A seed still running timeout s after the start
+    is stopped, its legs with it. Then each recording is shrunk to
+    outroot/seedS.npz. Returns {seed: exit code} (-9: stopped)."""
     os.makedirs(outroot, exist_ok=True)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
-    # the host's cores shared out: a leg's CPU work is the spifs.nc writer
-    env.setdefault("OMP_NUM_THREADS",
-                   str(max(1, (os.cpu_count() or 1) // len(seeds))))
+    deadline = None if timeout is None else time.time() + timeout
     procs = {}
-    for k, seed in enumerate(seeds):
+    for seed in seeds:
         cmd = [sys.executable, "-m", "sp_coupler_tpu_torch.verify.golden",
                "record", os.path.join(outroot, "seed%d" % seed), "--seed",
                str(seed), *args] + (["--keep-joins"] if seed in keep_joins
                                     else [])
         log = open(os.path.join(outroot, "seed%d.log" % seed), "w")
         procs[seed] = (subprocess.Popen(
-            cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-            env=dict(env, CUDA_VISIBLE_DEVICES=str(k % cards))), log)
+            cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env,
+            start_new_session=True), log)
     codes = {}
     for seed, (proc, log) in procs.items():
-        codes[seed] = proc.wait()
+        try:
+            codes[seed] = proc.wait(None if deadline is None
+                                    else max(0.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            codes[seed] = proc.wait()
         log.close()
+    for seed in seeds:
+        rec = os.path.join(outroot, "seed%d" % seed, "spifs.nc")
+        if os.path.exists(rec):
+            shrink(rec, os.path.join(outroot, "seed%d.npz" % seed))
     return codes
 
 
@@ -809,8 +842,8 @@ def parser():
     e = sub.add_parser("ensemble", help="record several seeds at once")
     e.add_argument("outroot")
     e.add_argument("--seeds", default="42,43,44,45")
-    e.add_argument("--cards", type=int, default=1,
-                   help="seed k runs on card k mod N")
+    e.add_argument("--timeout", type=float, default=None,
+                   help="s: a seed still running then is stopped")
     e.add_argument("--keep-joins", default="",
                    help="the seeds whose joins are kept, e.g. 42")
     k = sub.add_parser("shrink", help="what compare reads, as an .npz")
@@ -826,9 +859,6 @@ def parser():
                    help="a:b, the steps averaged (both included)")
     c.add_argument("--exact", action="store_true",
                    help="every matched record equal bit for bit")
-    c.add_argument("--hold", type=float, default=None,
-                   help="factor: paths[1] within it x the seed spread of "
-                        "paths[0]")
     c.add_argument("--means", default=None, metavar="a:b",
                    help="also each recording's column means over steps")
     c.add_argument("--windows", type=parse_windows, default=(),
@@ -846,7 +876,7 @@ def main(argv=None):
     if args.cmd == "ensemble":
         seeds = [int(x) for x in args.seeds.split(",")]
         keep = [int(x) for x in args.keep_joins.split(",") if x]
-        codes = ensemble(args.outroot, seeds, args.cards, rest, keep)
+        codes = ensemble(args.outroot, seeds, rest, keep, args.timeout)
         print("golden ensemble: exit codes %s" % json.dumps(codes))
         return 0 if not any(codes.values()) else 1
     if rest:
@@ -870,28 +900,30 @@ def main(argv=None):
         return 0
     if len(args.paths) < 2:
         raise SystemExit("compare: two recordings at least")
-    res = compare(args.paths, args.steps, args.exact, args.hold,
-                  args.windows, args.climate)
+    res = compare(args.paths, args.steps, args.exact, args.windows,
+                  args.climate)
     if args.means:
         res["column_means"] = {p: column_means(p, steps=parse_steps(
             args.means)) for p in args.paths}
     for p in res["pairs"]:
         print("%s vs %s: %s" % (p["a"], p["b"], " ".join(
             "%s %.3g" % kv for kv in p["mean"].items())))
-    if "hold" in res:
-        print("hold: %s" % json.dumps(res["hold"]))
     for w in res["windows"]:
-        print("steps %d-%d, distance hold: %s" % (*w["steps"], " ".join(
-            "%s %.3g/%.3g %s" % (v, h["d_ref"], h["seed_spread"],
-                                 "ok" if h["ok"] else "BROKEN")
-            for v, h in w["hold"].items())))
+        print("steps %d-%d, distance hold%s: %s" % (
+            *w["steps"], "" if w["covered"] else
+            " NOT COVERED (steps %d-%d partial)" % (w["steps_used"][0],
+                                                    w["steps_used"][-1]),
+            " ".join("%s %.3g/%.3g %s" % (v, h["d_ref"], h["seed_spread"],
+                                          "ok" if h["ok"] else "BROKEN")
+                     for v, h in w.get("hold", w.get("partial")).items())))
     for c in res.get("climate", []):
         print("steps %d-%d, climate (%s): %s" % (
-            *c["steps"], "held" if c["held"] else "reported", " ".join(
+            *c["steps"], ("held" if c["covered"] else "NOT COVERED, "
+                          "partial") if c["held"] else "reported", " ".join(
                 "%s %.4g in [%.4g, %.4g] %s" % (
                     v, h["ref"], h["lo"] - h["r"], h["hi"] + h["r"],
                     "ok" if h["ok"] else "OUTSIDE")
-                for v, h in c["hold"].items())))
+                for v, h in c.get("hold", c.get("partial")).items())))
     for path, t in zip(res["paths"], res.get("tendency_scales", [])):
         print("%s tendency scales: %s" % (path, " ".join(
             "%s %.3g (column %d, step %d, level %d)" % (

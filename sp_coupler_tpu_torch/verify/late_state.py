@@ -177,7 +177,7 @@ def pick_step(summary):
     middle."""
     worst = None
     for w in summary.get("windows", []):
-        for v, h in w["hold"].items():
+        for v, h in w.get("hold", {}).items():     # none: not covered
             if h["ok"]:
                 continue
             ref = [p for p in summary["pairs"] if p["i"] == 0]
@@ -191,7 +191,8 @@ def pick_step(summary):
             if worst is None or ratio > worst[0]:
                 worst = (ratio, int(steps[m][k]))
     for c in summary.get("climate", []):
-        if c["held"] and not all(h["ok"] for h in c["hold"].values()):
+        if c["held"] and not all(h["ok"] for h in c.get("hold",
+                                                        {}).values()):
             mid = 0.5 * (c["steps"][0] + c["steps"][1])
             worst = worst or (0.0, mid)
     if worst is None:

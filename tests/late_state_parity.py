@@ -6,6 +6,10 @@ SP tendencies of that step).
 
     JAX_PLATFORMS=cpu python tests/late_state_parity.py CUT.npz \\
         [--parts stage,substeps,evolve,gcm] [--substeps 100] [--out R.json]
+    JAX_PLATFORMS=cpu python tests/late_state_parity.py CUT.npz --x64 \\
+        --parts stage64 --witness W.npz
+    JAX_PLATFORMS=cpu python tests/late_state_parity.py CUT.npz \\
+        --parts stage --witness W.npz
 
 Three implementations of the LES: the JAX package's plain path (``jax``),
 its Pallas stage kernel in interpret mode (``pallas``, as tests/test_ops.py
@@ -25,6 +29,13 @@ version, what the kernel is held to on the card), at three depths:
   the slab means of U, V, THL, QT, QL, QR and T held at
   verify/parity.py's PROFILE_TOL[0] of each profile's max and the
   substep counts equal;
+
+``stage64`` (run alone, under ``--x64``): JAX plain's stage from the base
+of constants in float64 on the float32 inputs, the witness of float64 that
+does not come from the port: against it the port's plain version in
+float64 (formula against formula) and the stability N^2 of both in
+float64; its increments go to ``--witness``, where a later ``stage`` part
+holds each float32 path's increments against them;
 
 and ``gcm``: one T21 GCM step (phase A, the cloud scheme, the step's SP
 tendencies, phase B) from the checkpoint's GCM state, JAX against the
@@ -165,7 +176,69 @@ def stage_part(c):
         if base_name == "constants":
             out["increments_vs_float64"] = increments_vs_float64(
                 c, tb, dt, dict(runs, jax=ref))
+            if c.get("witness"):
+                out["increments_vs_jax_float64"] = increments_vs_witness(
+                    c, tb, dict(runs, jax=ref))
     out["n2_vs_float64"] = n2_vs_float64(c)
+    return out
+
+
+def increments_vs_witness(c, tb, runs):
+    """Each float32 path's stage increments (from the base of constants
+    tb) off JAX plain's in float64 (``stage64``'s witness file), over each
+    increment's max."""
+    with np.load(c["witness"]) as w:
+        ref = {k: w[k] for k in NAMES}
+    out = {}
+    for name, got in runs.items():
+        got = [np.asarray(x) for x in got]
+        out[name] = {}
+        for i, k in enumerate(NAMES):
+            bk = getattr(tb, k).numpy()[0]
+            bk = bk[:-1] if k == "w" else bk
+            out[name][k] = worst(got[i] - bk, ref[k],
+                                 float(np.abs(ref[k]).max()))
+    return out
+
+
+def stage64_part(c):
+    """JAX plain's stage from the base of constants in float64 (the process
+    under jax_enable_x64) on the float32 inputs cast up; its increments
+    against the port's plain version in float64, and N^2 of both in
+    float64. Writes the increments to the witness file."""
+    from sp_coupler_tpu.models.les import step as jst, subgrid as jsub
+    from sp_coupler_tpu_torch.models.les import subgrid as tsub
+    if not jax.config.jax_enable_x64:
+        raise SystemExit("stage64: run with --x64")
+    dt = float(c["dts"][0])
+    tb = cs.increment_base(c["ts"])
+    up = lambda t: type(t)(*[jnp.asarray(np.asarray(x), jnp.float64)
+                             for x in t])
+    js = up(c["js"])
+    jb = up(jstate.LESState(*[x.numpy()[0] for x in tb]))
+    c64 = dict(c, jf=up(c["jf"]))
+    j64 = [np.asarray(x) for x in jax.jit(
+        lambda cur, b: jax_plain_stage(c64, cur, b, dt))(js, jb)]
+    if j64[0].dtype != np.float64:
+        raise AssertionError("stage64: JAX ran in %s" % j64[0].dtype)
+    p64 = [x.numpy()[0] for x in cs.stage_reference(
+        c["tg"], c["tphys"], c["ts"], tb, c["tf"], FRAC,
+        torch.tensor([dt]), f64=True)]
+    inc, out = {}, dict(port64_vs_jax64={})
+    for i, k in enumerate(NAMES):
+        bk = getattr(tb, k).numpy()[0].astype(np.float64)
+        bk = bk[:-1] if k == "w" else bk
+        inc[k] = j64[i] - bk
+        out["port64_vs_jax64"][k] = worst(p64[i] - bk, inc[k],
+                                          float(np.abs(inc[k]).max()))
+    np.savez(c["witness"], **inc)
+    n64 = tsub.tke_viscosity(c["tg"], cs.as_f64(c["ts"]), tstep.thermodynamics(
+        cs.as_f64(c["ts"]))[3])[4].numpy()[0, :, 0, 0]
+    nj = np.asarray(jsub.tke_viscosity(c["jg"], js, jst.thermodynamics(js)[3])
+                    [4])[:, 0, 0]
+    rel = np.abs(n64 - nj) / np.maximum(np.abs(nj), 1e-30)
+    out["n2_port64_vs_jax64"] = dict(max=float(rel.max()),
+                                     level=int(np.argmax(rel)))
     return out
 
 
@@ -397,7 +470,7 @@ def cloud_in_float64(tc, gj, gt):
 
 
 PARTS = dict(stage=stage_part, substeps=substeps_part, evolve=evolve_part,
-             gcm=gcm_part)
+             gcm=gcm_part, stage64=stage64_part)
 
 
 def main(argv=None):
@@ -406,9 +479,17 @@ def main(argv=None):
     p.add_argument("--parts", default="stage,substeps,evolve,gcm")
     p.add_argument("--substeps", type=int, default=SUBSTEPS)
     p.add_argument("--out", default=None)
+    p.add_argument("--x64", action="store_true",
+                   help="JAX in float64 (for the stage64 part alone)")
+    p.add_argument("--witness", default=None,
+                   help="stage64 writes JAX's float64 increments here; "
+                        "stage holds the float32 paths against them")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
+    if args.x64:
+        jax.config.update("jax_enable_x64", True)
     c = case(args.cut)
+    c["witness"] = args.witness
     info = c["info"]
     report = dict(cut=os.path.basename(args.cut), step=info["step"],
                   column=info["column"], seed=info["seed"],

@@ -9,7 +9,8 @@ there, of 8x8x16 LES.
   recorded tendency is moved by 1e-3 of its scale.
 - ``compare``'s distance uses each variable's scale over the whole run,
   so a field that starts near zero gives finite distances; ``--exact``
-  and ``--hold`` find what they should.
+  and the ensemble's holds find what they should, and a window that a
+  recording does not cover whole is not held.
 - Under --restart_overlap a resumed run hands on the rain of the record
   a checkpoint left pending, as the uninterrupted run's next flush does;
   a plain --restart keeps the checkpoint's rain_last, as the JAX
@@ -166,16 +167,36 @@ def test_exact_diffs_finds_one_value():
 
 
 def test_seed_hold():
+    """The window hold's verdict: the median of the members' distances to
+    the reference (recording 0) against the factor x the widest member
+    pair; one member far off moves the median only as far as its rank."""
     def pair(i, j, d):
         return dict(i=i, j=j, mean={v: d for v in golden.HOLD_VARS})
 
-    pairs = [pair(0, 1, 0.03), pair(0, 2, 0.5), pair(0, 3, 0.5),
+    pairs = [pair(0, 1, 0.03), pair(0, 2, 0.039), pair(0, 3, 0.5),
              pair(1, 2, 0.02), pair(1, 3, 0.01), pair(2, 3, 0.015)]
     hold = golden.seed_hold(pairs, 2.0)
     assert set(hold) == set(golden.HOLD_VARS)
-    assert all(h["ok"] and h["seed_spread"] == 0.02 for h in hold.values())
-    pairs[0] = pair(0, 1, 0.05)
+    assert all(h["ok"] and h["seed_spread"] == 0.02 and h["d_ref"] == 0.039
+               and h["d_members"] == [0.03, 0.039, 0.5]
+               for h in hold.values())
+    pairs[1] = pair(0, 2, 0.041)
     assert not any(h["ok"] for h in golden.seed_hold(pairs, 2.0).values())
+
+
+def test_ensemble_records_and_stops(tmp_path, monkeypatch):
+    """``golden ensemble``: a seed that ends in time leaves its exit code 0
+    and its recording shrunk beside it; one still running at the timeout
+    is stopped (-9) and leaves no recording."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    args = ["--steps", "1", "--leg", "1", "--device", "cpu", "--conf",
+            json.dumps(SMALL)]
+    assert golden.ensemble(str(tmp_path / "a"), [7], args) == {7: 0}
+    times, groups = golden.read_recording(str(tmp_path / "a" / "seed7.npz"))
+    assert times.tolist() == [300.0, 600.0] and len(groups) == 4
+    assert golden.ensemble(str(tmp_path / "b"), [7, 8], args,
+                           timeout=0.0) == {7: -9, 8: -9}
+    assert sorted(os.listdir(tmp_path / "b")) == ["seed7.log", "seed8.log"]
 
 
 def test_record_refuses_the_golden_directory(tmp_path):
@@ -280,9 +301,10 @@ GCM_L, LES_Z, N_REC = 3, 4, 12
 COLS = (5, 9)
 
 
-def write_recording(path, fields, dt=900.0):
-    """A spifs.nc through the port's writer (io/spifs.py): N_REC records
-    at Time dt, 2 dt, ...; fields {column: {var: [N_REC, levels]}}."""
+def write_recording(path, fields, dt=900.0, n_rec=N_REC):
+    """A spifs.nc through the port's writer (io/spifs.py): the first n_rec
+    records at Time dt, 2 dt, ...; fields {column: {var: [N_REC,
+    levels]}}."""
     from sp_coupler_tpu_torch.io import spifs
     os.makedirs(path)
     w = spifs.SpifsWriter(os.path.join(path, "spifs.nc"), GCM_L, les_info=dict(
@@ -290,7 +312,7 @@ def write_recording(path, fields, dt=900.0):
         start_time=0)
     for c in COLS:
         w.add_les_column(c, 10.0, 20.0)
-    for k in range(N_REC):
+    for k in range(n_rec):
         w.update_time(dt * (k + 1))
         for c in COLS:
             w.write_column(c, **{v: a[k] for v, a in fields[c].items()})
@@ -400,6 +422,37 @@ def test_climate_hold(ensemble):
     means = golden.column_means(refs["alike"], steps=WIN[1])
     for v, prof in alike["climate"][0]["profiles"][0].items():
         np.testing.assert_array_equal(prof, means[v])
+
+
+def test_window_not_covered_is_not_held(ensemble, tmp_path):
+    """A member that ends at record 9 does not cover steps 7-12: neither
+    hold is given there, each window fails with the step where that member
+    ends, and its numbers over steps 7-9 are reported as partial; steps
+    1-6, which it covers, are held as ever."""
+    members, refs = ensemble
+    short = write_recording(str(tmp_path / "short"), synthetic(5), n_rec=9)
+    res = golden.compare([refs["alike"]] + members[:3] + [short],
+                         windows=WIN, climate=WIN[1])
+    w0, w1 = res["windows"]
+    assert w0["covered"] and "partial" not in w0
+    assert all(h["ok"] for h in w0["hold"].values())
+    assert not w1["covered"] and "hold" not in w1
+    assert w1["steps_used"] == [7, 8, 9] and w1["ends"] == {"short": 9}
+    assert set(w1["partial"]) == set(golden.HOLD_VARS)
+    held = res["climate"][0]
+    assert held["held"] and not held["covered"] and "hold" not in held
+    assert res["climate"][1]["covered"] and "hold" in res["climate"][1]
+    assert res["failures"] == [
+        "steps 7-12: not covered, no distance hold (short ends at step 9)",
+        "steps 7-12: not covered, no climate hold (short ends at step 9)"]
+    # the reference cut short fails alike
+    ref = write_recording(str(tmp_path / "ref"), averaged(
+        [synthetic(s) for s in (1, 2, 3, 4)]), n_rec=10)
+    res = golden.compare([ref] + members, windows=WIN)
+    assert res["failures"] == [
+        "steps 7-12: not covered, no distance hold (ref ends at step 10)"]
+    from sp_coupler_tpu_torch.verify import late_state
+    assert late_state.pick_step(golden.digest(res)) == 50
 
 
 def test_tendency_scales_name_where(tmp_path):

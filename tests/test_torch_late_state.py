@@ -13,10 +13,11 @@ inputs; JAX's Pallas stage kernel in interpret mode on the same state is
 tests/test_torch_late_state_pallas.py.
 
 The ensemble: ``verify/ref/config2_seeds.json`` holds the card's seeds
-42-45 of config 2 for 100 steps against ``tests/golden/spifs.nc`` (``golden
-compare --windows --climate --summary``); the TPU recording, read here, is
-held again against the members' envelope wherever the ensemble's holds
-passed.
+42-45 of config 2 against ``tests/golden/spifs.nc`` (``golden compare
+--windows --climate --summary``). The seeds ended at steps 98, 76, 81 and
+72, so window 51-100 is not covered and not held; the windows they cover
+must stay held, and the TPU recording, read here, is held again against
+the members' climate envelope over those windows.
 """
 
 import json
@@ -198,37 +199,56 @@ def _ensemble():
         return json.load(f)
 
 
+# what the ensemble covered: each seed's last step, and the windows every
+# recording holds whole (their distance holds, and the reference's climate
+# means inside the members' envelope, all passed)
+ENDS = {"seed42": 98, "seed43": 76, "seed44": 81, "seed45": 72}
+COVERED = ((1, 10), (11, 50))
+
+
 def test_tpu_recording_inside_the_ensemble():
     """JAX's TPU recording (tests/golden/spifs.nc, read only) against the
-    card's ensemble (config2_seeds.json): its climate means over the held
-    window, recomputed here, are the digest's; each variable whose climate
-    hold passed there lies inside [lo - r, hi + r] of the members; each
-    distance hold that passed has the median of the members' distances
-    within HOLD_FACTOR x their largest distance between two members."""
+    card's ensemble (config2_seeds.json). In each window the seeds cover,
+    every distance hold passes (the median of the members' distances
+    within HOLD_FACTOR x their widest pair) and each of REPORT_VARS has
+    the TPU's climate mean, recomputed here from the recording, inside
+    [lo - r, hi + r] of the members'. Window 51-100, which no seed
+    covers, holds nothing: it stands as a failure with each seed's end,
+    its numbers only partial."""
     ens = _ensemble()
-    assert ens["paths"][0] == "golden" and len(ens["paths"]) == 5
-    held = [c for c in ens["climate"] if c["held"]]
-    assert len(held) == 1 and held[0]["steps"] == list(golden.CLIMATE)
-    # the records every recording holds (a member cut short shortens it)
-    used = held[0]["steps_used"]
-    assert used == list(range(used[0], used[-1] + 1))
-    assert used[0] == golden.CLIMATE[0] and used[-1] <= golden.CLIMATE[1]
-    means = golden.column_means(golden.GOLDEN_DIR, steps=(used[0],
-                                                           used[-1]))
-    for v, h in held[0]["hold"].items():
-        tpu = float(np.mean(means[v]))
-        np.testing.assert_allclose(tpu, h["ref"], rtol=1e-5, err_msg=v)
-        np.testing.assert_allclose(np.mean(ens["profiles"]["means"][0][v]),
-                                   tpu, rtol=1e-5, err_msg=v)
-        if h["ok"]:
-            assert h["lo"] - h["r"] <= tpu <= h["hi"] + h["r"], v
+    assert ens["paths"] == ["golden"] + sorted(ENDS)
     assert [w["steps"] for w in ens["windows"]] == [list(w) for w in
                                                     golden.WINDOWS]
     for w in ens["windows"]:
+        if tuple(w["steps"]) not in COVERED:
+            assert not w["covered"] and "hold" not in w
+            assert w["ends"] == ENDS
+            continue
+        assert w["covered"] and w["steps_used"] == list(
+            range(w["steps"][0], w["steps"][1] + 1))
+        assert set(w["hold"]) == set(golden.HOLD_VARS)
         for v, h in w["hold"].items():
             assert len(h["d_members"]) == 4
             med = float(np.median(h["d_members"]))
             np.testing.assert_allclose(med, h["d_ref"], rtol=1e-5)
-            assert h["ok"] == (med <= golden.HOLD_FACTOR * h["seed_spread"])
-    assert ens["windows"][0]["steps"] == [1, 10]
-    assert all(h["ok"] for h in ens["windows"][0]["hold"].values())
+            assert med <= golden.HOLD_FACTOR * h["seed_spread"], (w, v)
+            assert h["ok"], (w["steps"], v)
+    climate = {tuple(c["steps"]): c for c in ens["climate"]}
+    held = climate[golden.CLIMATE]
+    assert held["held"] and not held["covered"] and "hold" not in held
+    for steps in COVERED:
+        c = climate[steps]
+        assert c["covered"] and set(c["hold"]) == set(golden.REPORT_VARS)
+        means = golden.column_means(golden.GOLDEN_DIR, steps=steps)
+        for v, h in c["hold"].items():
+            tpu = float(np.mean(means[v]))
+            np.testing.assert_allclose(tpu, h["ref"], rtol=1e-5, err_msg=v)
+            assert h["lo"] - h["r"] <= tpu <= h["hi"] + h["r"], (steps, v)
+            assert h["ok"], (steps, v)
+    last = min(ENDS.values())
+    assert ens["failures"] == [
+        "steps %d-%d: not covered, no %s hold (%s)" % (
+            *golden.CLIMATE, what, ", ".join(
+                "%s ends at step %d" % kv for kv in sorted(ENDS.items())))
+        for what in ("distance", "climate")]
+    assert held["steps_used"] == list(range(golden.CLIMATE[0], last + 1))
