@@ -933,7 +933,8 @@ def phase_save(card):
         with open(conf, "w") as f:
             json.dump(cs.CONFIG4_CONF, f)
         odir = os.path.join(tmp, "run")
-        _, argv = cs.config4_argv(odir, conf, SAVE_SLOT, mesh=False)
+        _, argv = cs.baseline_argv("config4", odir, conf, SAVE_SLOT,
+                                    mesh=False)
         torch.cuda.reset_peak_memory_stats()
         restart.save = timed_save
         try:

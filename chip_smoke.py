@@ -187,9 +187,10 @@ Phases (any failure raises and exits non-zero):
      every column and step compared, each tendency within
      golden.REPLAY_TOL of its scale (tests/test_torch_replay.py's checks;
      verify/golden.py's replay);
-  16b. BASELINE config 2 at full width through the CLI (phase_config2_join:
-     T21/L19 + 16 x 64x64x160, --cplsurf, gzip 4, verify/golden.py's
-     case): --steps 2 straight (golden.record, a process of its own run
+  16b. BASELINE config 2's deck at full width through the CLI
+     (phase_config2_join: T21/L19 + 4 of its 16 columns, 64x64x160,
+     --cplsurf, gzip 4, verify/golden.py's config2_join case): --steps 2
+     straight (golden.record, a process of its own run
      beside the rest) and in legs of --steps 1 + 1 here (the second
      --restart, both --restart_overlap): the legs' 3 records equal the
      straight run's bit for bit, the straight recording passes
@@ -239,7 +240,7 @@ bands, against one card's first step (t159_first_step); (c) phase 15
 kernels #1-#3, whole-plane and in halo mode, against their plain
 versions on every card (card_kernels_rank); (f) runtime/scalebench.py
 --sizes 1,2,4 at 16 x 64x64x160 a card; (g) BASELINE config 4 at its
-stated size through the CLI (phase_config4): T255/L19 SL hybrid + 256 x
+stated size through the CLI (phase_baseline): T255/L19 SL hybrid + 256 x
 128x128x160, batched, --mesh_les 4 --gcmprocs 4 (64 instances and 96 GCM
 rows a card), 2 coupled steps, each rank's lesstage 3 x its substep
 calls, then its first 4 columns on card 0 without a mesh: (i) the GCM's
@@ -249,7 +250,7 @@ C_SUBSTEP_SLACK, (iii) every record finite and every instance
 substepping, (iv) rank 0's checkpoint holding every leaf at [256, ...]
 and the whole GCM state, each instance's float64 sums equal to its
 rank's, (v) one step resumed from that checkpoint on the same mesh
-(config4_resume_rank: --steps 0 --restart --restart_overlap), each rank
+(baseline_resume_rank: --steps 0 --restart --restart_overlap), each rank
 reading only its rows of each fleet leaf, its loaded per-instance sums
 equal to the saved ones, the step's diagnostics finite; each card's
 step walls, evolve seconds and peak, rank 0's spifs.nc bytes,
@@ -261,8 +262,22 @@ that hang end it at once. Its last line is {"ok": true, "device": {...,
 "count": N}}; summary in chiprun_out/chip_smoke_cards.json ((g) also in
 chip_smoke_config4.json).
 
+``--config5`` (config5_main) runs (h) alone: BASELINE config 5 through
+the CLI on 4 cards, one card a rank (phase_baseline with CONFIG5_CONF):
+TL639/L60 SL hybrid (dt 720 s) in 4 GCM bands of 160 rows + 1024 x
+64x64x160 (TKE, batched, 256 a card) on a global lattice of 32 rows x 32
+longitudes (config5_points), --mesh_les 4 --gcmprocs 4, 2 coupled steps,
+with (g)'s holds (i)-(v): the reference on card 0 takes the first 4
+columns, all on row 10 (~87 deg N), where (ii) holds f_T's LES side
+level by level (the GCM T's own difference over dt allowed at each
+level; (g) holds f_T whole). ``--config5 FLEET`` runs the same at the
+lattice's first FLEET columns (a multiple of 4, at least 4), every hold
+included. It raises with fewer than 4 cards; summary in
+chiprun_out/chip_smoke_config5.json.
+
 Run: python3 chip_smoke.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_smoke.py --cards 4   (4 cards)
+     python3 chip_smoke.py --config5 [FLEET]   (4 cards)
 """
 
 import json
@@ -350,7 +365,7 @@ RAIN_SHAPE = ((64, 64, 160), 2, None)
 # whole, 64 x 64x64x160) the references, the plain version and its
 # float64 run, are computed REF_CHUNK instances at a time and concatenated
 # (the stage is per instance): a plain run of config 4's 64 x 128x128x160
-# a card (phase_config4) may not fit beside the kernel's inputs and outputs
+# a card (phase_baseline) may not fit beside the kernel's inputs and outputs
 REF_WHOLE_POINTS = 64 * 64 * 64 * 160
 REF_CHUNK = 4
 # physics options the main path does not take (LESPhysics fields), each
@@ -1701,6 +1716,15 @@ def cli_leg(argv, writer, before_finalize=None):
     launches)."""
     from sp_coupler_tpu_torch import spmaster
     runner = spmaster.build_runner(argv, writer=writer)
+    initialize = runner.initialize
+
+    def timed_initialize():
+        t0 = time.time()
+        out = initialize()
+        runner.init_s = time.time() - t0
+        return out
+
+    runner.initialize = timed_initialize
     if before_finalize is not None:
         finalize = runner.finalize
 
@@ -2562,12 +2586,15 @@ def spatial_rank(odir, report):
     return 0
 
 
-def record_diffs(ref_times, ref_groups, rec):
+def record_diffs(ref_times, ref_groups, rec, gcm_t=False):
     """{column/variable: largest over records t of max|got_t - ref_t| /
     max|ref_t|} of rank 0's records rec (npz) against the single
     process's; raises where a record lies beyond verify/parity.py's
     PROFILE_TOL for its step (f_thl: plus F_ULPS float32 spacings of the
-    slab-mean thl over the record's dt)."""
+    slab-mean thl over the record's dt). gcm_t: f_T = (<T>_LES - T)/dt
+    at each level may differ besides by the two runs' GCM T at that level
+    over dt (the records' "T"), level by level, so that PROFILE_TOL holds
+    its LES side."""
     from sp_coupler_tpu_torch.verify.parity import PROFILE_TOL
     if not np.array_equal(rec["Time"], np.asarray(ref_times)):
         raise AssertionError("spatial: record times %s, single %s"
@@ -2590,7 +2617,12 @@ def record_diffs(ref_times, ref_groups, rec):
                 dt = ref_times[t] - (ref_times[t - 1] if t else 0.0)
                 thl = np.max(np.abs(ref_groups[int(c)]["thl"][t]))
                 tol += F_ULPS * float(np.spacing(np.float32(thl))) / dt
-            if err > tol:
+            if v == "f_T" and gcm_t:
+                dt = ref_times[t] - (ref_times[t - 1] if t else 0.0)
+                tol = tol + np.abs(
+                    np.asarray(rec["%s/T" % c][t], np.float64)
+                    - ref_groups[int(c)]["T"][t]) / dt
+            if np.any(np.abs(b[t] - a[t]) > tol):
                 bad.append((k, t, err / scale, err))
             d = max(d, err / scale)
         out[k] = d
@@ -3586,7 +3618,7 @@ def phase_gcm_bands(card, single, t159_first, backend="gloo"):
 # with --lesprocs 4, config 4's fleet on 2 x 2 blocks, the Smagorinsky
 # leg); (e) kernels #1-#3 on every card (phase_card_kernels); (f)
 # runtime/scalebench.py at SCALE_SIZES (phase_scaling); (g) BASELINE
-# config 4 at its stated size through the CLI (phase_config4). With N = 2,
+# config 4 at its stated size through the CLI (phase_baseline). With N = 2,
 # (b), (c), (d) and (g), which take 4 ranks, do not run.
 CARD_COUNTS = (2, 4)
 CARDS_TIMEOUT = 300
@@ -3742,7 +3774,7 @@ def phase_scaling(card, n_cards):
     return res
 
 
-# ---- (g) BASELINE config 4 at its stated size, one card a les slot -----
+# ---- (g), (h) BASELINE configs 4 and 5 through the CLI, a card a les slot
 
 # BASELINE.md's config 4, "T255 + 256 LES (128x128x160 each), domain-
 # decomposed across one host", through the port's CLI (python -m
@@ -3758,18 +3790,41 @@ CONFIG4_CONF = {"gcm_truncation": 255, "gcm_levels": 19, "gcm_hybrid": True,
                 "les_dz": 25.0, "les_schedule": "batched",
                 "les_evolve_chunks": 8}
 CONFIG4_FLEET, CONFIG4_RANKS, CONFIG4_STEPS = 256, 4, 2
-CONFIG4_ARGS = ["--mesh_les", str(CONFIG4_RANKS), "--gcmprocs",
-                str(CONFIG4_RANKS)]
-CONFIG4_TIMEOUT = 600   # s for the rank set: init, 2 steps, the checkpoint
-# (ii): the same --conf on card 0 with the first CONFIG4_REF_N columns and
+CONFIG4_TIMEOUT = 600   # s for a rank set: init, 2 steps, the checkpoint
+# BASELINE.md's config 5, "TL639 global superparameterization, thousands
+# of LES columns sharded over >=2 hosts", on the 4 cards of one host with
+# 1024 columns of 64x64x160, 256 a card (reckoned from runtime/t255bench.py
+# --fit at ~0.154 GiB an instance, and the GCM alone at 20.14 GiB,
+# verify/TL639_H100.md: ~60 GiB a card, where 512 would not fit; 44.23
+# GiB measured, verify/CONFIG5_H100.md): runtime/tl639.py's core
+# (TL639/L60, hybrid, SL, dt 720 s) and the bench deck's LES (64x64x160,
+# 200 m x 200 m x 25 m, TKE, hybrid52), dt_les 15 s, batched,
+# evolve_chunks 8, through the CLI with the same mesh flags and steps.
+# The columns are global (config5_points): every CONFIG5_LATTICE[0]-th of
+# the 640 rows from row CONFIG5_LATTICE[1] (rows 10 and 630 lie ~87 deg
+# from the equator) and every CONFIG5_LATTICE[2]-th of the 1280
+# longitudes, 32 x 32; the columns sorted, rank r holds lattice rows 8 r
+# ... 8 r + 7 (positions 256 r ... 256 r + 255), inside its GCM band, rows
+# 160 r ... 160 r + 159.
+CONFIG5_CONF = {"gcm_truncation": 639, "gcm_levels": 60, "gcm_hybrid": True,
+                "gcm_advection": "sl", "gcm_dt": 720.0, "les_itot": 64,
+                "les_jtot": 64, "les_ktot": 160, "les_xsize": 12800.0,
+                "les_ysize": 12800.0, "les_dz": 25.0,
+                "les_schedule": "batched", "les_evolve_chunks": 8}
+CONFIG5_FLEET, CONFIG5_RANKS, CONFIG5_STEPS = 1024, 4, 2
+CONFIG5_LATTICE = (20, 10, 40)
+# s for a rank set: 256 polar columns with the whole GCM on one card took
+# 92.5 + 130.7 s a step and 277 s in all (H100 80GB HBM3, 700.00 W)
+CONFIG5_TIMEOUT = 900
+# (ii): the same --conf on card 0 with the first BASELINE_REF_N columns and
 # no mesh; an instance's start draws from generator(seed, i), so it does
 # not depend on the fleet's size, and step 1 comes before any feedback
 # from the other columns: rank 0's step-1 records of those instances
 # within verify/parity.py's PROFILE_TOL (f_thl: + F_ULPS), their substeps
 # within C_SUBSTEP_SLACK (the batch of 64 against 4 rounds the
 # projection's products apart, as in phase_gcm_bands (c))
-CONFIG4_REF_N = 4
-CONFIG4_VARS = ("thl", "qt", "f_T", "f_SH", "A_d", "rain")
+BASELINE_REF_N = 4
+BASELINE_VARS = ("thl", "qt", "f_T", "f_SH", "A_d", "rain")
 
 
 def config4_points(n, trunc=None):
@@ -3783,20 +3838,64 @@ def config4_points(n, trunc=None):
                                    device="cpu")
     lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
     cols = t255bench.columns(SimpleNamespace(sht=sht, nlon=len(lons)), n)
+    return cols, grid_points(cols, lats, lons)
+
+
+def grid_points(cols, lats, lons):
+    """--points of the grid columns cols: each the grid's own lat/lon."""
     pts = []
     for c in cols:
         pts += ["%.6f" % lats[c // len(lons)], "%.6f" % lons[c % len(lons)]]
-    return cols, pts
+    return pts
 
 
-def config4_argv(odir, conf, n, mesh=True):
-    """spmaster's flags of config 4 at n columns (CONFIG4_ARGS with
-    mesh)."""
-    cols, pts = config4_points(n)
+def lattice(trunc, every_row, first_row, every_lon):
+    """The grid columns (sorted) of every every_row-th row from first_row
+    and every every_lon-th longitude from 0 at trunc."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    nlon, nlat = spharm.GRID_FOR_TRUNC[trunc]
+    return [r * nlon + j for r in range(first_row, nlat, every_row)
+            for j in range(0, nlon, every_lon)]
+
+
+def config5_points(n):
+    """(columns, --points) of the first n columns of config 5's global
+    lattice (CONFIG5_LATTICE) at CONFIG5_CONF's truncation."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    trunc = CONFIG5_CONF["gcm_truncation"]
+    cols = lattice(trunc, *CONFIG5_LATTICE)[:n]
+    nlon, nlat = spharm.GRID_FOR_TRUNC[trunc]
+    return cols, grid_points(cols, *spharm.grid_degrees(nlat, nlon))
+
+
+# the two configurations of phase_baseline: conf, columns, ranks, coupled
+# steps (--steps steps - 1: the CLI adds the restart overlap), the ranks'
+# time limit, whether (ii) holds f_T's LES side level by level
+# (baseline_first_step), and the label of the logs
+BASELINE_CASES = {
+    "config4": dict(conf=CONFIG4_CONF, fleet=CONFIG4_FLEET,
+                    ranks=CONFIG4_RANKS, steps=CONFIG4_STEPS,
+                    points=config4_points, timeout=CONFIG4_TIMEOUT,
+                    gcm_t=False, phase="(g)",
+                    label="T255/L19 + %d x 128x128x160"),
+    "config5": dict(conf=CONFIG5_CONF, fleet=CONFIG5_FLEET,
+                    ranks=CONFIG5_RANKS, steps=CONFIG5_STEPS,
+                    points=config5_points, timeout=CONFIG5_TIMEOUT,
+                    gcm_t=True, phase="(h)",
+                    label="TL639/L60 + %d x 64x64x160 on a global lattice"),
+}
+
+
+def baseline_argv(case, odir, conf, n, mesh=True):
+    """spmaster's flags of the case at its first n columns (with mesh:
+    --mesh_les and --gcmprocs at the case's ranks)."""
+    c = BASELINE_CASES[case]
+    cols, pts = c["points"](n)
+    mesh_args = ["--mesh_les", str(c["ranks"]), "--gcmprocs", str(c["ranks"])]
     return cols, (["--points"] + pts
-                  + ["--les_dt", "15", "--steps", str(CONFIG4_STEPS - 1),
+                  + ["--les_dt", "15", "--steps", str(c["steps"] - 1),
                      "--conf", conf, "--odir", odir]
-                  + (CONFIG4_ARGS if mesh else []))
+                  + (mesh_args if mesh else []))
 
 
 def row_sums(a):
@@ -3804,12 +3903,13 @@ def row_sums(a):
     return np.asarray([np.asarray(r, np.float64).sum() for r in a])
 
 
-def config4_rank(odir, conf, report):
-    """One rank of phase_config4 (``chip_smoke.py --config4-rank ODIR CONF
-    REPORT``, SPTPU_DIST_* set, CONFIG4_RANKS ranks): config 4 through
-    the CLI (cli_leg), the rank's substep calls and evolve seconds
-    counted; before finalize the GCM's replicated state checked the same
-    on every rank (pmesh.replicate), the float64 sum of each fleet leaf
+def baseline_rank(case, odir, conf, report, fleet):
+    """One rank of phase_baseline (``chip_smoke.py --baseline-rank CASE
+    ODIR CONF REPORT FLEET``, SPTPU_DIST_* set, the case's ranks): the
+    case's first FLEET columns through the CLI (cli_leg), the rank's
+    substep calls and evolve seconds counted; before finalize the GCM's
+    replicated state checked the same on every rank (pmesh.replicate),
+    the float64 sum of each fleet leaf
     for each of the rank's instances written to REPORT.<rank>.sums.npz
     and the peak of device memory read; the checkpoint (restart.save)
     timed. Writes REPORT.<rank>.json, rank 0 REPORT.records.npz."""
@@ -3820,7 +3920,8 @@ def config4_rank(odir, conf, report):
     from sp_coupler_tpu_torch.io import restart
     from sp_coupler_tpu_torch.parallel import mesh as pmesh
     from sp_coupler_tpu_torch.utils import tree
-    cols, argv = config4_argv(odir, conf, CONFIG4_FLEET)
+    c = BASELINE_CASES[case]
+    cols, argv = baseline_argv(case, odir, conf, int(fleet))
     evolve_s, evolve_to = [0.0], CoupledStepFn._evolve_to
 
     def timed_evolve(self, *a):
@@ -3858,15 +3959,16 @@ def config4_rank(odir, conf, report):
     CoupledStepFn._evolve_to, restart.save = timed_evolve, timed_save
     try:
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
         (runner, walls, launches), calls = counted_substeps(
             lambda: cli_leg(argv, tee_writer(), before_finalize))
         rank = pmesh.rank()
-        if runner.mesh is None or pmesh.world_size() != CONFIG4_RANKS:
+        if runner.mesh is None or pmesh.world_size() != c["ranks"]:
             raise AssertionError("rank %d: no les mesh over %d ranks"
-                                 % (rank, CONFIG4_RANKS))
+                                 % (rank, c["ranks"]))
         if runner.sp_cols != cols:
             raise AssertionError("rank %d: the points selected %d columns "
-                                 "(%s...), not t255bench.columns' %d"
+                                 "(%s...), not the case's %d"
                                  % (rank, len(runner.sp_cols),
                                     runner.sp_cols[:4], len(cols)))
         pos = runner.fleet.positions
@@ -3874,14 +3976,15 @@ def config4_rank(odir, conf, report):
                    card=card_line(runner.device), positions=pos,
                    walls=walls, evolve_s=evolve_s[0], save_s=save_s,
                    substeps=runner.substeps, launches=launches,
-                   loop_substeps=calls,
+                   loop_substeps=calls, run_s=time.time() - t0,
+                   init_s=runner.init_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    **held, **transport())
         if rank == 0:
             spifs = os.path.join(odir, "spifs.nc")
             times, groups = read_records(spifs)
             np.savez(report + ".records.npz", Time=np.asarray(times),
-                     **{"%d/%s" % (c, v): a for c, g in groups.items()
+                     **{"%d/%s" % (col, v): a for col, g in groups.items()
                         for v, a in g.items()})
             path = os.path.join(odir, "restart.npz")
             rep.update(spifs_bytes=os.path.getsize(spifs),
@@ -3896,24 +3999,24 @@ def config4_rank(odir, conf, report):
     return 0
 
 
-def config4_resume_rank(odir, conf, report):
-    """One rank of phase_config4's resume (``chip_smoke.py
-    --config4-resume-rank ODIR CONF REPORT``, SPTPU_DIST_* set,
-    CONFIG4_RANKS ranks): config 4 through the CLI from the checkpoint in
-    ODIR with the same mesh, --steps 0 --restart --restart_overlap (one
-    step, the overlap step, which writes no record, and no checkpoint at
-    the end). restart.load reads the rank's rows of each fleet leaf alone;
-    the loaded fleet's per-instance float64 sums go to
-    REPORT.<rank>.sums.npz, the load's seconds and bytes read to
-    REPORT.<rank>.json, with whether the step's diagnostics (the record
-    the step would write) are finite and every instance substepped."""
+def baseline_resume_rank(case, odir, conf, report, fleet):
+    """One rank of phase_baseline's resume (``chip_smoke.py
+    --baseline-resume-rank CASE ODIR CONF REPORT FLEET``, SPTPU_DIST_* set,
+    the case's ranks): the case's first FLEET columns through the CLI from
+    the checkpoint in ODIR with the same mesh, --steps 0 --restart
+    --restart_overlap (one step, the overlap step, which writes no record,
+    and no checkpoint at the end). restart.load reads the rank's rows of
+    each fleet leaf alone; the loaded fleet's per-instance float64 sums go
+    to REPORT.<rank>.sums.npz, the load's seconds and bytes read to
+    REPORT.<rank>.json, with whether the step's diagnostics (the record the
+    step would write) are finite and every instance substepped."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
     from sp_coupler_tpu_torch import card_line
     from sp_coupler_tpu_torch.io import restart
     from sp_coupler_tpu_torch.parallel import mesh as pmesh
     from sp_coupler_tpu_torch.utils import tree
-    _, argv = config4_argv(odir, conf, CONFIG4_FLEET)
+    _, argv = baseline_argv(case, odir, conf, int(fleet))
     argv[argv.index("--steps") + 1] = "0"
     argv += ["--restart", "--restart_overlap"]
     load, loaded, held = restart.load, {}, {}
@@ -3938,13 +4041,16 @@ def config4_resume_rank(odir, conf, report):
 
     restart.load = summed_load
     try:
+        torch.cuda.reset_peak_memory_stats()
         runner, walls, launches = cli_leg(argv, None, before_finalize)
         rank = pmesh.rank()
         np.savez("%s.%d.sums.npz" % (report, rank), **loaded)
         rep = dict(rank=rank, device=str(runner.device),
                    card=card_line(runner.device), walls=walls,
                    launches=launches, load=runner.restart_load,
-                   step=runner.gcm.step_count, **held, **transport())
+                   step=runner.gcm.step_count, init_s=runner.init_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   **held, **transport())
     finally:
         restart.load = load
         pmesh.shutdown()
@@ -3953,12 +4059,13 @@ def config4_resume_rank(odir, conf, report):
     return 0
 
 
-def check_config4_resume(reps, sums, loaded, path):
+def check_baseline_resume(case, reps, sums, loaded, path):
     """The resume's ranks against the run that wrote the checkpoint: each
     rank's loaded per-instance sums equal to the sums it had before the
     checkpoint, its bytes read no more than its share of the fleet's
     leaves and the whole GCM state, one overlap step taken, finite and
     every instance substepping. Returns (fleet bytes, GCM bytes)."""
+    c = BASELINE_CASES[case]
     with zipfile.ZipFile(path) as z:
         size = {i.filename[:-4]: i.file_size for i in z.infolist()}
     fleet = sum(v for k, v in size.items() if k.startswith("les_"))
@@ -3967,221 +4074,294 @@ def check_config4_resume(reps, sums, loaded, path):
         if got["positions"].tolist() != want["positions"].tolist() or any(
                 not np.array_equal(got[k], want[k])
                 for k in want if k.startswith("les_")):
-            raise AssertionError("config4 resume: rank %d's loaded fleet "
-                                 "sums differ from its saved ones" % r)
-        if rep["load"]["bytes_read"] > fleet / CONFIG4_RANKS + gcm:
-            raise AssertionError("config4 resume: rank %d read %d bytes, "
-                                 "its share %d + the GCM's %d" % (
-                                     r, rep["load"]["bytes_read"],
-                                     fleet // CONFIG4_RANKS, gcm))
+            raise AssertionError("%s resume: rank %d's loaded fleet sums "
+                                 "differ from its saved ones" % (case, r))
+        if rep["load"]["bytes_read"] > fleet / c["ranks"] + gcm:
+            raise AssertionError("%s resume: rank %d read %d bytes, its "
+                                 "share %d + the GCM's %d" % (
+                                     case, r, rep["load"]["bytes_read"],
+                                     fleet // c["ranks"], gcm))
         if not (rep["overlap"] and rep["finite"]
-                and rep["step"] == CONFIG4_STEPS + 1
+                and rep["step"] == c["steps"] + 1
                 and min(rep["substeps"]) > 0
                 and rep["launches"]["lesstage"] > 0):
-            raise AssertionError("config4 resume: rank %d %s" % (r, rep))
+            raise AssertionError("%s resume: rank %d %s" % (case, r, rep))
     return fleet, gcm
 
 
-def check_config4_checkpoint(path, ref_path, sums):
-    """(iv): the checkpoint at path holds every fleet leaf at
-    [CONFIG4_FLEET, ...], each instance's float64 sums equal to those its
-    rank wrote before finalize (sums: one npz a rank), and the GCM's
-    leaves of the one-card reference's checkpoint (ref_path: no mesh, the
-    whole state) at their shapes. Returns (seconds, leaves)."""
+def check_baseline_checkpoint(case, path, ref_path, sums, n):
+    """(iv): the checkpoint at path holds every fleet leaf at [n, ...],
+    each instance's float64 sums equal to those its rank wrote before
+    finalize (sums: one npz a rank), and the GCM's leaves of the
+    one-card reference's checkpoint (ref_path: no mesh, the whole state)
+    at their shapes. Returns (seconds, leaves)."""
     t0 = time.time()
     if not os.path.exists(path):
-        raise AssertionError("config4: no checkpoint at %s" % path)
+        raise AssertionError("%s: no checkpoint at %s" % (case, path))
     with np.load(path) as data, np.load(ref_path) as ref:
         les = [k for k in data.files if k.startswith("les_")]
         want = [k for k in ref.files if k.startswith("les_")]
         if les != want:
-            raise AssertionError("config4: checkpoint fleet leaves %s, the "
-                                 "reference's %s" % (les, want))
+            raise AssertionError("%s: checkpoint fleet leaves %s, the "
+                                 "reference's %s" % (case, les, want))
         for k in les:
             arr = data[k]
-            if arr.shape[0] != CONFIG4_FLEET:
-                raise AssertionError("config4: %s has shape %s"
-                                     % (k, arr.shape))
+            if arr.shape[0] != n:
+                raise AssertionError("%s: %s has shape %s"
+                                     % (case, k, arr.shape))
             for r, s in enumerate(sums):
                 got = row_sums(arr[s["positions"]])
                 if not np.array_equal(got, s[k]):
                     raise AssertionError(
-                        "config4: %s of rank %d's instances: file sums %s, "
-                        "the rank's %s" % (k, r, got[:3], s[k][:3]))
+                        "%s: %s of rank %d's instances: file sums %s, "
+                        "the rank's %s" % (case, k, r, got[:3], s[k][:3]))
             del arr
         gcm = [k for k in data.files if k.startswith("gcm_")]
         if gcm != [k for k in ref.files if k.startswith("gcm_")] or any(
                 data[k].shape != ref[k].shape for k in gcm):
-            raise AssertionError("config4: the checkpoint's GCM leaves are "
-                                 "not the whole state of one process's")
+            raise AssertionError("%s: the checkpoint's GCM leaves are not "
+                                 "the whole state of one process's" % case)
     return time.time() - t0, len(les)
 
 
-def config4_first_step(ref_times, ref_groups, rec, cols):
-    """(ii): rank 0's step-1 records of cols against the reference's:
-    record_diffs on the first record."""
-    ref = {c: {v: ref_groups[c][v][:1] for v in CONFIG4_VARS} for c in cols}
+def baseline_first_step(ref_times, ref_groups, rec, cols, gcm_t):
+    """(ii): rank 0's step-1 records of cols (BASELINE_VARS and the GCM's
+    T) against the reference's: record_diffs on the first record, with
+    f_T's LES side held level by level where gcm_t (config 5: at ~87 deg
+    f_T is the difference of two float32 T profiles ~0.01 K apart, one
+    spacing of T over dt ~1e-3 of max|f_T|, and the banded and the whole
+    GCM round T apart). Returns (diffs, parts): parts[col] the largest
+    over f_T's levels of the f_T difference, the GCM T difference over dt
+    and the remapped <T>_LES's, (f_T dt + T)'s, over dt, each over
+    max|f_T|."""
+    names = BASELINE_VARS + ("T",)
+    ref = {c: {v: ref_groups[c][v][:1] for v in names} for c in cols}
     got = {"Time": np.asarray(rec["Time"][:1])}
     got.update({"%d/%s" % (c, v): rec["%d/%s" % (c, v)][:1] for c in cols
-                for v in CONFIG4_VARS})
-    return record_diffs(ref_times[:1], ref, got)
+                for v in names})
+    dt = float(ref_times[0])
+    parts = {}
+    for c in cols:
+        f0, t0 = (np.asarray(ref[c][v][0], np.float64) for v in ("f_T", "T"))
+        f1, t1 = (np.asarray(got["%d/%s" % (c, v)][0], np.float64)
+                  for v in ("f_T", "T"))
+        scale, inside = float(np.max(np.abs(f0))) + 1e-30, f0 != 0
+        parts[c] = dict(
+            f_T=float(np.max(np.abs(f1 - f0))) / scale,
+            gcm_T=float(np.max(np.abs(t1 - t0)[inside], initial=0)) / dt
+            / scale,
+            les_T=float(np.max(np.abs((f1 * dt + t1) - (f0 * dt + t0))[
+                inside], initial=0)) / dt / scale)
+    try:
+        return record_diffs(ref_times[:1], ref, got, gcm_t=gcm_t), parts
+    except AssertionError as e:
+        raise AssertionError("%s; f_T's parts: %s" % (e, parts))
 
 
-def phase_config4(card):
-    """(g): BASELINE config 4 at its stated size (CONFIG4_CONF, 256
-    columns) through the CLI on CONFIG4_RANKS cards (config4_rank, nccl),
-    then its first CONFIG4_REF_N columns through the CLI on card 0 without
-    a mesh; holds (i) the GCM's replicated state the same on every rank,
-    (ii) step 1 of rank 0's first columns against card 0's run, (iii)
-    every instance's records finite on every step and every instance
-    substepping, (iv) rank 0's checkpoint against every rank's sums; each
-    rank's lesstage launches 3 x its substep calls. The checkpoint lies in
-    a temporary directory (its free space printed first) and is removed
-    after (iv). Writes chiprun_out/chip_smoke_config4.json."""
+def read_rank_reports(report, n):
+    """([REPORT.<r>.json], [REPORT.<r>.sums.npz]) of ranks 0 ... n - 1."""
+    reps, sums = [], []
+    for r in range(n):
+        with open("%s.%d.json" % (report, r)) as f:
+            reps.append(json.load(f))
+        sums.append(dict(np.load("%s.%d.sums.npz" % (report, r))))
+    return reps, sums
+
+
+def reference_leg(case, conf, ref_dir):
+    """(ii)'s reference: the case's first BASELINE_REF_N columns through the
+    CLI on card 0 without a mesh. Returns (columns, records, summary)."""
+    ref_cols, argv = baseline_argv(case, ref_dir, conf, BASELINE_REF_N,
+                                   mesh=False)
+    torch.cuda.reset_peak_memory_stats()
+    (runner, walls, launches), calls = counted_substeps(
+        lambda: cli_leg(argv, tee_writer()))
+    check_launches("%s reference" % case, launches, calls)
+    if runner.sp_cols != ref_cols:
+        raise AssertionError("%s reference: columns %s, not %s"
+                             % (case, runner.sp_cols, ref_cols))
+    summary = dict(columns=ref_cols, walls=walls, substeps=runner.substeps,
+                   launches=launches, loop_substeps=calls,
+                   init_s=runner.init_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del runner
+    torch.cuda.empty_cache()
+    return ref_cols, read_records(os.path.join(ref_dir, "spifs.nc")), summary
+
+
+def phase_baseline(card, case, fleet=None):
+    """(g) config 4 or (h) config 5 (BASELINE_CASES[case]) through the CLI
+    on the case's cards (baseline_rank, nccl; each rank a share of this
+    host's cores) at its fleet (or its first fleet columns), then its
+    first BASELINE_REF_N columns through the CLI on card 0 without a mesh
+    (reference_leg, after the ranks: their walls share no card); holds (i)
+    the GCM's replicated state the same on every rank, each rank's band
+    nlat / ranks rows and its fleet / ranks instances, (ii) step 1 of rank
+    0's first columns against card 0's run, (iii) every instance's
+    records finite on every step and every instance substepping, (iv)
+    rank 0's checkpoint against every rank's sums, held while (v) one
+    step resumes from it on the same mesh; each rank's lesstage launches
+    3 x its substep calls. The checkpoint lies in a temporary directory
+    (its free space printed first) and is removed after (v). Writes
+    chiprun_out/chip_smoke_<case>.json, also as each hold passes."""
     import shutil
     import tempfile
+    c = BASELINE_CASES[case]
+    n_ranks, n_fleet, n_steps, tag = (c["ranks"], fleet or c["fleet"],
+                                      c["steps"], "%s %s" % (case, c["phase"]))
+    if n_fleet % n_ranks or not BASELINE_REF_N <= n_fleet <= c["fleet"]:
+        raise ValueError("%s: a fleet of %d on %d ranks (at most %d)"
+                         % (case, n_fleet, n_ranks, c["fleet"]))
+    threads = max(1, (os.cpu_count() or n_ranks) // (n_ranks + 1))
     t_phase = time.time()
-    res = dict(card=card, conf=CONFIG4_CONF, args=CONFIG4_ARGS)
-    with tempfile.TemporaryDirectory() as tmp:
-        free = shutil.disk_usage(tmp).free
-        log("config4 (g): temporary directory %s, %.1f GB free" % (
-            tmp, free / 1e9))
-        conf = os.path.join(tmp, "config4.json")
-        with open(conf, "w") as f:
-            json.dump(CONFIG4_CONF, f)
-        report = os.path.join(tmp, "c4")
-        odir = os.path.join(tmp, "run")
-        wall = run_rank_set("cards_config4", CONFIG4_RANKS, CONFIG4_TIMEOUT,
-                            ["--config4-rank", odir, conf, report],
-                            os.path.join(tmp, "store"), backend="nccl")
-        reps, sums = [], []
-        for r in range(CONFIG4_RANKS):
-            with open("%s.%d.json" % (report, r)) as f:
-                reps.append(json.load(f))
-            sums.append(dict(np.load("%s.%d.sums.npz" % (report, r))))
-        check_transport("config4", reps, "nccl")
-        per = CONFIG4_FLEET // CONFIG4_RANKS
-        nlat = reps[0]["rows"] * CONFIG4_RANKS
-        for rep in reps:
-            r = rep["rank"]
-            if rep["positions"] != list(range(per * r, per * (r + 1))) or \
-                    rep["bands"] != [CONFIG4_RANKS, r * nlat // CONFIG4_RANKS,
-                                     (r + 1) * nlat // CONFIG4_RANKS]:
-                raise AssertionError("config4: rank %d holds positions "
-                                     "%s..., GCM band %s" % (
-                                         r, rep["positions"][:2],
-                                         rep["bands"]))
-            check_launches("config4 rank %d" % r, rep["launches"],
-                           rep["loop_substeps"])
-        r0 = reps[0]
-        # (iii)
-        sub = np.asarray(r0["substeps"])
-        if sub.shape != (CONFIG4_STEPS, CONFIG4_FLEET) or not np.all(sub > 0):
-            raise AssertionError("config4: substeps of shape %s, %d "
-                                 "instance-steps without one" % (
-                                     sub.shape, int(np.sum(sub <= 0))))
-        rec = np.load(report + ".records.npz")
-        cols = sorted({int(k.split("/")[0]) for k in rec.files
-                       if k != "Time"})
-        if len(cols) != CONFIG4_FLEET or len(rec["Time"]) != CONFIG4_STEPS:
-            raise AssertionError("config4: %d columns, %d records"
-                                 % (len(cols), len(rec["Time"])))
-        groups = {c: {v: rec["%d/%s" % (c, v)] for v in CONFIG4_VARS}
-                  for c in cols}
-        check_finite_records("config4", groups, cols, CONFIG4_STEPS,
-                             CONFIG4_VARS)
-        # (ii) on card 0, no mesh
-        ref_dir = os.path.join(tmp, "ref")
-        ref_cols, argv = config4_argv(ref_dir, conf, CONFIG4_REF_N,
-                                      mesh=False)
-        torch.cuda.reset_peak_memory_stats()
-        (runner, ref_walls, launches), calls = counted_substeps(
-            lambda: cli_leg(argv, tee_writer()))
-        check_launches("config4 reference", launches, calls)
-        if runner.sp_cols != ref_cols or ref_cols != cols[:CONFIG4_REF_N]:
-            raise AssertionError("config4 reference: columns %s, rank 0's "
-                                 "first %s" % (runner.sp_cols,
-                                               cols[:CONFIG4_REF_N]))
-        ref_sub = runner.substeps
-        ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        del runner
-        torch.cuda.empty_cache()
-        ref_times, ref_groups = read_records(os.path.join(ref_dir,
-                                                          "spifs.nc"))
-        diffs = config4_first_step(ref_times, ref_groups, rec,
-                                   cols[:CONFIG4_REF_N])
-        slack = int(np.max(np.abs(sub[0, :CONFIG4_REF_N]
-                                  - np.asarray(ref_sub[0]))))
-        if slack > C_SUBSTEP_SLACK:
-            raise AssertionError("config4: step 1's substeps %s, card 0's "
-                                 "%s" % (sub[0, :CONFIG4_REF_N].tolist(),
-                                         ref_sub[0]))
-        # (iv)
-        path = os.path.join(odir, "restart.npz")
-        hold_s, n_leaves = check_config4_checkpoint(
-            path, os.path.join(ref_dir, "restart.npz"), sums)
-        # (v) the resume, one step on the same mesh
-        rreport = os.path.join(tmp, "c4r")
-        resume_wall = run_rank_set(
-            "cards_config4_resume", CONFIG4_RANKS, CONFIG4_TIMEOUT,
-            ["--config4-resume-rank", odir, conf, rreport],
-            os.path.join(tmp, "store_resume"), backend="nccl")
-        rreps, loaded = [], []
-        for r in range(CONFIG4_RANKS):
-            with open("%s.%d.json" % (rreport, r)) as f:
-                rreps.append(json.load(f))
-            loaded.append(dict(np.load("%s.%d.sums.npz" % (rreport, r))))
-        check_transport("config4 resume", rreps, "nccl")
-        fleet_bytes, gcm_bytes = check_config4_resume(rreps, sums, loaded,
-                                                      path)
-        os.remove(path)
-    res.update(
-        rank_set_s=wall, ranks=reps, reference=dict(
-            walls=ref_walls, substeps=ref_sub, launches=launches,
-            loop_substeps=calls, peak_gib=ref_peak),
-        step1_diffs=diffs, substep_slack=slack, checkpoint_hold_s=hold_s,
-        fleet_leaves=n_leaves, resume=dict(
-            rank_set_s=resume_wall, ranks=rreps, fleet_bytes=fleet_bytes,
-            gcm_bytes=gcm_bytes), seconds=time.time() - t_phase)
+    res = dict(card=card, conf=c["conf"], ranks_n=n_ranks, fleet=n_fleet,
+               threads=threads)
+    out = os.path.join(OUT_DIR, "chip_smoke_%s.json" % case)
+
+    def dump(**kw):
+        """res with kw, written to out (a run cut later keeps it)."""
+        res.update(kw)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1, default=str)
+
+    host_threads = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                ThreadPoolExecutor(1) as pool:
+            free = shutil.disk_usage(tmp).free
+            log("%s: temporary directory %s, %.1f GB free; %d ranks at %d "
+                "threads each, then card 0's reference" % (
+                    tag, tmp, free / 1e9, n_ranks, threads))
+            conf = os.path.join(tmp, "%s.json" % case)
+            with open(conf, "w") as f:
+                json.dump(c["conf"], f)
+            report = os.path.join(tmp, "run_report")
+            odir = os.path.join(tmp, "run")
+            ref_dir = os.path.join(tmp, "ref")
+            wall = run_rank_set("cards_%s" % case, n_ranks, c["timeout"],
+                                ["--baseline-rank", case, odir, conf, report,
+                                 n_fleet],
+                                os.path.join(tmp, "store"), backend="nccl",
+                                threads=threads)
+            reps, sums = read_rank_reports(report, n_ranks)
+            dump(rank_set_s=wall, ranks=reps)
+            check_transport(case, reps, "nccl")
+            per = n_fleet // n_ranks
+            nlat = reps[0]["rows"] * n_ranks
+            for rep in reps:
+                r = rep["rank"]
+                if rep["positions"] != list(range(per * r, per * (r + 1))) or \
+                        rep["bands"] != [n_ranks, r * nlat // n_ranks,
+                                         (r + 1) * nlat // n_ranks]:
+                    raise AssertionError("%s: rank %d holds positions %s..., "
+                                         "GCM band %s" % (
+                                             case, r, rep["positions"][:2],
+                                             rep["bands"]))
+                check_launches("%s rank %d" % (case, r), rep["launches"],
+                               rep["loop_substeps"])
+            r0 = reps[0]
+            # (iii)
+            sub = np.asarray(r0["substeps"])
+            if sub.shape != (n_steps, n_fleet) or not np.all(sub > 0):
+                raise AssertionError(
+                    "%s: substeps of shape %s, %d instance-steps without one"
+                    % (case, sub.shape, int(np.sum(sub <= 0))))
+            rec = np.load(report + ".records.npz")
+            cols = sorted({int(k.split("/")[0]) for k in rec.files
+                           if k != "Time"})
+            if len(cols) != n_fleet or len(rec["Time"]) != n_steps:
+                raise AssertionError("%s: %d columns, %d records"
+                                     % (case, len(cols), len(rec["Time"])))
+            groups = {col: {v: rec["%d/%s" % (col, v)] for v in BASELINE_VARS}
+                      for col in cols}
+            check_finite_records(case, groups, cols, n_steps, BASELINE_VARS)
+            # (ii) against card 0 alone
+            ref_cols, (ref_times, ref_groups), ref = reference_leg(
+                case, conf, ref_dir)
+            dump(reference=ref)
+            if ref_cols != cols[:BASELINE_REF_N]:
+                raise AssertionError(
+                    "%s reference: columns %s, rank 0's first %s"
+                    % (case, ref_cols, cols[:BASELINE_REF_N]))
+            diffs, parts = baseline_first_step(
+                ref_times, ref_groups, rec, cols[:BASELINE_REF_N],
+                c["gcm_t"])
+            slack = int(np.max(np.abs(sub[0, :BASELINE_REF_N]
+                                      - np.asarray(ref["substeps"][0]))))
+            if slack > C_SUBSTEP_SLACK:
+                raise AssertionError("%s: step 1's substeps %s, card 0's %s"
+                                     % (case, sub[0, :BASELINE_REF_N].tolist(),
+                                        ref["substeps"][0]))
+            dump(step1_diffs=diffs, f_T_parts=parts, substep_slack=slack)
+            # (iv) while (v), the resume, one step on the same mesh
+            path = os.path.join(odir, "restart.npz")
+            hold = pool.submit(check_baseline_checkpoint, case, path,
+                               os.path.join(ref_dir, "restart.npz"), sums,
+                               n_fleet)
+            rreport = os.path.join(tmp, "resume_report")
+            resume_wall = run_rank_set(
+                "cards_%s_resume" % case, n_ranks, c["timeout"],
+                ["--baseline-resume-rank", case, odir, conf, rreport,
+                 n_fleet],
+                os.path.join(tmp, "store_resume"), backend="nccl",
+                threads=threads)
+            hold_s, n_leaves = hold.result()
+            dump(checkpoint_hold_s=hold_s, fleet_leaves=n_leaves)
+            rreps, loaded = read_rank_reports(rreport, n_ranks)
+            check_transport("%s resume" % case, rreps, "nccl")
+            fleet_bytes, gcm_bytes = check_baseline_resume(case, rreps, sums,
+                                                           loaded, path)
+            os.remove(path)
+    finally:
+        torch.set_num_threads(host_threads)
+    dump(resume=dict(rank_set_s=resume_wall, ranks=rreps,
+                     fleet_bytes=fleet_bytes, gcm_bytes=gcm_bytes),
+         seconds=time.time() - t_phase)
     for rep in reps:
-        log("config4 (g) rank %d (%s, %s): positions %d..%d, GCM rows %s, "
-            "step walls %s s, own evolve %.1f s, lesstage %d = 3 x %d "
-            "substep calls, peak %.2f GiB before the checkpoint and %.2f "
-            "GiB after, checkpoint %s s" % (
-                rep["rank"], rep["device"], rep["card"], rep["positions"][0],
-                rep["positions"][-1], rep["bands"][1:], ["%.2f" % w for w in
-                                                        rep["walls"]],
+        log("%s rank %d (%s, %s): positions %d..%d, GCM rows %s, run %.1f "
+            "s (initialize %.1f s), step walls %s s, own evolve "
+            "%.1f s, lesstage %d = 3 x %d "
+            "substep calls, instance-substeps %s, peak %.2f GiB before the "
+            "checkpoint and %.2f GiB after, checkpoint %s s" % (
+                tag, rep["rank"], rep["device"], rep["card"],
+                rep["positions"][0], rep["positions"][-1], rep["bands"][1:],
+                rep["run_s"], rep["init_s"],
+                ["%.2f" % w for w in rep["walls"]],
                 rep["evolve_s"], rep["launches"]["lesstage"],
-                rep["loop_substeps"], rep["peak_run_gib"], rep["peak_gib"],
+                rep["loop_substeps"],
+                [int(np.sum(np.asarray(s)[rep["positions"]]))
+                 for s in rep["substeps"]],
+                rep["peak_run_gib"], rep["peak_gib"],
                 ["%.2f" % x for x in rep["save_s"]]))
     for rep in rreps:
-        log("config4 (g) resume rank %d (%s): restart.load %.2f s, %d bytes "
-            "read of the checkpoint's %d of fleet leaves (its share %d) and "
-            "%d of GCM state; loaded per-instance sums equal to the saved "
-            "ones; the overlap step %s s, finite, substeps %d-%d, lesstage "
-            "%d" % (rep["rank"], rep["card"], rep["load"]["seconds"],
-                    rep["load"]["bytes_read"], fleet_bytes,
-                    fleet_bytes // CONFIG4_RANKS, gcm_bytes,
-                    ["%.2f" % w for w in rep["walls"]], min(rep["substeps"]),
-                    max(rep["substeps"]), rep["launches"]["lesstage"]))
-    log("config4 (g) resume: the rank set %.1f s" % resume_wall)
-    log("config4 (g): T255/L19 + %d x 128x128x160 on %d cards, %d steps, "
-        "the rank set %.1f s; spifs.nc %d bytes, timing.txt %d step rows, "
-        "host-I/O column %s s; "
-        "checkpoint %d bytes, written in %.2f s, %d fleet leaves held "
-        "against every rank's sums in %.1f s; card 0 alone at %d columns: "
-        "step walls %s s, peak %.2f GiB, step-1 records within PROFILE_TOL "
-        "(largest %s), substeps within %d; %.1f s in all on %s" % (
-            CONFIG4_FLEET, CONFIG4_RANKS, CONFIG4_STEPS, wall,
-            r0["spifs_bytes"], len(r0["timing_rows"]),
-            [row[-1] for row in r0["timing_rows"]], r0["checkpoint_bytes"],
-            r0["save_s"][0], n_leaves, hold_s, CONFIG4_REF_N,
-            ["%.2f" % w for w in ref_walls], ref_peak,
-            max(diffs.items(), key=lambda kv: kv[1]), slack,
+        log("%s resume rank %d (%s): restart.load %.2f s, %d bytes read of "
+            "the checkpoint's %d of fleet leaves (its share %d) and %d of "
+            "GCM state; loaded per-instance sums equal to the saved ones; "
+            "initialize %.1f s; the overlap step %s s, finite, "
+            "substeps %d-%d, lesstage %d, peak %.2f GiB" % (
+                tag, rep["rank"], rep["card"], rep["load"]["seconds"],
+                rep["load"]["bytes_read"], fleet_bytes,
+                fleet_bytes // n_ranks, gcm_bytes, rep["init_s"],
+                ["%.2f" % w for w in rep["walls"]], min(rep["substeps"]),
+                max(rep["substeps"]), rep["launches"]["lesstage"],
+                rep["peak_gib"]))
+    log("%s resume: the rank set %.1f s" % (tag, resume_wall))
+    log("%s: %s on %d cards, %d steps, the rank set %.1f s; spifs.nc %d "
+        "bytes, timing.txt %d step rows, host-I/O column %s s; checkpoint "
+        "%d bytes, written in %.2f s, %d fleet leaves held against every "
+        "rank's sums in %.1f s; card 0 alone at columns %s: step walls %s "
+        "s, peak %.2f GiB, step-1 records within PROFILE_TOL%s (largest %s; "
+        "f_T's parts %s), substeps within %d; %.1f s in all on %s" % (
+            tag, c["label"] % n_fleet, n_ranks, n_steps, wall,
+            r0["spifs_bytes"],
+            len(r0["timing_rows"]), [row[-1] for row in r0["timing_rows"]],
+            r0["checkpoint_bytes"], r0["save_s"][0], n_leaves, hold_s,
+            ref_cols, ["%.2f" % w for w in ref["walls"]], ref["peak_gib"],
+            " (f_T's LES side level by level)" if c["gcm_t"] else "",
+            max(diffs.items(), key=lambda kv: kv[1]), parts, slack,
             res["seconds"], card))
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_config4.json"), "w") as f:
-        json.dump(res, f, indent=1, default=str)
     return res
 
 
@@ -4235,7 +4415,7 @@ def cards_main(n_cards):
     res["e"] = attempt("(e)", phase_card_kernels, card, n_cards)
     res["f"] = attempt("(f)", phase_scaling, card, n_cards)
     if n_cards >= CONFIG4_RANKS:
-        res["g"] = attempt("(g)", phase_config4, card)
+        res["g"] = attempt("(g)", phase_baseline, card, "config4")
     res.update(seconds=time.time() - t0, fails=fails)
     with open(os.path.join(OUT_DIR, "chip_smoke_cards.json"), "w") as f:
         json.dump(res, f, indent=1, default=str)
@@ -4247,6 +4427,33 @@ def cards_main(n_cards):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": n_cards}}))
+    return 0
+
+
+def config5_main(fleet=CONFIG5_FLEET):
+    """``chip_smoke.py --config5 [FLEET]``: (h), BASELINE config 5 through
+    the CLI on CONFIG5_RANKS cards, one card a rank (phase_baseline), at
+    its 1024 columns or the lattice's first FLEET (a quick run of every
+    hold at a cut fleet). Raises without a card or with fewer than
+    CONFIG5_RANKS (never runs on fewer, nor over gloo). The last line is
+    the contract's {"ok": true, ...} with the count of cards used."""
+    phase_env()
+    have = torch.cuda.device_count()
+    if have < CONFIG5_RANKS:
+        raise RuntimeError("--config5 on a machine of %d card(s): it takes "
+                           "%d, one card a rank" % (have, CONFIG5_RANKS))
+    lines = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[:CONFIG5_RANKS]
+    card = "; ".join("cuda:%d %s" % kv for kv in enumerate(lines))
+    log("cards:", card)
+    t0 = time.time()
+    phase_build()
+    phase_baseline(card, "config5", fleet)
+    log("config5: passed in %.1f s" % (time.time() - t0))
+    print(lines[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": CONFIG5_RANKS}}))
     return 0
 
 
@@ -4284,15 +4491,17 @@ def phase_replay(card):
     return res
 
 
-# BASELINE config 2 (verify/golden.py's config2: T21/L19 + 16 x 64x64x160,
-# --cplsurf, gzip 4) straight for --steps 2 and in legs of --steps 1 + 1
-# (--restart_overlap, the second leg --restart)
-JOIN_STEPS, JOIN_LEG, JOIN_COLUMNS = 2, 1, 16
+# BASELINE config 2's deck (T21/L19 + 64x64x160, --cplsurf, gzip 4) on
+# JOIN_COLUMNS of its 16 columns (verify/golden.py's config2_join) straight
+# for --steps 2 and in legs of --steps 1 + 1 (--restart_overlap, the second
+# leg --restart)
+JOIN_STEPS, JOIN_LEG, JOIN_COLUMNS, JOIN_CASE = 2, 1, 4, "config2_join"
 
 
 def phase_config2_join(card):
-    """BASELINE config 2 at full width through the CLI, the run
-    verify/golden.py records: a straight run of --steps JOIN_STEPS
+    """BASELINE config 2's deck at full width on JOIN_COLUMNS columns
+    through the CLI, the run verify/golden.py records: a straight run of
+    --steps JOIN_STEPS
     (golden.record, a spmaster process of its own, beside this process's
     work: both are host-bound) and the same steps in legs of JOIN_LEG in
     this process, resumed through --restart. Holds the legs' records
@@ -4312,12 +4521,12 @@ def phase_config2_join(card):
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
         dirs = {k: os.path.join(tmp, k) for k in ("straight", "legs")}
         straight_run = pool.submit(golden.record, dirs["straight"],
-                                   JOIN_STEPS, JOIN_STEPS, 42, "config2")
+                                   JOIN_STEPS, JOIN_STEPS, 42, JOIN_CASE)
         conf = os.path.join(tmp, "conf.json")
         with open(conf, "w") as f:
-            json.dump(dict(golden.CASES["config2"]["conf"], seed=42), f)
+            json.dump(dict(golden.CASES[JOIN_CASE]["conf"], seed=42), f)
         for k, n in enumerate(golden.leg_plan(JOIN_STEPS, JOIN_LEG)):
-            argv = golden.leg_argv("config2", n, dirs["legs"], conf, k)
+            argv = golden.leg_argv(JOIN_CASE, n, dirs["legs"], conf, k)
             torch.cuda.reset_peak_memory_stats()
             runner, walls, launches = cli_leg(argv, writer)
             summary = runner.summary()
@@ -4352,17 +4561,18 @@ def phase_config2_join(card):
                                  "the straight run's: %s"
                                  % (len(times), bad[:10]))
         check_finite_records("config2", straight[1], sorted(straight[1]),
-                             JOIN_STEPS + 1, CONFIG4_VARS)
+                             JOIN_STEPS + 1, BASELINE_VARS)
         out = os.path.join(OUT_DIR, "config2_join")
         os.makedirs(out, exist_ok=True)
         shutil.copy(os.path.join(dirs["straight"], "spifs.nc"), out)
         log("config2_join: %s" % "; ".join(lines))
         replay = golden.replay(dirs["straight"])
-    log("config2_join: T21/L19 + 16 x 64x64x160 (--cplsurf, gzip 4), "
+    log("config2_join: T21/L19 + %d x 64x64x160 (config 2's deck, "
+        "--cplsurf, gzip 4), "
         "--steps %d straight and in legs of %d: every record of the legs "
         "equal to the straight run's bit for bit; %s; replay of the "
         "straight run %d comparisons, largest |diff| / scale %.3g; %.1f s "
-        "on %s" % (JOIN_STEPS, JOIN_LEG, "; ".join(lines),
+        "on %s" % (JOIN_COLUMNS, JOIN_STEPS, JOIN_LEG, "; ".join(lines),
                    replay["comparisons"], max(replay["worst_rel"].values()),
                    time.time() - t0, card))
     return runs
@@ -4742,8 +4952,10 @@ if __name__ == "__main__":
         sys.exit(bands_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--bands-cli-rank"]:
         sys.exit(bands_cli_rank(*sys.argv[2:5]))
-    if sys.argv[1:2] == ["--config4-rank"]:
-        sys.exit(config4_rank(*sys.argv[2:5]))
-    if sys.argv[1:2] == ["--config4-resume-rank"]:
-        sys.exit(config4_resume_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--config5"]:
+        sys.exit(config5_main(*[int(a) for a in sys.argv[2:3]]))
+    if sys.argv[1:2] == ["--baseline-rank"]:
+        sys.exit(baseline_rank(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--baseline-resume-rank"]:
+        sys.exit(baseline_resume_rank(*sys.argv[2:7]))
     sys.exit(main())

@@ -54,6 +54,14 @@ def gaussian_latitudes(nlat):
     return mu[order], w[order]
 
 
+def grid_degrees(nlat, nlon):
+    """(latitudes, longitudes) in degrees of the Gaussian grid, latitudes
+    north -> south from the float32 mu, as the JAX package's (the same
+    columns fall in a region); no transform tables are built."""
+    mu = gaussian_latitudes(nlat)[0].astype(np.float32)
+    return np.degrees(np.arcsin(mu)), np.arange(nlon) * 360.0 / nlon
+
+
 def card_sums(eq, x, table):
     """torch.einsum(eq, x, table), where on the card a float32 contraction
     is summed in float64 from the same float32 values and rounded back
@@ -358,10 +366,8 @@ class SpectralTransform:
         return dfdl / (self.radius * coslat), dfdm / (self.radius * coslat)
 
     def latitudes_deg(self):
-        """Gaussian latitudes of the whole grid (degrees, north -> south)
-        from the float32 mu, as the JAX package's (the same columns fall
-        in a region)."""
-        return np.degrees(np.arcsin(self.whole.mu.cpu().numpy()))
+        """Gaussian latitudes of the whole grid (grid_degrees)."""
+        return grid_degrees(self.nlat, self.nlon)[0]
 
     def longitudes_deg(self):
-        return np.arange(self.nlon) * 360.0 / self.nlon
+        return grid_degrees(self.nlat, self.nlon)[1]

@@ -89,6 +89,19 @@ class Box(Polygon):
         return self.minx <= x <= self.maxx and self.miny <= y <= self.maxy
 
 
+def nearest(pts, lat, target):
+    """int(np.argmin(haversine_many(pts, target))) measured over fewer
+    points: pts is the [n, 2] (lon, lat) array, lat its latitudes in
+    radians. A point's distance is at least R |lat - lat_target|, so no
+    point further in latitude than the nearest distance among the points
+    of the closest latitude can be nearer (1 mm covers the rounding). The
+    candidates keep their order: a tie goes to the first, as in argmin."""
+    dlat = np.abs(lat - math.radians(target[1]))
+    best = haversine_many(pts[dlat == dlat.min()], target).min()
+    near = np.flatnonzero(EARTH_RADIUS_KM * dlat <= best + 1e-6)
+    return int(near[np.argmin(haversine_many(pts[near], target))])
+
+
 def get_mask_indices(points, mask_geoms, nmax=-1):
     """Grid-column indices selected by the mask geometries.
 
@@ -106,9 +119,13 @@ def get_mask_indices(points, mask_geoms, nmax=-1):
         order = find_closest_points(points, (g.x, g.y))
         return list(order[:nmax]) if nmax > 0 else [int(order[0])]
     result = []
+    pts = lat = None
     for g in mask_geoms:
         if isinstance(g, Point):
-            result.append(int(np.argmin(haversine_many(points, (g.x, g.y)))))
+            if pts is None:          # once, not once a Point
+                pts = np.asarray(points, dtype=np.float64)
+                lat = np.radians(pts[:, 1])
+            result.append(nearest(pts, lat, (g.x, g.y)))
         else:
             for i, p in enumerate(points):
                 if g.contains(Point(p)):

@@ -98,6 +98,8 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
 POLY = ["20", "-58", "1", "-58", "1", "-37.5", "20", "-37.5"]
 # run_T21.sh: 10-20N x 50-40W, 2 columns
 POLY_T21 = ["20", "-50", "10", "-50", "10", "-40", "20", "-40"]
+# 1-10N x 58-47W: 4 of POLY's columns (950, 951, 1014, 1015)
+POLY_JOIN = ["10", "-58", "1", "-58", "1", "-47", "10", "-47"]
 CASES = {
     "config2": dict(
         name="T21 + 16 SP columns (BASELINE config 2)", poly=POLY,
@@ -110,6 +112,12 @@ CASES = {
         argv=["--poly", *POLY_T21, "--numles", "2", "--gcmexp", "TEST",
               "--cplsurf"],
         conf={}),
+    # config 2's deck on 4 of its columns: chip_smoke.py's restart join
+    "config2_join": dict(
+        name="T21 + 4 of config 2's SP columns", poly=POLY_JOIN,
+        argv=["--poly", *POLY_JOIN, "--numles", "4", "--gcmexp", "TEST",
+              "--cplsurf"],
+        conf={"output_compress": 4}),
 }
 TENDENCIES = ("f_U", "f_V", "f_T", "f_SH", "f_QL", "f_QI", "f_A")
 REPLAY_TOL = 1e-5        # of each tendency's scale (tests/test_golden.py)

@@ -307,21 +307,41 @@ C4_COLS = [3 * 64 + 5, 11 * 64 + 20, 19 * 64 + 40, 27 * 64 + 60]
 C4_MESH = ["--mesh_les", "4", "--gcmprocs", "4"]
 
 
-def _config4_small(tmp):
-    """The ckpt mode of the worker on 4 ranks, C4_CONF at C4_COLS."""
-    with open(tmp / "c4.json", "w") as f:
-        json.dump(C4_CONF, f)
+def _ckpt_ranks(tmp, tag, conf, cols, gcm_dt):
+    """The ckpt mode of the worker on 4 ranks: conf at T21/L19 and the
+    grid columns cols, 2 coupled steps with C4_MESH, the checkpoint."""
+    with open(tmp / ("%s.json" % tag), "w") as f:
+        json.dump(conf, f)
     sht = spharm.SpectralTransform(21, device="cpu")
     lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
     pts = []
-    for c in C4_COLS:
+    for c in cols:
         pts += ["%.6f" % lats[c // 64], "%.6f" % lons[c % 64]]
-    prefix = tmp / "report_c4"
-    run_ranks(tmp / "store_c4", RANKS, "ckpt", prefix, "--trunc", "21",
-              "--levels", "19", "--gcm_dt", "900", "--les_dt", "15",
+    prefix = tmp / ("report_%s" % tag)
+    run_ranks(tmp / ("store_%s" % tag), RANKS, "ckpt", prefix, "--trunc",
+              "21", "--levels", "19", "--gcm_dt", gcm_dt, "--les_dt", "15",
               "--steps", "1", "--device", "cpu", "--points", *pts,
-              "--conf", tmp / "c4.json", "--odir", tmp / "c4", *C4_MESH)
+              "--conf", tmp / ("%s.json" % tag), "--odir", tmp / tag,
+              *C4_MESH)
     return reports(prefix, RANKS)
+
+
+def _config4_small(tmp):
+    """C4_CONF at C4_COLS, dt 900 s."""
+    return _ckpt_ranks(tmp, "c4", C4_CONF, C4_COLS, "900")
+
+
+# config 5's layout, small: chip_smoke.py's global lattice at T21, every
+# 4th of the 32 rows from row 2 (~79 deg N to ~79 deg S) on one
+# longitude, two rows in each band, hybrid SL at dt 720 s (CONFIG5_CONF)
+# with C4_CONF's LES
+C5_LATTICE = (4, 2, 64)
+
+
+def _config5_small(tmp):
+    import chip_smoke
+    return _ckpt_ranks(tmp, "c5", C4_CONF,
+                       chip_smoke.lattice(21, *C5_LATTICE), "720")
 
 
 @pytest.fixture(scope="module")
@@ -337,12 +357,14 @@ def cli_bands(tmp_path_factory):
         json.dump(CONF, f)
     dummy = ["--lestype", "dummy"]
     out = {"tmp": tmp}
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         config4 = pool.submit(_config4_small, tmp)
+        config5 = pool.submit(_config5_small, tmp)
         out.update(_cli_sets(tmp, [
             ("single", 1), ("ml2g2", 2, *ML2G2), ("lp4g4", 4, *LP4G4),
             ("dummy_1", 1, *dummy), ("dummy_b", 2, *dummy, *ML2G2)]))
         out["config4"] = config4.result()
+        out["config5"] = config5.result()
     resumes = [("s_to_1", "single", 1), ("b_to_1", "ml2g2", 1),
                ("s_to_b", "single", 2, *ML2G2)]
     for name, src, *_ in resumes:
@@ -442,24 +464,115 @@ def _one_process_checkpoint(kept, reps, odir):
     restart.save(runner)
 
 
-def test_config4_checkpoint_equals_one_process(cli_bands):
-    tmp = cli_bands["tmp"]
-    reps = cli_bands["config4"]
+def _checkpoint_equals_one_process(tmp, reps, tag):
+    """The ranks' checkpoint in tmp/tag equals, key by key, in order and
+    bit for bit, the one restart.save writes in one process from the
+    state every rank held as it saved."""
     assert all(r["rc"] == 0 for r in reps)
-    kept = [dict(np.load(tmp / ("report_c4.%d.npz" % r)))
+    kept = [dict(np.load(tmp / ("report_%s.%d.npz" % (tag, r))))
             for r in range(RANKS)]
-    _one_process_checkpoint(kept, reps, tmp / "c4_one")
-    with np.load(tmp / "c4" / "restart.npz") as a, \
-            np.load(tmp / "c4_one" / "restart.npz") as b:
+    _one_process_checkpoint(kept, reps, tmp / (tag + "_one"))
+    with np.load(tmp / tag / "restart.npz") as a, \
+            np.load(tmp / (tag + "_one") / "restart.npz") as b:
         assert a.files == b.files              # the keys, in order
         assert any(k.startswith("les_") for k in a.files)
         for k in a.files:
             assert a[k].dtype == b[k].dtype, k
             assert a[k].shape == b[k].shape, k
             assert a[k].tobytes() == b[k].tobytes(), k
-    with open(tmp / "c4" / "restart.json") as f, \
-            open(tmp / "c4_one" / "restart.json") as g:
+    with open(tmp / tag / "restart.json") as f, \
+            open(tmp / (tag + "_one") / "restart.json") as g:
         assert json.load(f) == json.load(g)
+
+
+def test_config4_checkpoint_equals_one_process(cli_bands):
+    _checkpoint_equals_one_process(cli_bands["tmp"], cli_bands["config4"],
+                                   "c4")
+
+
+def test_config5_checkpoint_equals_one_process(cli_bands):
+    """Config 5's layout (_config5_small): each rank holds its two
+    lattice rows, both in its band of 8, and 2 coupled steps; rank 0's
+    checkpoint equals one process's save of the state the ranks held,
+    bit for bit, as config 4's does; every record finite."""
+    import chip_smoke
+    tmp, reps = cli_bands["tmp"], cli_bands["config5"]
+    cols = chip_smoke.lattice(21, *C5_LATTICE)
+    for r, rep in enumerate(reps):
+        assert rep["positions"] == [2 * r, 2 * r + 1] and rep["held"] == 2
+        assert rep["gcm_bands"] == [RANKS, 8 * r, 8 * r + 8]
+        assert rep["sp_cols"] == cols
+        assert all(8 * r <= cols[p] // 64 < 8 * r + 8
+                   for p in rep["positions"])
+    _checkpoint_equals_one_process(tmp, reps, "c5")
+    rec = read_spifs(str(tmp / "c5" / "spifs.nc"))
+    assert len(rec["Time"]) == 2
+    for c in cols:
+        for v in ("thl", "qt", "f_T", "f_SH", "A_d", "rain"):
+            assert np.all(np.isfinite(rec["%d/%s" % (c, v)])), (c, v)
+
+
+def test_config5_lattice_on_tl639():
+    """chip_smoke.py's config 5 columns (config5_points): 1024 distinct
+    columns of TL639's 640 x 1280 grid, which its points select through
+    the driver's pick (geometry.get_mask_indices over the grid's 819,200
+    points, each point its nearest column) within a minute of process
+    time: the pick measured every column's distance once a point, ~0.55 s
+    a point, ~560 s for the 1024, before it took the points' array once
+    and only the columns near each point's latitude (geometry.nearest).
+    Sorted, rank r of 4 holds positions 256 r ... 256 r + 255: 8 lattice
+    rows, all in its GCM band, rows 160 r ... 160 r + 159."""
+    import time
+    import chip_smoke
+    from sp_coupler_tpu_torch.utils import geometry
+    cols, pts = chip_smoke.config5_points(chip_smoke.CONFIG5_FLEET)
+    assert len(cols) == len(set(cols)) == 1024 and cols == sorted(cols)
+    lats, lons = spharm.grid_degrees(640, 1280)
+    assert (len(lats), len(lons)) == (640, 1280)
+    # the driver's points: models/gcm/model.py's latitudes and longitudes
+    points = list(zip(np.tile(lons, len(lats)).astype(float),
+                      np.repeat(lats, len(lons)).astype(float)))
+    geoms = [geometry.Point(p) for p in geometry.parse_lat_lons(pts)]
+    t0 = time.process_time()
+    assert geometry.get_mask_indices(points, geoms) == cols
+    assert time.process_time() - t0 < 60.0
+    for r in range(4):
+        band = pbands.for_mesh(pmesh.LesMesh(4, r), 640)
+        assert (band.r0, band.r1) == (160 * r, 160 * r + 160)
+        rows = sorted({c // 1280 for c in cols[256 * r:256 * r + 256]})
+        assert rows == list(range(160 * r + 10, 160 * r + 160, 20))
+    # the table-free latitudes are those of the transform's float32 mu
+    whole = spharm.SpectralTransform(21, device="cpu")
+    got = spharm.grid_degrees(32, 64)
+    assert np.array_equal(got[0], np.degrees(np.arcsin(whole.mu.numpy())))
+    assert np.array_equal(got[1], np.arange(64) * 360.0 / 64)
+
+
+@pytest.mark.parametrize("trunc", [21, 63])
+def test_nearest_column_pick_matches_jax(trunc):
+    """geometry.nearest, the driver's pick of a point's column, gives the
+    JAX package's get_mask_indices (every column measured) for random
+    points, the poles, grid points and points halfway between two
+    longitudes of a row."""
+    from sp_coupler_tpu.utils import geometry as jgeometry
+    from sp_coupler_tpu_torch.utils import geometry
+    sht = spharm.SpectralTransform(trunc, device="cpu")
+    lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
+    points = list(zip(np.tile(lons, len(lats)).astype(float),
+                      np.repeat(lats, len(lons)).astype(float)))
+    rng = np.random.default_rng(trunc)
+    targets = [(float(rng.uniform(0, 360)), float(rng.uniform(-90, 90)))
+               for _ in range(200)]
+    targets += [(0.0, 90.0), (123.0, -90.0), (lons[1] / 2, float(lats[0])),
+                (lons[5] / 2 + lons[2], float(lats[-3]))]
+    targets += [points[i] for i in rng.integers(0, len(points), 40)]
+    got = geometry.get_mask_indices(
+        points, [geometry.Point(t) for t in targets] + [geometry.Box(
+            10.0, 10.0, 30.0, 20.0)])
+    want = jgeometry.get_mask_indices(
+        points, [jgeometry.Point(t) for t in targets] + [jgeometry.Box(
+            10.0, 10.0, 30.0, 20.0)])
+    assert got == want
 
 
 def test_config4_rows_reach_rank0_alone(cli_bands):

@@ -13,7 +13,10 @@ JAX.
 
 import json
 import os
+import pickle
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import jax
@@ -27,6 +30,7 @@ from sp_coupler_tpu.utils import geometry as jgeom
 from sp_coupler_tpu_torch import interop, spmaster
 from sp_coupler_tpu_torch.config import SPConfig
 from sp_coupler_tpu_torch.io import restart as trestart
+from sp_coupler_tpu_torch.models.gcm import spharm
 from sp_coupler_tpu_torch.runtime.driver import SPRunner
 from sp_coupler_tpu_torch.utils import geometry, tree
 
@@ -59,9 +63,12 @@ def read_spifs(path):
         ds.close()
 
 
-def assert_records_close(got, ref, records=slice(None)):
+def assert_records_close(got, ref, records=slice(None), beside=None):
     """Every variable of every group of ref in got, within the bounds of
-    the module docstring, over the given records."""
+    the module docstring, over the given records. beside: where ref is a
+    float64 witness, the JAX package's float32 run from its start; each
+    record of got is then held within those bounds of the witness widened
+    by beside's own largest distance from it in that record."""
     assert sorted(got) == sorted(ref)
     for name in ref:
         assert sorted(got[name]) == sorted(ref[name]), name
@@ -72,9 +79,20 @@ def assert_records_close(got, ref, records=slice(None)):
                 a, b = a[records], b[records]
             assert np.all(np.isfinite(a)), (name, var)
             scale = max(float(np.max(np.abs(b), initial=0.0)), 1e-12)
-            np.testing.assert_allclose(
-                a, b, rtol=2e-3, atol=LOOSE.get(var, 2e-3) * scale,
-                err_msg="%s/%s" % (name, var))
+            if beside is None:
+                np.testing.assert_allclose(
+                    a, b, rtol=2e-3, atol=LOOSE.get(var, 2e-3) * scale,
+                    err_msg="%s/%s" % (name, var))
+                continue
+            c = beside[name][var]
+            c = c[records] if c.ndim else c[None]
+            a, b = np.atleast_1d(a), np.atleast_1d(b).astype(np.float64)
+            for t in range(len(b)):
+                np.testing.assert_allclose(
+                    a[t], b[t], rtol=2e-3,
+                    atol=LOOSE.get(var, 2e-3) * scale
+                    + float(np.max(np.abs(c[t] - b[t]), initial=0.0)),
+                    err_msg="%s/%s record %d" % (name, var, t))
 
 
 # ---- dummy models (tests/test_driver.py:59-127 on the port) ---------------
@@ -287,40 +305,129 @@ def test_unported_settings_raise(tmp_path, kw, entry, caplog):
     assert len(r.substeps) == 1 and r.fleet.state.u.shape[-2:] == (16, 16)
 
 
+# BASELINE config 5's GCM settings (hybrid SL at dt 720 s, chip_smoke.py
+# CONFIG5_CONF, batched) at T21/L19 with the native LES in the columns of
+# the rows nearest each pole and of one at the equator (T21's rows 0, 31
+# and 16), 16x16x24 instances 2400 m deep (JAX's compile and steps take
+# ~80 s of the case).
+C5_T21 = dict(gcm_truncation=21, gcm_levels=19, gcm_hybrid=True,
+              gcm_advection="sl", gcm_dt=720.0, les_type="sptpu",
+              les_dt=15.0, les_itot=16, les_jtot=16, les_ktot=24,
+              les_dz=100.0, les_schedule="batched")
+# f_T = (<T>_LES - T_GCM)/dt is a small difference of float32 values: in
+# the polar columns two ~250 K profiles ~0.012 K apart, so one float32
+# spacing of T (1.5e-5 K) over 720 s is 1.2e-3 of max|f_T|, and the two
+# LES, summed in another order, end a step some spacings apart (JAX's
+# and the port's f_T 2.0e-2 of max apart at row 0 on step 1; 3.7e-3 with
+# 8x8x16 instances). Against the JAX driver in float64 from the same start
+# (tests/jax_x64_witness.py) that gap is JAX's: its float32 f_T lies
+# 1.7e-2 of max off the witness at row 0 and 1.3e-2 at row 31, the port's
+# 4.5e-3 and 3.2e-3 (8x8x16: both 6.6e-3 at row 0); f_thl, the forcing
+# the other way, alike (JAX 8.6e-2 off it at row 0 on step 2, beyond the
+# module's 5e-2; the port 5.2e-3). So the case holds the port's records
+# against the witness, within the module's bounds widened by JAX's own
+# float32 distance from it (assert_records_close's beside).
+C5_ROWS = (0, 16, 31)
+
+
+def _grid_points(trunc, rows, lon=0):
+    """(lon, lat) of the grid column at longitude index lon on each row."""
+    nlon, nlat = spharm.GRID_FOR_TRUNC[trunc]
+    lats, lons = spharm.grid_degrees(nlat, nlon)
+    return [(float(lons[lon]), float(lats[r])) for r in rows]
+
+
 @pytest.mark.parametrize("kw, advection", [
     (dict(gcm_advection="sl"), "sl"),
     (dict(gcm_truncation=63), "sl"),          # auto -> SL at T >= 63
     (dict(gcm_hybrid=True), "eulerian"),
+    (C5_T21, "sl"),
 ])
 def test_gcm_settings_run_in_driver(tmp_path, kw, advection):
     """The GCM settings the port once refused run through SPRunner: 2
     coupled steps with the dummy LES from the JAX runner's start state,
     whose spifs.nc records match the JAX driver's (the bounds of the
     module docstring). At T63 the GCM has 4 levels, the fewest that keep
-    the two runs inside ~30 s."""
-    cfg = dict(SMALL, les_type="dummy", **kw)
-    if "gcm_truncation" in kw:
+    the two runs inside ~30 s. Config 5's settings (C5_T21) run with the
+    native LES in a polar, an equatorial and a polar column, each package
+    from the JAX runner's GCM and LES start; the port's records are held
+    against the JAX driver's run in float64 from that start
+    (tests/jax_x64_witness.py, in a process of its own beside the two
+    runs), as near it as JAX's float32 records are."""
+    cfg = dict(dict(SMALL, les_type="dummy"), **kw)
+    if kw is not C5_T21 and "gcm_truncation" in kw:
         cfg["gcm_levels"] = 4
+    native = cfg["les_type"] != "dummy"
+    points = (_grid_points(cfg["gcm_truncation"], C5_ROWS) if native
+              else [POINT])
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
-    jr = JRunner(JConfig(output_dir=jdir, **cfg), [jgeom.Point(POINT)])
+    jr = JRunner(JConfig(output_dir=jdir, **cfg),
+                 [jgeom.Point(p) for p in points])
     jr.initialize()
     start = _np(jr.gcm.state)
+    les_start = _np(jr.fleet.state) if native else None
+    witness = _float64_witness(tmp_path, cfg, points, start, les_start) \
+        if native else None
+    try:
+        _run_both(tmp_path, jr, cfg, points, start, les_start, advection,
+                  witness)
+    finally:
+        if witness is not None and witness.poll() is None:
+            witness.kill()
+            witness.wait()
+
+
+def _float64_witness(tmp_path, cfg, points, start, les_start):
+    """tests/jax_x64_witness.py from the JAX runner's start, 2 steps into
+    tmp_path/float64, started in a process of its own (log in
+    tmp_path/float64.log)."""
+    with open(str(tmp_path / "start.pkl"), "wb") as f:
+        pickle.dump((cfg, points, start, les_start), f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(filter(None, [os.path.dirname(here),
+                                         os.environ.get("PYTHONPATH")]))
+    with open(str(tmp_path / "float64.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(here, "jax_x64_witness.py"),
+             str(tmp_path / "start.pkl"), str(tmp_path / "float64"), "2"],
+            env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path),
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def _run_both(tmp_path, jr, cfg, points, start, les_start, advection,
+              witness):
+    """test_gcm_settings_run_in_driver's two runs and their records' hold
+    (f_T against the float64 witness where there is one)."""
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    native = les_start is not None
     jr.run(2)
     jr.finalize()
-    r = SPRunner(SPConfig(output_dir=tdir, **cfg), [geometry.Point(POINT)],
-                 device="cpu")
+    r = SPRunner(SPConfig(output_dir=tdir, **cfg),
+                 [geometry.Point(p) for p in points], device="cpu")
     r.initialize()
     assert r.gcm.cfg.advection == jr.gcm.cfg.advection == advection
     assert r.gcm.cfg.hybrid == jr.gcm.cfg.hybrid == cfg.get("gcm_hybrid",
                                                             False)
     assert r.sp_cols == jr.sp_cols
+    if native:
+        nlon = spharm.GRID_FOR_TRUNC[cfg["gcm_truncation"]][0]
+        assert r.sp_cols == sorted(row * nlon for row in C5_ROWS)
+        r.fleet.state = interop.les_state(les_start, "cpu")
     r.gcm.state = interop.gcm_state(start, "cpu")
     r.run(2)
     r.finalize()
     got, t_got = read_spifs(os.path.join(tdir, "spifs.nc"))
     ref, t_ref = read_spifs(os.path.join(jdir, "spifs.nc"))
     assert len(t_ref) == 2 and np.array_equal(t_got, t_ref)
-    assert_records_close(got, ref)
+    if witness is None:
+        assert_records_close(got, ref)
+        return
+    witness.wait(timeout=600)
+    with open(str(tmp_path / "float64.log")) as f:
+        assert witness.returncode == 0, f.read()[-3000:]
+    w64, t_w64 = read_spifs(str(tmp_path / "float64" / "spifs.nc"))
+    assert np.array_equal(t_w64, t_ref)
+    assert_records_close(got, w64, beside=ref)
 
 
 # ---- native runs against the JAX driver -----------------------------------
