@@ -236,7 +236,7 @@ against one process on card 0 of the same machine: (a) phase 13 on 2
 cards; (b) phase 15 (c), the T159 regional case with les = 4 and 4 GCM
 bands, against one card's first step (t159_first_step); (c) phase 15
 (a), the T159 GCM on 4 bands; (d) phase 14 (b)-(c) with BASELINE config
-4's 4 x 128x128x160 (config4_fleet) on 2 x 2 blocks of 64x64x160; (e)
+4's 4 x 128x128x160 (spatial_fleet) on 2 x 2 blocks of 64x64x160; (e)
 kernels #1-#3, whole-plane and in halo mode, against their plain
 versions on every card (card_kernels_rank); (f) runtime/scalebench.py
 --sizes 1,2,4 at 16 x 64x64x160 a card; (g) BASELINE config 4 at its
@@ -268,9 +268,15 @@ TL639/L60 SL hybrid (dt 720 s) in 4 GCM bands of 160 rows + 1024 x
 64x64x160 (TKE, batched, 256 a card) on a global lattice of 32 rows x 32
 longitudes (config5_points), --mesh_les 4 --gcmprocs 4, 2 coupled steps,
 with (g)'s holds (i)-(v): the reference on card 0 takes the first 4
-columns, all on row 10 (~87 deg N), where (ii) holds f_T's LES side
-level by level (the GCM T's own difference over dt allowed at each
-level; (g) holds f_T whole). ``--config5 FLEET`` runs the same at the
+columns, all on row 10 (~87 deg N); then the float64 witness of step 1's
+GCM T there (phase_witness: the whole core in float64 against the whole
+float32 core, the banded core and the whole core with its hemispheres
+folded in float64, level by level; its float32 runs must recompute the
+records). (ii) holds f_T whole, or, where that fails and at none of
+f_T's levels the witness puts the banded core farther from float64 than
+the whole one (banded_farther), f_T's LES side level by level (the GCM
+T's own difference over dt allowed at each level; (g) holds f_T whole
+and takes no witness). ``--config5 FLEET`` runs the same at the
 lattice's first FLEET columns (a multiple of 4, at least 4), every hold
 included. It raises with fewer than 4 cards; summary in
 chiprun_out/chip_smoke_config5.json.
@@ -280,6 +286,7 @@ Run: python3 chip_smoke.py   (needs a CUDA card, nvcc and this checkout)
      python3 chip_smoke.py --config5 [FLEET]   (4 cards)
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -1706,13 +1713,14 @@ def read_records(path):
     return times.tolist(), groups
 
 
-def cli_leg(argv, writer, before_finalize=None):
+def cli_leg(argv, writer, before_finalize=None, after_initialize=None):
     """One run through the port's CLI (spmaster.build_runner + drive, as
     spmaster.main), each step timed on the host clock; the launch counts
     are set to 0 just before it and read just after; the cross-section
     writes inside the steps are timed too (runner.cross_walls);
-    before_finalize(runner), where given, runs after the last step and
-    before runner.finalize (the checkpoint). Returns (runner, step walls,
+    after_initialize(runner), where given, runs after runner.initialize
+    (untimed), before_finalize(runner) after the last step and before
+    runner.finalize (the checkpoint). Returns (runner, step walls,
     launches)."""
     from sp_coupler_tpu_torch import spmaster
     runner = spmaster.build_runner(argv, writer=writer)
@@ -1722,6 +1730,8 @@ def cli_leg(argv, writer, before_finalize=None):
         t0 = time.time()
         out = initialize()
         runner.init_s = time.time() - t0
+        if after_initialize is not None:
+            after_initialize(runner)
         return out
 
     runner.initialize = timed_initialize
@@ -2275,8 +2285,8 @@ SPATIAL_TIMEOUT = 600
 EVOLVE_SUBSTEPS, EVOLVE_DT = 20, 2.0
 EVOLVE_TOL = dict(atol=2e-3, rtol=2e-3)
 # under nccl (--cards 4) (b) evolves BASELINE config 4's fleet instead,
-# CONFIG4_N x 128x128x160 (phase_t255's), on 2 x 2 blocks of 64x64x160
-CONFIG4_N = 4
+# SPATIAL_FLEET_N x 128x128x160 (phase_t255's), on 2 x 2 blocks of 64x64x160
+SPATIAL_FLEET_N = 4
 # (c): the bench case through the CLI with --lesprocs 4 against phase_mesh's
 # single process (its records within verify/parity.py's PROFILE_TOL of
 # max|ref| by step), and phase_cli's small Smagorinsky + nudge leg with
@@ -2649,8 +2659,9 @@ def load_case(path, dev):
             lstate.LESForcing(*[x.to(dev) for x in d["forcing"]]))
 
 
-def config4_fleet(dev):
-    """BASELINE config 4's instances as phase_t255 starts them
+def spatial_fleet(dev):
+    """phase_spatial's fleet under nccl: BASELINE config 4's instances as
+    phase_t255 starts them
     (runtime/t255bench.py at T255_ARGV: T255/L19 SL hybrid from seed 0,
     4 columns, 128x128x160 LES at 100 m, seed_les), with
     one_instance's surface fluxes as forcing."""
@@ -2662,10 +2673,10 @@ def config4_fleet(dev):
         device=dev)
     grid = lgrid.LESGrid(nx=128, ny=128, nz=160, dx=100.0, dy=100.0,
                          dz=25.0)
-    cols = t255bench.columns(core, CONFIG4_N)
+    cols = t255bench.columns(core, SPATIAL_FLEET_N)
     st = t255bench.seed_les(core, core.initial_state(seed=0), grid, cols)
-    frc = lstate.LESForcing.zeros(CONFIG4_N, grid.nz, device=dev)
-    full = lambda v: torch.full((CONFIG4_N,), v, device=dev)
+    frc = lstate.LESForcing.zeros(SPATIAL_FLEET_N, grid.nz, device=dev)
+    full = lambda v: torch.full((SPATIAL_FLEET_N,), v, device=dev)
     return grid, st, frc._replace(wthl=full(0.012), wqt=full(4e-5))
 
 
@@ -2675,7 +2686,7 @@ def phase_spatial(card, single, backend="gloo"):
     phase_card_kernels); (b) an evolve on 2 x 2 blocks by 4 ranks against
     one process: under gloo one 64x64x160 instance (one_instance) on
     ranks sharing the card, under nccl BASELINE config 4's 4 x
-    128x128x160 (config4_fleet) on 4 cards; (c) the bench case through
+    128x128x160 (spatial_fleet) on 4 cards; (c) the bench case through
     the CLI with --lesprocs 4 against phase_mesh's single process
     (``single``), and a small Smagorinsky + nudge leg with --mesh_les 2
     --lesprocs 2 whose split-kernel launches are in halo mode. Returns
@@ -2686,7 +2697,7 @@ def phase_spatial(card, single, backend="gloo"):
     stats = spatial_kernels(card) if backend == "gloo" else None
     tag = "spatial" if backend == "gloo" else "cards_spatial"
     # (b)'s single process, on the card
-    case = one_instance if backend == "gloo" else config4_fleet
+    case = one_instance if backend == "gloo" else spatial_fleet
     grid, st, frc = case(torch.device("cuda"))
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3119,6 +3130,14 @@ BANDS_GCM = dict(trunc=159, nlev=19, dt=900.0, advection="sl", hybrid=True)
 BANDS_STEPS = 3
 SPEC_TOL = dict(atol=2e-4, rtol=1e-3)
 GRID_TOL = dict(atol=5e-3, rtol=1e-4)
+# (a)'s max abs errors by backend when each band's analysis sums were
+# rounded to float32 before the all_reduce added them in float32 (one
+# H100 80GB HBM3 at 700.00 W; under nccl four), printed beside this run's
+BANDS_ROUNDED_ERRORS = {
+    "gloo": dict(vort=2.17e-10, div=1.95e-9, T=6.1e-5, q=1.89e-9,
+                 grid_T=5.8e-4),
+    "nccl": dict(vort=2.64e-10, div=1.62e-9, T=6.1e-5, q=1.63e-9,
+                 grid_T=5.95e-4)}
 # (b) the bench case through the CLI with --mesh_les 2 --gcmprocs 2
 BANDS_CLI_ARGS = ["--gcmprocs", str(MESH_RANKS)]
 # (c) the T159 regional case (t159bench.case: T159/L19 SL, 64 x 64x64x160,
@@ -3465,6 +3484,7 @@ def phase_gcm_bands(card, single, t159_first, backend="gloo"):
                 fails.append("bands (a): %s beyond atol %g / rtol %g (max "
                              "abs err %.3g)" % (k, tol["atol"], tol["rtol"],
                                                 errs[k]))
+        rounded = BANDS_ROUNDED_ERRORS[backend]
         steps = [r["gcm"]["steps"] for r in reps]
         log("%s (a): T159/L19 SL hybrid GCM on %d bands of %d rows (%s), "
             "%d steps from the CPU-built "
@@ -3479,6 +3499,11 @@ def phase_gcm_bands(card, single, t159_first, backend="gloo"):
                [st["sum_bytes"] for st in steps[0]],
                [["%.1f" % st["cuda_ms"] for st in rs] for rs in steps],
                ["%.1f" % x for x in one_ms], card))
+        log("%s (a): tighter than with each band's analysis sums rounded to "
+            "float32 before the all_reduce (max abs err %s, "
+            "BANDS_ROUNDED_ERRORS): %s"
+            % (tag, rounded, {k: float("%.3g" % errs[k]) < rounded[k]
+                              for k in errs}))
         log("%s (a): a 4th step under torch.profiler: ranks %s; one process "
             "%s" % (tag, "; ".join(split_text(r["gcm"]["split"])
                                    for r in reps), split_text(one_split)))
@@ -3827,14 +3852,14 @@ BASELINE_REF_N = 4
 BASELINE_VARS = ("thl", "qt", "f_T", "f_SH", "A_d", "rain")
 
 
-def config4_points(n, trunc=None):
-    """(columns, --points) of t255bench.columns' first n columns on the
-    GCM's grid (CONFIG4_CONF's truncation), each point the grid's own
-    lat/lon, so that it selects its column (as bench_argv)."""
+def t255_points(n):
+    """(columns, --points) of config 4: t255bench.columns' first n
+    columns on the GCM's grid (CONFIG4_CONF's truncation), each point the
+    grid's own lat/lon, so that it selects its column (as bench_argv)."""
     from types import SimpleNamespace
     from sp_coupler_tpu_torch.models.gcm import spharm
     from sp_coupler_tpu_torch.runtime import t255bench
-    sht = spharm.SpectralTransform(trunc or CONFIG4_CONF["gcm_truncation"],
+    sht = spharm.SpectralTransform(CONFIG4_CONF["gcm_truncation"],
                                    device="cpu")
     lats, lons = sht.latitudes_deg(), sht.longitudes_deg()
     cols = t255bench.columns(SimpleNamespace(sht=sht, nlon=len(lons)), n)
@@ -3870,18 +3895,18 @@ def config5_points(n):
 
 # the two configurations of phase_baseline: conf, columns, ranks, coupled
 # steps (--steps steps - 1: the CLI adds the restart overlap), the ranks'
-# time limit, whether (ii) holds f_T's LES side level by level
-# (baseline_first_step), and the label of the logs
+# time limit, whether (ii) takes the float64 witness of step 1's polar T
+# (banded_witness, whole_witness), and the label of the logs
 BASELINE_CASES = {
     "config4": dict(conf=CONFIG4_CONF, fleet=CONFIG4_FLEET,
                     ranks=CONFIG4_RANKS, steps=CONFIG4_STEPS,
-                    points=config4_points, timeout=CONFIG4_TIMEOUT,
-                    gcm_t=False, phase="(g)",
+                    points=t255_points, timeout=CONFIG4_TIMEOUT,
+                    witness=False, phase="(g)",
                     label="T255/L19 + %d x 128x128x160"),
     "config5": dict(conf=CONFIG5_CONF, fleet=CONFIG5_FLEET,
                     ranks=CONFIG5_RANKS, steps=CONFIG5_STEPS,
                     points=config5_points, timeout=CONFIG5_TIMEOUT,
-                    gcm_t=True, phase="(h)",
+                    witness=True, phase="(h)",
                     label="TL639/L60 + %d x 64x64x160 on a global lattice"),
 }
 
@@ -3943,6 +3968,11 @@ def baseline_rank(case, odir, conf, report, fleet):
 
     held = {}
 
+    def peak_gib():
+        # the card's peak: initialize's too where the witness reset it
+        return max(torch.cuda.max_memory_allocated() / 2 ** 30,
+                   held.get("peak_init_gib", 0.0))
+
     def before_finalize(runner):
         core = runner.gcm.core
         pmesh.replicate(core.replicated(runner.gcm.state), runner.mesh)
@@ -3951,17 +3981,22 @@ def baseline_rank(case, odir, conf, report, fleet):
                  positions=np.asarray(runner.fleet.positions),
                  **{"les_%d" % i: row_sums(x.cpu().numpy())
                     for i, x in enumerate(leaves)})
-        held.update(peak_run_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        held.update(peak_run_gib=peak_gib(),
                     bands=[core.bands.P, core.bands.r0, core.bands.r1],
                     rows=int(runner.gcm.state.grid.T.shape[-2]),
                     block=list(runner.fleet.state.u.shape))
+
+    def witness(runner):
+        held["witness"] = banded_witness(runner, cols[:BASELINE_REF_N])
+        held["peak_init_gib"] = held["witness"].pop("peak_gib")
 
     CoupledStepFn._evolve_to, restart.save = timed_evolve, timed_save
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         (runner, walls, launches), calls = counted_substeps(
-            lambda: cli_leg(argv, tee_writer(), before_finalize))
+            lambda: cli_leg(argv, tee_writer(), before_finalize,
+                            witness if c["witness"] else None))
         rank = pmesh.rank()
         if runner.mesh is None or pmesh.world_size() != c["ranks"]:
             raise AssertionError("rank %d: no les mesh over %d ranks"
@@ -3977,8 +4012,7 @@ def baseline_rank(case, odir, conf, report, fleet):
                    walls=walls, evolve_s=evolve_s[0], save_s=save_s,
                    substeps=runner.substeps, launches=launches,
                    loop_substeps=calls, run_s=time.time() - t0,
-                   init_s=runner.init_s,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   init_s=runner.init_s, peak_gib=peak_gib(),
                    **held, **transport())
         if rank == 0:
             spifs = os.path.join(odir, "spifs.nc")
@@ -4124,16 +4158,18 @@ def check_baseline_checkpoint(case, path, ref_path, sums, n):
     return time.time() - t0, len(les)
 
 
-def baseline_first_step(ref_times, ref_groups, rec, cols, gcm_t):
+def baseline_first_step(ref_times, ref_groups, rec, cols, witness=None):
     """(ii): rank 0's step-1 records of cols (BASELINE_VARS and the GCM's
-    T) against the reference's: record_diffs on the first record, with
-    f_T's LES side held level by level where gcm_t (config 5: at ~87 deg
-    f_T is the difference of two float32 T profiles ~0.01 K apart, one
-    spacing of T over dt ~1e-3 of max|f_T|, and the banded and the whole
-    GCM round T apart). Returns (diffs, parts): parts[col] the largest
-    over f_T's levels of the f_T difference, the GCM T difference over dt
-    and the remapped <T>_LES's, (f_T dt + T)'s, over dt, each over
-    max|f_T|."""
+    T) against the reference's: record_diffs on the first record, f_T
+    held whole. Where that fails and a witness is given (config 5:
+    witness_table's), f_T's LES side is held level by level instead (f_T
+    = (<T>_LES - T)/dt may differ besides by the two runs' GCM T at each
+    level over dt) if banded_farther finds no level of f_T where the
+    witness puts the banded core farther from float64 than the whole one;
+    otherwise it fails. Returns (diffs, parts, hold): parts[col] the
+    largest over f_T's levels of the f_T difference, the GCM T difference
+    over dt and the remapped <T>_LES's, (f_T dt + T)'s, over dt, each
+    over max|f_T|; hold "whole" or "level by level"."""
     names = BASELINE_VARS + ("T",)
     ref = {c: {v: ref_groups[c][v][:1] for v in names} for c in cols}
     got = {"Time": np.asarray(rec["Time"][:1])}
@@ -4153,9 +4189,199 @@ def baseline_first_step(ref_times, ref_groups, rec, cols, gcm_t):
             les_T=float(np.max(np.abs((f1 * dt + t1) - (f0 * dt + t0))[
                 inside], initial=0)) / dt / scale)
     try:
-        return record_diffs(ref_times[:1], ref, got, gcm_t=gcm_t), parts
+        return record_diffs(ref_times[:1], ref, got), parts, "whole"
+    except AssertionError as e:
+        whole = "%s; f_T's parts: %s" % (e, parts)
+    if witness is None:
+        raise AssertionError(whole)
+    far = banded_farther(witness, [ref[c]["f_T"][0] for c in cols],
+                         [ref[c]["T"][0] for c in cols])
+    if far:
+        raise AssertionError(
+            "%s; at f_T's levels the witness puts the banded core farther "
+            "from float64 than the whole one (level, banded K, whole K, "
+            "allowance K): %s" % (whole, far))
+    try:
+        return (record_diffs(ref_times[:1], ref, got, gcm_t=True), parts,
+                "level by level")
     except AssertionError as e:
         raise AssertionError("%s; f_T's parts: %s" % (e, parts))
+
+
+def banded_farther(witness, f_T, T):
+    """[(level, banded, whole, allowance)] at each of f_T's levels (where
+    any of the reference columns' step-1 f_T [n][L] is nonzero) at which
+    witness_table's distances from float64 put the banded core farther
+    than the whole one by more than the allowance, F_ULPS float32
+    spacings of the level's largest |T| (T [n][L], K)."""
+    T = np.abs(np.asarray(T, np.float64))
+    out = []
+    for k in np.flatnonzero(np.any(np.asarray(f_T) != 0, axis=0)):
+        allow = F_ULPS * float(np.spacing(np.float32(np.max(T[:, k]))))
+        banded, whole = witness["banded"][k], witness["whole"][k]
+        if banded > whole + allow:
+            out.append((int(k), banded, whole, allow))
+    return out
+
+
+# (h)'s float64 witness of step 1's polar T: the GCM T at the reference's
+# columns (row 10, ~87 deg N) after step 1's phase A and cloud scheme from
+# config 5's start, of the whole core in float64 (tl639_rows.as_double),
+# held level by level against the whole float32 core (card 0's record),
+# the banded core (rank 0's record) and the whole core with its
+# hemispheres folded in float64 (float64_fold), which the whole core's
+# analysis does in float32 before card_sums
+
+@contextlib.contextmanager
+def float64_fold():
+    """The whole core's analysis where card_sums sums in float64
+    (spharm.float64_sums) with the hemispheres folded in float64 too, not
+    in float32 before the float64 sums; the banded analysis (no fold) is
+    unchanged."""
+    from sp_coupler_tpu_torch.models.gcm import spharm
+    ana_sums = spharm.SpectralTransform._ana_sums
+
+    def folded(self, fmw):
+        if self.bands is not None or not spharm.float64_sums(fmw):
+            return ana_sums(self, fmw)
+        x = fmw.double()
+        return tuple(torch.einsum("...jmc,jmk->...mkc", self._fold(x, sign),
+                                  table.double()).to(fmw.dtype)
+                     for sign, table in ((1.0, self.Pe), (-1.0, self.Po)))
+
+    spharm.SpectralTransform._ana_sums = folded
+    try:
+        yield
+    finally:
+        spharm.SpectralTransform._ana_sums = ana_sums
+
+
+def witness_T(core, start, cols):
+    """T [n, L] (float64 numpy) at the grid columns cols after step 1's
+    phase A (the Euler start) and cloud scheme from start, the state the
+    coupled step takes its GCM profiles from (a collective under bands)."""
+    s = core.phase_cloud(core.phase_a(start, first=True))
+    idx = torch.as_tensor(cols, dtype=torch.int64, device=core.device)
+    return core._columns([s.grid.T], idx)[0].T.double().cpu().numpy()
+
+
+def config5_start(gcm, seed):
+    """The start the CLI gives gcm (models/gcm/model.py GCMModel): its
+    core's initial state from seed, with the vertical-diffusion mask of
+    its SP columns."""
+    return gcm.core.initial_state(seed)._replace(
+        vdiff_mask=gcm.state.vdiff_mask)
+
+
+def banded_witness(runner, cols):
+    """On every rank of a banded run, after its initialize (collectives):
+    the banded core's witness_T at cols from config5_start as the run
+    takes it ("banded"), and the card's peak GiB before it ("peak_gib",
+    initialize's); the card's cache emptied and its peak reset after, so
+    that the run's peak leaves the witness out."""
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    banded = witness_T(runner.gcm.core, config5_start(
+        runner.gcm, runner.cfg.seed), cols)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return dict(banded=banded.tolist(), peak_gib=peak)
+
+
+def whole_witness(case, conf, cols):
+    """The whole core of the case as the CLI builds it on this process's
+    card (driver.create_gcm, no mesh, cols its SP columns): witness_T at
+    cols in float32 ("whole"), in float32 under float64_fold ("fold64")
+    and, from the same float32 start, with tl639_rows.as_double of the
+    core ("float64"); with the seconds and the card's peak GiB."""
+    from sp_coupler_tpu_torch import spmaster
+    from sp_coupler_tpu_torch.runtime import driver
+    from sp_coupler_tpu_torch.utils import tree
+    from sp_coupler_tpu_torch.verify import tl639_rows
+    t0 = time.time()
+    cfg = spmaster.build_runner(baseline_argv(case, "witness", conf,
+                                              len(cols), mesh=False)[1]).cfg
+    torch.cuda.reset_peak_memory_stats()
+    gcm = driver.create_gcm(cfg)
+    if gcm.core.device.type != "cuda":
+        raise AssertionError("the witness's GCM took %s" % gcm.core.device)
+    for col in cols:
+        gcm.set_mask(col)
+    gcm.set_vdf_in_sp_mask(not cfg.cplsurf)
+    start = config5_start(gcm, cfg.seed)
+    whole = witness_T(gcm.core, start, cols)
+    with float64_fold():
+        fold64 = witness_T(gcm.core, start, cols)
+    leaves, spec = tree.flatten(start)
+    start = tree.unflatten(spec, iter([
+        x.double() if x.dtype == torch.float32 else x for x in leaves]))
+    gcm.state = leaves = None
+    torch.cuda.empty_cache()
+    core = tl639_rows.as_double(gcm.core)
+    del gcm
+    torch.cuda.empty_cache()
+    f64 = witness_T(core, start, cols)
+    del core, start
+    torch.cuda.empty_cache()
+    return dict(whole=whole.tolist(), fold64=fold64.tolist(),
+                float64=f64.tolist(), seconds=time.time() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def witness_table(whole, rank0, ref_T, rank_T, ref_fT, rank_fT):
+    """{name: [L]} at each level, the largest over the columns: the
+    distances in K from the float64 witness (whole_witness) of card 0's
+    step-1 T (ref_T [n, L], "whole"), rank 0's (rank_T, "banded") and the
+    whole core under float64_fold (whole_witness, "fold64"); rank 0's T
+    from card 0's ("banded_vs_whole", K) and its f_T from card 0's over
+    each column's max|f_T| ("f_T"); with the witness's whole and banded T
+    (rank0: rank 0's banded_witness) against the records they recompute
+    ("recomputed", K: 0 where the witness steps the runs' own start)."""
+    f64 = np.asarray(whole["float64"], np.float64)
+    a, c = (np.asarray(x, np.float64) for x in (ref_T, rank_T))
+    dist = lambda x, y: np.max(np.abs(x - y), axis=0).tolist()
+    f0, f1 = (np.asarray(x, np.float64) for x in (ref_fT, rank_fT))
+    scale = np.max(np.abs(f0), axis=1, keepdims=True) + 1e-30
+    return dict(
+        whole=dist(a, f64), banded=dist(c, f64),
+        fold64=dist(np.asarray(whole["fold64"], np.float64), f64),
+        banded_vs_whole=dist(c, a),
+        f_T=np.max(np.abs(f1 - f0) / scale, axis=0).tolist(),
+        recomputed=dict(
+            whole=float(np.max(np.abs(np.asarray(whole["whole"]) - a))),
+            banded=float(np.max(np.abs(np.asarray(rank0["banded"]) - c)))))
+
+
+def phase_witness(case, conf, cols, ref_groups, rec, rank0, tag, card):
+    """(h)'s witness after the reference, on this process's card:
+    whole_witness at the reference's columns, then witness_table against
+    card 0's and rank 0's step-1 records and rank 0's banded_witness,
+    printed level by level. Returns the table (with the witness's seconds
+    and peak)."""
+    whole = whole_witness(case, conf, cols)
+    first = lambda g, v: [np.asarray(g(col, v))[0] for col in cols]
+    ref = lambda col, v: ref_groups[col][v]
+    got = lambda col, v: rec["%d/%s" % (col, v)]
+    table = witness_table(whole, rank0, first(ref, "T"), first(got, "T"),
+                          first(ref, "f_T"), first(got, "f_T"))
+    table.update(seconds=whole["seconds"], peak_gib=whole["peak_gib"])
+    log("%s witness: step 1's GCM T at columns %s after phase A and the "
+        "cloud scheme, against the whole core in float64 from the same "
+        "start (%.1f s, peak %.2f GiB); the largest over the columns, K: "
+        "whole float32 %.3g, banded %.3g, whole with the hemispheres "
+        "folded in float64 %.3g; banded against whole %.3g; the witness's "
+        "float32 T against the records it recomputes: whole %.3g, banded "
+        "%.3g; on %s" % (
+            tag, cols, whole["seconds"], whole["peak_gib"],
+            max(table["whole"]), max(table["banded"]), max(table["fold64"]),
+            max(table["banded_vs_whole"]), table["recomputed"]["whole"],
+            table["recomputed"]["banded"], card))
+    log("%s witness by level (K from float64: whole / banded / fold64; "
+        "banded - whole K; |f_T banded - whole| / max|f_T|):" % tag)
+    for k in range(len(table["whole"])):
+        log("  level %2d: %.3g / %.3g / %.3g; %.3g; %.3g" % (
+            k, table["whole"][k], table["banded"][k], table["fold64"][k],
+            table["banded_vs_whole"][k], table["f_T"][k]))
+    return table
 
 
 def read_rank_reports(report, n):
@@ -4194,10 +4420,12 @@ def phase_baseline(card, case, fleet=None):
     on the case's cards (baseline_rank, nccl; each rank a share of this
     host's cores) at its fleet (or its first fleet columns), then its
     first BASELINE_REF_N columns through the CLI on card 0 without a mesh
-    (reference_leg, after the ranks: their walls share no card); holds (i)
-    the GCM's replicated state the same on every rank, each rank's band
-    nlat / ranks rows and its fleet / ranks instances, (ii) step 1 of rank
-    0's first columns against card 0's run, (iii) every instance's
+    (reference_leg, after the ranks: their walls share no card), then
+    where the case takes it the float64 witness of step 1's GCM T at
+    those columns (phase_witness); holds (i) the GCM's replicated state
+    the same on every rank, each rank's band nlat / ranks rows and its
+    fleet / ranks instances, (ii) step 1 of rank 0's first columns against
+    card 0's run (baseline_first_step), (iii) every instance's
     records finite on every step and every instance substepping, (iv)
     rank 0's checkpoint against every rank's sums, held while (v) one
     step resumes from it on the same mesh; each rank's lesstage launches
@@ -4285,16 +4513,25 @@ def phase_baseline(card, case, fleet=None):
                 raise AssertionError(
                     "%s reference: columns %s, rank 0's first %s"
                     % (case, ref_cols, cols[:BASELINE_REF_N]))
-            diffs, parts = baseline_first_step(
-                ref_times, ref_groups, rec, cols[:BASELINE_REF_N],
-                c["gcm_t"])
+            table = None
+            if c["witness"]:
+                table = phase_witness(case, conf, ref_cols, ref_groups, rec,
+                                      r0["witness"], tag, card)
+                dump(witness=table)
+                if any(table["recomputed"].values()):
+                    raise AssertionError(
+                        "%s witness: its float32 T does not recompute the "
+                        "records (K): %s" % (case, table["recomputed"]))
+            diffs, parts, f_T_hold = baseline_first_step(
+                ref_times, ref_groups, rec, cols[:BASELINE_REF_N], table)
             slack = int(np.max(np.abs(sub[0, :BASELINE_REF_N]
                                       - np.asarray(ref["substeps"][0]))))
             if slack > C_SUBSTEP_SLACK:
                 raise AssertionError("%s: step 1's substeps %s, card 0's %s"
                                      % (case, sub[0, :BASELINE_REF_N].tolist(),
                                         ref["substeps"][0]))
-            dump(step1_diffs=diffs, f_T_parts=parts, substep_slack=slack)
+            dump(step1_diffs=diffs, f_T_parts=parts, f_T_hold=f_T_hold,
+                 substep_slack=slack)
             # (iv) while (v), the resume, one step on the same mesh
             path = os.path.join(odir, "restart.npz")
             hold = pool.submit(check_baseline_checkpoint, case, path,
@@ -4324,7 +4561,7 @@ def phase_baseline(card, case, fleet=None):
             "s (initialize %.1f s), step walls %s s, own evolve "
             "%.1f s, lesstage %d = 3 x %d "
             "substep calls, instance-substeps %s, peak %.2f GiB before the "
-            "checkpoint and %.2f GiB after, checkpoint %s s" % (
+            "checkpoint and %.2f GiB after%s, checkpoint %s s" % (
                 tag, rep["rank"], rep["device"], rep["card"],
                 rep["positions"][0], rep["positions"][-1], rep["bands"][1:],
                 rep["run_s"], rep["init_s"],
@@ -4334,6 +4571,8 @@ def phase_baseline(card, case, fleet=None):
                 [int(np.sum(np.asarray(s)[rep["positions"]]))
                  for s in rep["substeps"]],
                 rep["peak_run_gib"], rep["peak_gib"],
+                " (initialize's %.2f GiB; the witness's not counted)"
+                % rep["peak_init_gib"] if "peak_init_gib" in rep else "",
                 ["%.2f" % x for x in rep["save_s"]]))
     for rep in rreps:
         log("%s resume rank %d (%s): restart.load %.2f s, %d bytes read of "
@@ -4359,7 +4598,8 @@ def phase_baseline(card, case, fleet=None):
             len(r0["timing_rows"]), [row[-1] for row in r0["timing_rows"]],
             r0["checkpoint_bytes"], r0["save_s"][0], n_leaves, hold_s,
             ref_cols, ["%.2f" % w for w in ref["walls"]], ref["peak_gib"],
-            " (f_T's LES side level by level)" if c["gcm_t"] else "",
+            "" if f_T_hold == "whole" else
+            " (f_T's LES side level by level)",
             max(diffs.items(), key=lambda kv: kv[1]), parts, slack,
             res["seconds"], card))
     return res

@@ -13,8 +13,9 @@ band's row j takes the folded tables' values at its mirror row (j in the
 north, nlat - 1 - j in the south) with the odd class's sign flipped in
 the south, so synthesis needs no exchange, and analysis sums the band's
 own rows unfolded, then adds the ranks' sums with one ``all_reduce`` per
-``analyze`` / ``vort_div_from_uv`` call. ``whole`` is the unbanded
-transform over the same tables (itself without bands).
+``analyze`` / ``vort_div_from_uv`` call (on the card in float64, rounded
+once after it). ``whole`` is the unbanded transform over the same tables
+(itself without bands).
 
 Conventions: packed-real spectral coefficients [..., M, N, 2] with M = T+1,
 N = T+2 (the n = T+1 row is recurrence workspace); grid arrays
@@ -62,18 +63,27 @@ def grid_degrees(nlat, nlon):
     return np.degrees(np.arcsin(mu)), np.arange(nlon) * 360.0 / nlon
 
 
-def card_sums(eq, x, table):
-    """torch.einsum(eq, x, table), where on the card a float32 contraction
-    is summed in float64 from the same float32 values and rounded back
-    once. The card's float32 GEMMs sum the analysis (the longitude sums
-    over 1280 points at TL639, the Legendre sums) and the semi-implicit
-    product less accurately than the CPU's: from the same inputs the
-    card's TL639 solve lay 3.8x (vorticity) to 11x (divergence at n ~
-    614) further from float64 than the CPU's, and its jet run went
+def float64_sums(x):
+    """Whether a float32 contraction of x sums in float64 (card_sums): on
+    the card, not on the CPU, where every CPU comparison with the JAX
+    package runs torch.einsum's own float32 sums."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def card_sums(eq, x, table, keep=False):
+    """torch.einsum(eq, x, table), where float64_sums(x) sums a float32
+    contraction in float64 from the same float32 values and rounds it back
+    once (keep: returns the float64 sums unrounded, for a caller that adds
+    more to them first). The card's float32 GEMMs sum the analysis (the
+    longitude sums over 1280 points at TL639, the Legendre sums) and the
+    semi-implicit product less accurately than the CPU's: from the same
+    inputs the card's TL639 solve lay 3.8x (vorticity) to 11x (divergence
+    at n ~ 614) further from float64 than the CPU's, and its jet run went
     non-finite at step 19 against the CPU's 23; with these sums, at step
     22 (verify/TL639_H100.md)."""
-    if x.is_cuda and x.dtype == torch.float32 and table.dtype == x.dtype:
-        return torch.einsum(eq, x.double(), table.double()).float()
+    if float64_sums(x) and table.dtype == x.dtype:
+        out = torch.einsum(eq, x.double(), table.double())
+        return out if keep else out.float()
     return torch.einsum(eq, x, table)
 
 
@@ -284,23 +294,30 @@ class SpectralTransform:
 
     def _ana_sums(self, fmw):
         """(even, odd) packed Legendre sums [..., M, Ke, 2]: over the
-        folded whole grid, or the band's rows' share of them."""
+        folded whole grid, or the band's rows' share of them, which stays
+        in float64 where card_sums sums so (rounded after the all_reduce)."""
         if self.bands is None:
             fmw_e, fmw_o = self._fold(fmw, 1.0), self._fold(fmw, -1.0)
         else:
             fmw_e = fmw_o = fmw
-        return (card_sums("...jmc,jmk->...mkc", fmw_e, self.Pe),
-                card_sums("...jmc,jmk->...mkc", fmw_o, self.Po))
+        keep = self.bands is not None
+        return (card_sums("...jmc,jmk->...mkc", fmw_e, self.Pe, keep=keep),
+                card_sums("...jmc,jmk->...mkc", fmw_o, self.Po, keep=keep))
 
     def _ana_many(self, *fmws):
         """_ana of each of fmws; under bands one all_reduce adds the ranks'
-        sums of all of them."""
+        sums of all of them, in float64 where card_sums sums so, and each
+        sum is rounded to fmws' dtype once after it: the bands' partial
+        sums of a field with a large mean cancel, and rounding each to
+        float32 before adding them would lose the high-n coefficients'
+        digits."""
         sums = [x for f in fmws for x in self._ana_sums(f)]
         if self.bands is not None:
             flat = self.bands.sum_(torch.cat([x.reshape(-1) for x in sums]))
             out, off = [], 0
             for x in sums:
-                out.append(flat[off:off + x.numel()].reshape(x.shape))
+                out.append(flat[off:off + x.numel()].reshape(x.shape)
+                           .to(fmws[0].dtype))
                 off += x.numel()
             sums = out
         return [self._unpack_coeffs(sums[2 * k], sums[2 * k + 1])
